@@ -1,11 +1,12 @@
 """advancedps_tpu_torch — the PyTorch and CUDA port of ``advancedps_tpu``.
 
-This slice carries the bootstrap-SMC main path: the positional counter-based
-RNG, the ``Normal`` distribution, the state-space-model DSL with the
-linear-Gaussian models, systematic resampling under the ESS gate, the sweep
-engine and the SMC entry points.  Resampling runs through hand-written CUDA kernels
-(:mod:`advancedps_tpu_torch.ops.resample`) on CUDA tensors and through their
-plain PyTorch versions on CPU tensors.
+It carries bootstrap SMC, PG and PGAS over the state-space-model DSL: the
+positional counter-based RNG, the ``Normal`` distribution, the linear-Gaussian
+models, the systematic, stratified, multinomial and residual schemes under the
+ESS gate, the sweep engine with reference trajectories and ancestor sampling,
+and the SMC and PG entry points.  Resampling runs through hand-written CUDA
+kernels (:mod:`advancedps_tpu_torch.ops.resample`) on CUDA tensors and
+through their plain PyTorch versions on CPU tensors.
 
 Quick start::
 
@@ -14,20 +15,38 @@ Quick start::
 
     model = apt.models.stationary_lgssm(a=0.9, q=0.32, r=1.0)
     _, ys = apt.simulate(torch.Generator().manual_seed(0), model, 100)
-    smc = apt.sample(apt.rng.key(1), apt.TracedSSM(model, ys), apt.SMC(100_000),
-                     device="cuda")
+    traced = apt.TracedSSM(model, ys)
+    smc = apt.sample(apt.rng.key(1), traced, apt.SMC(100_000), device="cuda")
+    chain = apt.sample(apt.rng.key(2), traced, apt.PGAS(100_000), 10,
+                       trajectory_storage="replay", device="cuda")
 """
 
 from . import convert, distributions, models, ops, rng, utils
 from .convert import key_from_words, traced_ssm_from_numpy
 from .distributions import Normal
-from .engine import SweepKernel, SweepResult, lineages, reconstruct, sweep
-from .inference import make_kernel, sample, sample_smc
+from .engine import (
+    SweepKernel,
+    SweepResult,
+    inject_ref,
+    lineages,
+    reconstruct,
+    replay_trajectory,
+    sweep,
+)
+from .inference import make_kernel, sample, sample_pg, sample_smc, step_pg
+from .pg import PG, PGAS, PGSample, PGState
 from .resampling import (
     DEFAULT_RESAMPLER,
     ResampleWithESSThreshold,
+    as_gated_resampler,
     effective_sample_size,
+    multinomial_spacings,
+    randcat_gumbel,
+    resample_multinomial,
+    resample_residual,
+    resample_stratified,
     resample_systematic,
+    stratified_extents,
 )
 from .smc import SMC, SMCSample, SSMKernel
 from .ssm import (

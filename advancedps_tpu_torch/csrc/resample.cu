@@ -1,52 +1,73 @@
-// Systematic-resampling kernels for Hopper (sm_90a), bound through a plain C
-// interface and loaded with ctypes (advancedps_tpu_torch/ops/resample.py).
+// Resampling kernels for Hopper (sm_90a), bound through a plain C interface
+// and loaded with ctypes (advancedps_tpu_torch/ops/resample.py).
 //
-// Three kernels carry the bootstrap-SMC resampling step:
+// Every kernel replaces one function of advancedps_tpu/ops/pallas_resample.py:
 //
 //   B1 extents   f_j = clip(ceil(n * (prefix_j * inv_s1) - u), 0, n),
 //                prefix = inclusive cumsum of exp(logw - m), output bitwise
 //                nondecreasing.  Replaces extents_from_logw
-//                (advancedps_tpu/ops/pallas_resample.py, _make_extents_kernel).
+//                (_make_extents_kernel).
 //   B2 decode    anc[k] = #{j : f_j <= k} = upper_bound(f, k), with f[M-1]
 //                read as `guard`.  Replaces decode_ancestors_bs
-//                (pallas_resample.py, _make_decode_bs_kernel).
+//                (_make_decode_bs_kernel).
 //   B3 move      out[k, :] = v[anc[k], :] bitwise, 0 where anc[k] == M.
 //                Replaces the v6 lookup move _resample_move_cols_v6
-//                (pallas_resample.py, _make_lookup_kernel).
+//                (_make_lookup_kernel).
+//   B6 prefix    out_j = (sum_{i<=j} e_i) * scale, e = exp(x - m) or x,
+//                output bitwise nondecreasing.  Replaces _scaled_prefix
+//                (_make_scaled_prefix_kernel) behind scaled_prefix_from_logw
+//                and prefix_sum.
+//   B7 count     out[j] = #{k : s_k <= t_j} for sorted s, one binary search
+//                per threshold.  Replaces count_le_sorted_bs
+//                (_count_le_bs_kernel).
+//   B8 merge     the same counts by a merge path over sorted s and t.
+//                Replaces count_le_sorted (_count_le_kernel).
 //
 // What bounds them on the card is memory traffic, not arithmetic.  At
-// M = n = 1M: B1 reads logw twice (8 MB) and writes f (4 MB); B2 reads f
-// through ~20 binary-search probes per slot, but f (4 MB) stays in the 50 MB
-// L2 and neighbouring slots share their probe paths; B3 reads anc and the
-// source rows and writes the rows (12 MB at D = 1).  The design keeps every
-// access either coalesced (B1, B3 writes) or L2-resident (B2 probes), and
-// does no per-row run-length scatter, so a single survivor that owns every
-// slot costs the same as uniform weights.
+// M = n = 1M: B1 and B6 read their input twice (8 MB) and write 4 MB; B2 and
+// B7 read their sorted array through ~20 binary-search probes per output, but
+// that array (4 MB) stays in the 50 MB L2 and neighbouring outputs share their
+// probe paths; B3 reads anc and the source rows and writes the rows (12 MB at
+// D = 1); B8 reads s and t once each into shared memory and writes the counts.
+// The design keeps every access either coalesced or L2-resident, and does no
+// per-row run-length scatter, so a single survivor that owns every slot costs
+// the same as uniform weights.
 //
-// B1 precision.  Near n*cdf = 1e6 one float32 ulp is 0.06, so two float32
+// B1/B6 precision.  Near n*cdf = 1e6 one float32 ulp is 0.06, so two float32
 // prefix sums that differ by an ulp flip ~6% of the extents.  The prefix is
 // therefore accumulated in double (sequential within a thread, a warp-shuffle
 // scan across threads, a scan of the tile sums across tiles) and rounded to
-// float32 once; the plain version does the same with a float64 cumsum.  Both
+// float32 once; the plain versions do the same with a float64 cumsum.  Both
 // are then the correctly rounded prefix but for double rounding error, and the
 // float32 epilogue that follows is the same operations in the same order.
-// (The TPU kernel carries a Kahan-compensated float32 sum for the same reason.)
+// (The TPU kernels carry a Kahan-compensated float32 sum for the same reason.)
 //
-// B1 monotonicity.  Blocks run in no order, so the sequential carry of the TPU
-// kernel has no counterpart, and neighbouring prefixes can still dip where two
-// summation trees meet.  A dip at a stratum boundary would emit a decreasing
-// extent, which breaks the exact-copy move.  So the integer extents go through
-// an exact max-scan: inside a tile by the same thread/warp structure, across
-// tiles by an exclusive max-scan of the tile maxima and a fix-up pass that
-// touches only tiles whose first extent lies below that carry.  Integer max is
-// exact and associative, so the output is nondecreasing by construction,
-// whatever the summation order.
+// B1/B6 monotonicity.  Blocks run in no order, so the sequential carry of the
+// TPU kernels has no counterpart, and neighbouring double prefixes can still
+// differ by a double ulp the wrong way where two summation trees meet (the end
+// of one thread's run against the start of the next).  Where that straddles a
+// float32 rounding boundary the output would dip, and B2/B7/B8 and the
+// stratified extents all need a nondecreasing input.  So the epilogue's values
+// go through an exact max-scan: inside a tile by the same thread/warp
+// structure, across tiles by an exclusive max-scan of the tile maxima and a
+// fix-up pass that touches only tiles whose first value lies below that carry.
+// Max is exact and associative, so the output is nondecreasing by
+// construction, whatever the summation order.  (The TPU kernels keep a running
+// max for the same reason.)
 //
-// All float32 arithmetic of the extents epilogue uses explicit round-to-nearest
+// All float32 arithmetic of the epilogues uses explicit round-to-nearest
 // intrinsics so that nvcc does not contract n*cdf - u into an FMA: the plain
-// PyTorch version rounds each operation separately.
+// PyTorch versions round each operation separately.
+//
+// B8 balance.  The merge path (Green, McColl, Bader 2012) cuts the merged
+// order of s and t into equal tiles by a binary search along each tile's first
+// diagonal, so every block merges exactly kMergeTile elements, whatever the
+// skew: one particle holding all the weight (every threshold in one tile) costs
+// what uniform weights cost.  That is what the TPU's chunk-once staircase was
+// for.
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -55,7 +76,10 @@ constexpr int kThreads = 256;              // threads per tile block
 constexpr int kItems = 8;                  // consecutive elements per thread
 constexpr int kTile = kThreads * kItems;   // elements per tile
 constexpr int kScanThreads = 1024;         // single-block cross-tile scans
-constexpr int kMoveThreads = 256;
+constexpr int kMoveThreads = 256;          // B2, B3, B7: one thread per output
+constexpr int kMergeThreads = 256;         // B8
+constexpr int kMergeItems = 8;             // merged elements per B8 thread
+constexpr int kMergeTile = kMergeThreads * kMergeItems;
 
 struct Add {
   template <typename T>
@@ -101,54 +125,102 @@ __device__ T block_exclusive_scan(T v, T identity, Op op, T* smem, T* total) {
   return excl;
 }
 
-// ---- B1, pass 1: per-tile sums of exp(logw - m), in double.
-__global__ void extents_tile_sums(const float* __restrict__ logw, int64_t len,
-                                  const float* __restrict__ mx,
-                                  double* __restrict__ tile_sum) {
+// ---- The shared prefix scan of B1 and B6 -----------------------------------
+//
+// Pass 1 sums each tile in double, pass 2 scans the tile sums, pass 3 forms
+// each element's double prefix, applies the epilogue and max-scans the tile,
+// pass 4 max-scans the tile maxima and pass 5 raises tiles below their carry.
+
+// Element j of the summed sequence: exp(x_j - m) in float32, or x_j.
+template <bool kUseExp>
+__device__ __forceinline__ double summand(const float* __restrict__ x, int64_t j, float m) {
+  return kUseExp ? (double)expf(__fsub_rn(x[j], m)) : (double)x[j];
+}
+
+// B1's epilogue: the systematic extent of a double prefix.
+struct ExtentsEpilogue {
+  using T = int;
+  const float* s1;
+  float u;
+  int n;
+  float inv_s1, nf;  // set on the device by load()
+  __host__ __device__ static int lowest() { return 0; }  // extents are >= 0
+  __device__ void load() {
+    inv_s1 = __frcp_rn(*s1);
+    nf = (float)n;
+  }
+  __device__ int operator()(double p) const {
+    const float prefix = __double2float_rn(p);  // rounded once
+    const float cdf = __fmul_rn(prefix, inv_s1);
+    float ff = ceilf(__fsub_rn(__fmul_rn(nf, cdf), u));
+    return (int)fminf(fmaxf(ff, 0.0f), nf);
+  }
+};
+
+// B6's epilogue: the prefix rounded to float32 once, times `scale` (1 when
+// `scale_ptr` is null).
+struct ScaleEpilogue {
+  using T = float;
+  const float* scale_ptr;
+  float scale;  // set on the device by load()
+  __host__ __device__ static float lowest() { return -INFINITY; }
+  __device__ void load() { scale = scale_ptr != nullptr ? *scale_ptr : 1.0f; }
+  __device__ float operator()(double p) const {
+    return __fmul_rn(__double2float_rn(p), scale);
+  }
+};
+
+// Pass 1: per-tile sums of the summands, in double.
+template <bool kUseExp>
+__global__ void prefix_tile_sums(const float* __restrict__ x, int64_t len,
+                                 const float* __restrict__ mx,
+                                 double* __restrict__ tile_sum) {
   __shared__ double smem[32];
-  const float m = *mx;
+  const float m = kUseExp ? *mx : 0.0f;
   const int64_t first = (int64_t)blockIdx.x * kTile + (int64_t)threadIdx.x * kItems;
   double acc = 0.0;
 #pragma unroll
   for (int i = 0; i < kItems; ++i) {
     const int64_t j = first + i;
-    if (j < len) acc += (double)expf(__fsub_rn(logw[j], m));
+    if (j < len) acc += summand<kUseExp>(x, j, m);
   }
   double total;
   block_exclusive_scan(acc, 0.0, Add(), smem, threadIdx.x == 0 ? &total : nullptr);
   if (threadIdx.x == 0) tile_sum[blockIdx.x] = total;
 }
 
-// ---- Single-block exclusive scan over the per-tile values (passes 2 and 4).
-// Each thread folds a contiguous run of tiles sequentially in Acc, then one
-// block scan joins the runs.
-template <typename In, typename Acc, typename Op>
-__global__ void tiles_exclusive_scan(const In* __restrict__ in, In* __restrict__ out,
-                                     int ntiles, Acc identity, Op op) {
-  __shared__ Acc smem[32];
+// Passes 2 and 4: single-block exclusive scan over the per-tile values.  Each
+// thread folds a contiguous run of tiles sequentially, then one block scan
+// joins the runs.
+template <typename T, typename Op>
+__global__ void tiles_exclusive_scan(const T* __restrict__ in, T* __restrict__ out,
+                                     int ntiles, T identity, Op op) {
+  __shared__ T smem[32];
   const int per = (ntiles + blockDim.x - 1) / blockDim.x;
   const int lo = threadIdx.x * per;
   const int hi = min(lo + per, ntiles);
-  Acc local = identity;
-  for (int i = lo; i < hi; ++i) local = op(local, (Acc)in[i]);
-  Acc run = block_exclusive_scan(local, identity, op, smem, (Acc*)nullptr);
+  T local = identity;
+  for (int i = lo; i < hi; ++i) local = op(local, in[i]);
+  T run = block_exclusive_scan(local, identity, op, smem, (T*)nullptr);
   for (int i = lo; i < hi; ++i) {
-    out[i] = (In)run;
-    run = op(run, (Acc)in[i]);
+    out[i] = run;
+    run = op(run, in[i]);
   }
 }
 
-// ---- B1, pass 3: per-tile prefix, the extents epilogue, and an in-tile
-// integer max-scan.  Writes the tile's largest extent to tile_max.
-__global__ void extents_tiles(const float* __restrict__ logw, int64_t len,
-                              const float* __restrict__ mx, const float* __restrict__ s1,
-                              float u, int n, const double* __restrict__ tile_base,
-                              int* __restrict__ f, int* __restrict__ tile_max) {
+// Pass 3: per-element double prefix, the epilogue, and an in-tile max-scan.
+// Writes the tile's largest value to tile_max.
+template <bool kUseExp, typename Epi>
+__global__ void prefix_tiles(const float* __restrict__ x, int64_t len,
+                             const float* __restrict__ mx, Epi epi,
+                             const double* __restrict__ tile_base,
+                             typename Epi::T* __restrict__ out,
+                             typename Epi::T* __restrict__ tile_max) {
+  using T = typename Epi::T;
   __shared__ double dsmem[32];
-  __shared__ int ismem[32];
-  const float m = *mx;
-  const float inv_s1 = __frcp_rn(*s1);
-  const float nf = (float)n;
+  __shared__ T tsmem[32];
+  epi.load();
+  const float m = kUseExp ? *mx : 0.0f;
   const int64_t first = (int64_t)blockIdx.x * kTile + (int64_t)threadIdx.x * kItems;
 
   double p[kItems];  // inclusive prefix within this thread's run
@@ -156,52 +228,72 @@ __global__ void extents_tiles(const float* __restrict__ logw, int64_t len,
 #pragma unroll
   for (int i = 0; i < kItems; ++i) {
     const int64_t j = first + i;
-    if (j < len) acc += (double)expf(__fsub_rn(logw[j], m));
+    if (j < len) acc += summand<kUseExp>(x, j, m);
     p[i] = acc;
   }
   const double base = tile_base[blockIdx.x] +
                       block_exclusive_scan(acc, 0.0, Add(), dsmem, (double*)nullptr);
 
-  int fi[kItems];
-  int run = 0;  // extents are >= 0
+  T v[kItems];
+  T run = Epi::lowest();
 #pragma unroll
   for (int i = 0; i < kItems; ++i) {
-    const float prefix = __double2float_rn(base + p[i]);  // rounded once
-    const float cdf = __fmul_rn(prefix, inv_s1);
-    float ff = ceilf(__fsub_rn(__fmul_rn(nf, cdf), u));
-    ff = fminf(fmaxf(ff, 0.0f), nf);
-    if (first + i < len) run = max(run, (int)ff);
-    fi[i] = run;
+    const T e = epi(base + p[i]);
+    if (first + i < len) run = e > run ? e : run;
+    v[i] = run;
   }
-  int tmax;
-  const int carry = block_exclusive_scan(run, 0, Max(), ismem,
-                                         threadIdx.x == 0 ? &tmax : nullptr);
+  T tmax;
+  const T carry = block_exclusive_scan(run, Epi::lowest(), Max(), tsmem,
+                                       threadIdx.x == 0 ? &tmax : nullptr);
 #pragma unroll
   for (int i = 0; i < kItems; ++i) {
     const int64_t j = first + i;
-    if (j < len) f[j] = max(fi[i], carry);
+    if (j < len) out[j] = v[i] > carry ? v[i] : carry;
   }
   if (threadIdx.x == 0) tile_max[blockIdx.x] = tmax;
 }
 
-// ---- B1, pass 5: raise each tile to the largest extent of the tiles before
-// it.  A tile is already max-scanned, so its first extent is its smallest:
-// when that is not below the carry the tile is left alone.
-__global__ void extents_carry(int* __restrict__ f, int64_t len,
-                              const int* __restrict__ tile_carry) {
+// Pass 5: raise each tile to the largest value of the tiles before it.  A tile
+// is already max-scanned, so its first value is its smallest: when that is not
+// below the carry the tile is left alone.
+template <typename T>
+__global__ void prefix_carry(T* __restrict__ out, int64_t len,
+                             const T* __restrict__ tile_carry) {
   __shared__ bool below;
-  const int carry = tile_carry[blockIdx.x];
+  const T carry = tile_carry[blockIdx.x];
   const int64_t first_of_tile = (int64_t)blockIdx.x * kTile;
-  // Read the tile's first extent before any thread raises it.
-  if (threadIdx.x == 0) below = f[first_of_tile] < carry;
+  // Read the tile's first value before any thread raises it.
+  if (threadIdx.x == 0) below = out[first_of_tile] < carry;
   __syncthreads();
   if (!below) return;
   const int64_t first = first_of_tile + (int64_t)threadIdx.x * kItems;
 #pragma unroll
   for (int i = 0; i < kItems; ++i) {
     const int64_t j = first + i;
-    if (j < len && f[j] < carry) f[j] = carry;
+    if (j < len && out[j] < carry) out[j] = carry;
   }
+}
+
+// The five passes.  dscratch holds 2 * ntiles doubles, tscratch 2 * ntiles
+// values of the epilogue's type.
+template <bool kUseExp, typename Epi>
+int prefix_scan(const float* x, int64_t len, const float* mx, Epi epi, double* dscratch,
+                typename Epi::T* tscratch, typename Epi::T* out, cudaStream_t s) {
+  using T = typename Epi::T;
+  const int ntiles = (int)((len + kTile - 1) / kTile);
+  double* tile_sum = dscratch;
+  double* tile_base = dscratch + ntiles;
+  T* tile_max = tscratch;
+  T* tile_carry = tscratch + ntiles;
+  prefix_tile_sums<kUseExp><<<ntiles, kThreads, 0, s>>>(x, len, mx, tile_sum);
+  tiles_exclusive_scan<double, Add><<<1, kScanThreads, 0, s>>>(tile_sum, tile_base, ntiles,
+                                                               0.0, Add());
+  prefix_tiles<kUseExp, Epi><<<ntiles, kThreads, 0, s>>>(x, len, mx, epi, tile_base, out,
+                                                         tile_max);
+  tiles_exclusive_scan<T, Max><<<1, kScanThreads, 0, s>>>(tile_max, tile_carry, ntiles,
+                                                          Epi::lowest(), Max());
+  prefix_carry<T><<<ntiles, kThreads, 0, s>>>(out, len, tile_carry);
+  return (int)cudaGetLastError();
 }
 
 // ---- B2: one thread per output slot, binary search for the first extent
@@ -235,6 +327,74 @@ __global__ void move_rows_kernel(const int* __restrict__ anc, int64_t n_out, int
   if (c == 0) anc_clipped[k] = (int64_t)a < m ? a : (int)(m - 1);
 }
 
+// ---- B7: one thread per threshold, upper bound of t_j in the sorted s.
+__global__ void count_le_bs_kernel(const float* __restrict__ s, int64_t ns,
+                                   const float* __restrict__ t, int64_t nt,
+                                   int* __restrict__ out) {
+  const int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= nt) return;
+  const float tj = t[j];
+  int64_t lo = 0, hi = ns;
+  while (lo < hi) {
+    const int64_t mid = (lo + hi) >> 1;
+    if (__ldg(s + mid) > tj) hi = mid; else lo = mid + 1;
+  }
+  out[j] = (int)lo;
+}
+
+// ---- B8: merge path.  The merged order takes s_k before t_j exactly when
+// s_k <= t_j, so the count for t_j is the number of s entries merged before
+// it.  merge_split returns how many s entries lie among the first d merged
+// entries: the first i at which s_i > t_{d-1-i} (a predicate that turns false
+// once as i grows, s and t being sorted).
+template <typename Idx>
+__device__ Idx merge_split(const float* s, Idx ns, const float* t, Idx nt, Idx d) {
+  Idx lo = d > nt ? d - nt : 0;
+  Idx hi = d < ns ? d : ns;
+  while (lo < hi) {
+    const Idx mid = (lo + hi) >> 1;
+    if (s[mid] <= t[d - 1 - mid]) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// One block per kMergeTile merged entries: two global splits bound the
+// block's run of s and of t, both are staged in shared memory, and each
+// thread merges kMergeItems entries from its own split within the tile.
+__global__ void count_le_merge_kernel(const float* __restrict__ s, int64_t ns,
+                                      const float* __restrict__ t, int64_t nt,
+                                      int* __restrict__ out) {
+  __shared__ float tile[kMergeTile];
+  __shared__ int64_t split[2];
+  const int64_t d0 = (int64_t)blockIdx.x * kMergeTile;
+  const int64_t d1 = d0 + kMergeTile < ns + nt ? d0 + kMergeTile : ns + nt;
+  if (threadIdx.x < 2) {
+    split[threadIdx.x] = merge_split<int64_t>(s, ns, t, nt, threadIdx.x == 0 ? d0 : d1);
+  }
+  __syncthreads();
+  const int64_t i0 = split[0], j0 = d0 - split[0];
+  const int ni = (int)(split[1] - i0);
+  const int nj = (int)(d1 - split[1] - j0);
+  for (int k = threadIdx.x; k < ni + nj; k += blockDim.x) {
+    tile[k] = k < ni ? s[i0 + k] : t[j0 + (k - ni)];
+  }
+  __syncthreads();
+  const float* ts = tile;       // s[i0, i0 + ni)
+  const float* tt = tile + ni;  // t[j0, j0 + nj)
+  const int dd = min((int)threadIdx.x * kMergeItems, ni + nj);
+  const int end = min(dd + kMergeItems, ni + nj);
+  int i = merge_split<int>(ts, ni, tt, nj, dd);
+  int j = dd - i;
+  for (int k = dd; k < end; ++k) {
+    if (i < ni && (j >= nj || ts[i] <= tt[j])) {
+      ++i;
+    } else {
+      out[j0 + j] = (int)(i0 + i);
+      ++j;
+    }
+  }
+}
+
 inline unsigned blocks_for(int64_t count, int threads) {
   return (unsigned)((count + threads - 1) / threads);
 }
@@ -243,34 +403,33 @@ inline unsigned blocks_for(int64_t count, int threads) {
 
 extern "C" {
 
-int aps_extents_tile_size() { return kTile; }
+int aps_prefix_tile_size() { return kTile; }
 
 const char* aps_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
-// logw float32[len]; mx, s1 float32 scalars on the device; f int32[len].
+// B1.  logw float32[len]; mx, s1 float32 scalars on the device; f int32[len].
 // dscratch float64[2 * ntiles], iscratch int32[2 * ntiles],
-// ntiles = ceil(len / aps_extents_tile_size()).
+// ntiles = ceil(len / aps_prefix_tile_size()).
 int aps_extents_from_logw(const float* logw, int64_t len, const float* mx,
                           const float* s1, float u, int n, double* dscratch,
                           int* iscratch, int* f, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const int ntiles = (int)((len + kTile - 1) / kTile);
-  double* tile_sum = dscratch;
-  double* tile_base = dscratch + ntiles;
-  int* tile_max = iscratch;
-  int* tile_carry = iscratch + ntiles;
-  extents_tile_sums<<<ntiles, kThreads, 0, s>>>(logw, len, mx, tile_sum);
-  tiles_exclusive_scan<double, double, Add><<<1, kScanThreads, 0, s>>>(
-      tile_sum, tile_base, ntiles, 0.0, Add());
-  extents_tiles<<<ntiles, kThreads, 0, s>>>(logw, len, mx, s1, u, n, tile_base, f,
-                                            tile_max);
-  tiles_exclusive_scan<int, int, Max><<<1, kScanThreads, 0, s>>>(
-      tile_max, tile_carry, ntiles, 0, Max());
-  extents_carry<<<ntiles, kThreads, 0, s>>>(f, len, tile_carry);
-  return (int)cudaGetLastError();
+  ExtentsEpilogue epi{s1, u, n, 0.0f, 0.0f};
+  return prefix_scan<true>(logw, len, mx, epi, dscratch, iscratch, f, (cudaStream_t)stream);
 }
 
-// f int32[m] nondecreasing; anc int32[n_out] in [0, m].
+// B6.  x float32[len]; with use_exp the summands are exp(x - *mx), else x;
+// scale a float32 scalar on the device, or null for 1; out float32[len].
+// dscratch float64[2 * ntiles], fscratch float32[2 * ntiles].
+int aps_scaled_prefix(const float* x, int64_t len, int use_exp, const float* mx,
+                      const float* scale, double* dscratch, float* fscratch, float* out,
+                      void* stream) {
+  ScaleEpilogue epi{scale, 1.0f};
+  cudaStream_t s = (cudaStream_t)stream;
+  return use_exp ? prefix_scan<true>(x, len, mx, epi, dscratch, fscratch, out, s)
+                 : prefix_scan<false>(x, len, mx, epi, dscratch, fscratch, out, s);
+}
+
+// B2.  f int32[m] nondecreasing; anc int32[n_out] in [0, m].
 int aps_decode_ancestors(const int* f, int64_t m, int guard, int64_t n_out, int* anc,
                          void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
@@ -279,13 +438,32 @@ int aps_decode_ancestors(const int* f, int64_t m, int guard, int64_t n_out, int*
   return (int)cudaGetLastError();
 }
 
-// anc int32[n_out] in [0, m]; v 32-bit words [m, d]; out [n_out, d];
+// B3.  anc int32[n_out] in [0, m]; v 32-bit words [m, d]; out [n_out, d];
 // anc_clipped int32[n_out].
 int aps_move_rows(const int* anc, int64_t n_out, int64_t m, const void* v, int64_t d,
                   void* out, int* anc_clipped, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   move_rows_kernel<<<blocks_for(n_out * d, kMoveThreads), kMoveThreads, 0, s>>>(
       anc, n_out, m, (const uint32_t*)v, d, (uint32_t*)out, anc_clipped);
+  return (int)cudaGetLastError();
+}
+
+// B7.  s float32[ns] nondecreasing; t float32[nt]; out int32[nt], nt >= 1.
+int aps_count_le_sorted_bs(const float* s, int64_t ns, const float* t, int64_t nt,
+                           int* out, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  count_le_bs_kernel<<<blocks_for(nt, kMoveThreads), kMoveThreads, 0, st>>>(s, ns, t, nt,
+                                                                            out);
+  return (int)cudaGetLastError();
+}
+
+// B8.  s float32[ns] and t float32[nt] both nondecreasing; out int32[nt],
+// nt >= 1.
+int aps_count_le_sorted(const float* s, int64_t ns, const float* t, int64_t nt, int* out,
+                        void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  count_le_merge_kernel<<<blocks_for(ns + nt, kMergeTile), kMergeThreads, 0, st>>>(
+      s, ns, t, nt, out);
   return (int)cudaGetLastError();
 }
 

@@ -3,18 +3,35 @@
 One sweep is a Python loop over time with all particles dense on the device.
 Each step is
 
-    one (max, Σe, Σe²) reduction → ESS gate → resample (B1 extents, B2 decode,
-    B3 move kernels) → propagate + score → log-evidence bookkeeping
+    one (max, Σe, Σe²) reduction → ESS gate → resample → propagate + score →
+    log-evidence bookkeeping
 
 Genealogy is a dense ``[T, N]`` int32 ancestor matrix; trajectories are
-reconstructed afterwards by a backward pass (:func:`lineages`).
+reconstructed afterwards by a backward pass (:func:`lineages`), or re-sampled
+along one lineage from the positional RNG (:func:`replay_trajectory`).
+
+Resampling with systematic, stratified or multinomial runs as monotone extents
+through the kernels of :mod:`advancedps_tpu_torch.ops.resample`:
+
+* systematic: B1 extents;
+* stratified: B6 scaled prefix ``c = n·cdf``, then :func:`stratified_extents`;
+* multinomial: sorted uniforms by exponential spacings, B6 prefix sums ``S``,
+  B6 thresholds ``cdf·S_n``, B7 (or B8) merge-count;
+
+then B2 decode and B3 move.  Any other resampler (residual, or a user's)
+returns its ancestors and the state is gathered by them.
+
+Conditional sweeps (PG/PGAS): the reference trajectory occupies slot ``N−1``,
+reads its stored state instead of sampling (:func:`inject_ref`), and survives
+every resampling: the other ``N−1`` ancestors are drawn from all ``N`` weights.
+With ancestor sampling the reference slot's ancestor is drawn ∝
+``w_i · f_t(x^ref_t | x^i_{t−1})`` by Gumbel-max, from the state and weights
+before the move.
 
 The ESS gate is a host-side ``if``: reading the gate costs one device-to-host
-synchronisation per step.  (The JAX package keeps it on the device with
-``lax.cond``.)
-
-Conditional sweeps — a reference trajectory and PGAS ancestor sampling — belong
-to the PGAS slice of the port and raise ``NotImplementedError`` here.
+synchronisation per step, except with ``threshold ≥ 1`` (every step
+resamples, the PGAS default), where the gate is not read.  (The JAX package
+keeps it on the device with ``lax.cond``.)
 """
 
 from __future__ import annotations
@@ -26,9 +43,32 @@ import torch
 
 from . import rng as rngmod
 from .ops import resample as ops
-from .resampling import ResampleWithESSThreshold, resample_systematic
+from .resampling import (
+    ResampleWithESSThreshold,
+    multinomial_spacings,
+    randcat_gumbel,
+    resample_multinomial,
+    resample_stratified,
+    resample_systematic,
+    stratified_extents,
+)
 
-__all__ = ["SweepKernel", "SweepResult", "sweep", "lineages", "reconstruct"]
+__all__ = [
+    "SweepKernel",
+    "SweepResult",
+    "sweep",
+    "inject_ref",
+    "lineages",
+    "reconstruct",
+    "replay_trajectory",
+]
+
+#: Schemes whose draw reduces to monotone extents and runs through the kernels.
+_FUSED_SCHEMES = {
+    resample_systematic: "systematic",
+    resample_stratified: "stratified",
+    resample_multinomial: "multinomial",
+}
 
 
 class SweepKernel:
@@ -37,15 +77,15 @@ class SweepKernel:
 
     * ``num_steps`` — number of observations ``T``.
     * ``init(rng, ref0, ref_mask) -> (state, logw[N])`` — sample initial
-      latents and score ``y_0``; ``rng`` is a :class:`~advancedps_tpu_torch.rng.StepRng`.
+      latents (slot ``N−1`` reads ``ref0`` when a reference is present) and
+      score ``y_0``; ``rng`` is a :class:`~advancedps_tpu_torch.rng.StepRng`.
     * ``step(t, rng, state, ref_t, ref_mask) -> (state, logw[N])`` — one
       transition + observation score.  ``state`` is a float32 ``[N]`` or
       ``[N, D]`` tensor; resampling moves its rows.
     * ``snapshot(state) -> [N, ...] | None`` — the per-step value recorded for
       trajectory reconstruction.
-
-    ``ref0``/``ref_t``/``ref_mask`` are always ``None`` in this slice: reference
-    trajectories belong to the PGAS slice of the port.
+    * ``transition_logprob(t, state, ref_t) -> [N]`` — density of moving from
+      each particle's state to ``ref_t``; needed by PGAS only.
     """
 
     num_steps: int
@@ -58,6 +98,12 @@ class SweepKernel:
 
     def snapshot(self, state):
         return None
+
+    def transition_logprob(self, t, state, ref_t):
+        raise NotImplementedError(
+            "ancestor sampling (PGAS) requires transition densities; "
+            "this kernel does not provide them"
+        )
 
 
 @dataclass
@@ -81,6 +127,31 @@ class SweepResult:
     resampled: torch.Tensor
 
 
+def inject_ref(ref_mask, ref_val, vals):
+    """Slot ``N−1`` (where ``ref_mask`` is true) takes the reference value
+    instead of its own: a ``where``, so the read stays inside the step."""
+    if ref_mask is None or ref_val is None:
+        return vals
+    m = ref_mask.reshape(ref_mask.shape + (1,) * (vals.dim() - 1))
+    return torch.where(m, torch.as_tensor(ref_val, dtype=vals.dtype, device=vals.device), vals)
+
+
+def _fused_extents(scheme, rs_key, logw, m, s1, n_resample):
+    """Nondecreasing int32 extents ``[M]`` of the scheme's draw of
+    ``n_resample`` positions, through the kernels."""
+    if scheme == "systematic":
+        return ops.extents_from_logw(logw, m, s1, rngmod.uniform(rs_key), n_resample)
+    if scheme == "stratified":
+        c = ops.scaled_prefix_from_logw(logw, m, n_resample / s1)
+        return stratified_extents(rs_key, c, n_resample)
+    # multinomial: sorted uniforms S_k / S_n by exponential spacings; the
+    # extent of j counts the S_k below cdf_j · S_n.
+    g = multinomial_spacings(rs_key, n_resample, device=logw.device)
+    S = ops.prefix_sum(g)
+    thr = ops.scaled_prefix_from_logw(logw, m, S[n_resample] / s1)
+    return ops.count_le_sorted_auto(S[:n_resample], thr)
+
+
 @torch.no_grad()
 def sweep(
     key: rngmod.Key,
@@ -92,29 +163,30 @@ def sweep(
     store_states: bool = True,
     device="cpu",
 ) -> SweepResult:
-    """Run one bootstrap particle sweep on ``device``.
+    """Run one particle sweep on ``device``: bootstrap SMC, or conditional
+    SMC when ``ref`` (a ``[T, ...]`` trajectory) is given.
 
-    ``kernel``'s tensors must already lie on ``device``.  Resampling is
-    systematic, gated at ``ESS ≤ threshold · n``.
+    ``kernel``'s tensors must already lie on ``device``.  Resampling is gated
+    at ``ESS ≤ threshold · n``.
     """
-    if ref is not None or ancestor_sampling:
-        raise NotImplementedError(
-            "conditional sweeps (reference trajectory, ancestor sampling) "
-            "belong to the PGAS slice of the port"
-        )
-    if resampler.resampler is not resample_systematic:
-        raise NotImplementedError(
-            f"resampler {getattr(resampler.resampler, '__name__', resampler.resampler)!r}: "
-            "only systematic resampling is ported; the other schemes belong to "
-            "a later slice of the port"
-        )
-    device = torch.device(device)
     n = n_particles
     T = kernel.num_steps
+    has_ref = ref is not None
+    if ancestor_sampling and not has_ref:
+        raise ValueError("ancestor_sampling requires a reference trajectory")
+    device = torch.device(device)
     gids = torch.arange(n, device=device)
+    ref_mask = None
+    if has_ref:
+        ref = torch.as_tensor(ref, dtype=torch.float32, device=device)
+        ref_mask = gids == (n - 1)
+    # With a reference, n − 1 positions are drawn and slot n − 1 keeps the
+    # reference.
+    n_resample = n - 1 if has_ref else n
+    scheme = _FUSED_SCHEMES.get(resampler.resampler)
 
     rng0 = rngmod.StepRng(rngmod.step_key(key, rngmod.INIT, 0), gids)
-    state, logw = kernel.init(rng0, None, None)
+    state, logw = kernel.init(rng0, ref[0] if has_ref else None, ref_mask)
 
     snap0 = kernel.snapshot(state)
     do_store = store_states and snap0 is not None
@@ -154,9 +226,35 @@ def sweep(
         do_rs = always_resample or bool(ess <= resampler.threshold * n)
 
         if do_rs:
-            u = rngmod.uniform(rngmod.step_key(key, rngmod.RESAMPLE, t))
-            f = ops.extents_from_logw(logw, m, s1, u, n)
-            anc, state = ops.resample_move(ops.decode_ancestors(f, n), state)
+            rs_key = rngmod.step_key(key, rngmod.RESAMPLE, t)
+            if has_ref:
+                # The reference slot's ancestor, from the state and weights
+                # before the move: n − 1 (PG), or drawn ∝ w_i·f_t(ref_t | x_i)
+                # (PGAS).  A device tensor: no host sync.
+                if ancestor_sampling:
+                    anc_logw = logw + kernel.transition_logprob(t, state, ref[t])
+                    anc_key = rngmod.step_key(key, rngmod.ANCESTOR, t)
+                    ref_anc = randcat_gumbel(anc_key, anc_logw, gids).reshape(1)
+                else:
+                    ref_anc = iota[n - 1:]
+                ref_row = state.index_select(0, ref_anc)
+            if scheme is not None:
+                f = _fused_extents(scheme, rs_key, logw, m, s1, n_resample)
+                # With a reference, slot n − 1 decodes past the drawn
+                # population (ancestor M clipped to M − 1, value 0) and is
+                # overwritten with the reference row in place.
+                anc, state_rs = ops.resample_move(
+                    ops.decode_ancestors(f, n, guard=n_resample), state
+                )
+                if has_ref:
+                    anc[n - 1:] = ref_anc
+                    state_rs[n - 1:] = ref_row
+            else:
+                anc = resampler.resampler(rs_key, e / s1, n_resample)
+                if has_ref:
+                    anc = torch.cat([anc, ref_anc])
+                state_rs = state.index_select(0, anc.long())
+            state = state_rs
             ancestors[t] = anc
             pending = ln_n
         else:
@@ -165,7 +263,7 @@ def sweep(
         resampled[t] = do_rs
 
         rng_t = rngmod.StepRng(rngmod.step_key(key, rngmod.PROPAGATE, t), gids)
-        state, score = kernel.step(t, rng_t, state, None, None)
+        state, score = kernel.step(t, rng_t, state, ref[t] if has_ref else None, ref_mask)
         # After a resample the weights restart at 0, so the new weights are the score.
         logw = score if do_rs else logw + score
         if do_store:
@@ -197,16 +295,61 @@ def lineages(ancestors: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _lineage_slots(ancestors: torch.Tensor, index) -> torch.Tensor:
+    """``[T]`` int64 slots of the lineage that ends in slot ``index`` (an int
+    or a one-element tensor, read on the device): a backward walk carrying
+    one slot, with no host sync."""
+    T = ancestors.shape[0]
+    idx = torch.as_tensor(index, device=ancestors.device).reshape(1).long()
+    slots = [idx]
+    for t in range(T - 1, 0, -1):
+        idx = ancestors[t].index_select(0, idx).long()
+        slots.append(idx)
+    return torch.cat(slots[::-1])
+
+
 def reconstruct(states: torch.Tensor, ancestors: torch.Tensor, index: Optional[int]):
     """Trajectories through the genealogy: ``index`` None → all N ``[T, N, ...]``;
-    a slot ``index`` → ``[T, ...]`` by a backward walk carrying one slot."""
+    a slot ``index`` (int or one-element tensor) → ``[T, ...]``."""
     T = ancestors.shape[0]
     steps = torch.arange(T, device=ancestors.device)
     if index is None:
         return states[steps[:, None], lineages(ancestors).long()]
-    idx = torch.as_tensor(index, dtype=torch.long, device=ancestors.device)
-    slots = [idx]
-    for t in range(T - 1, 0, -1):
-        idx = ancestors[t, idx].long()
-        slots.append(idx)
-    return states[steps, torch.stack(slots[::-1])]
+    return states[steps, _lineage_slots(ancestors, index)]
+
+
+@torch.no_grad()
+def replay_trajectory(key, kernel: SweepKernel, ancestors: torch.Tensor, index, ref=None):
+    """The retained trajectory without stored states: walk ``ancestors`` back
+    to the slot ``s_t`` the lineage of final slot ``index`` held at each step,
+    then re-run the kernel forward with one particle whose id at step ``t`` is
+    ``s_t``.
+
+    All sweep randomness is positional in ``(key, stream, step, id)``, so the
+    replay draws what the sweep drew for that lineage; ``key`` and ``ref``
+    must be the sweep's own.  O(T) work and memory instead of ``[T, N, ...]``
+    snapshots; the states equal the sweep's up to float reordering between
+    one-element and N-element elementwise kernels.
+    """
+    T, n = ancestors.shape
+    has_ref = ref is not None
+    slots = _lineage_slots(ancestors, index)
+    if has_ref:
+        ref = torch.as_tensor(ref, dtype=torch.float32, device=ancestors.device)
+
+    def mask_of(g):
+        return (g == n - 1) if has_ref else None
+
+    g = slots[0:1]
+    rng0 = rngmod.StepRng(rngmod.step_key(key, rngmod.INIT, 0), g)
+    state, _ = kernel.init(rng0, ref[0] if has_ref else None, mask_of(g))
+    snap = kernel.snapshot(state)
+    if snap is None:
+        raise ValueError("replay requires a kernel with per-step snapshots")
+    snaps = [snap]
+    for t in range(1, T):
+        g = slots[t:t + 1]
+        rng_t = rngmod.StepRng(rngmod.step_key(key, rngmod.PROPAGATE, t), g)
+        state, _ = kernel.step(t, rng_t, state, ref[t] if has_ref else None, mask_of(g))
+        snaps.append(kernel.snapshot(state))
+    return torch.stack(snaps)[:, 0]

@@ -1,7 +1,10 @@
-"""Sampling entry points (PyTorch port of ``advancedps_tpu/inference.py``, SMC part).
+"""Sampling entry points (PyTorch port of ``advancedps_tpu/inference.py``).
 
-``sample(key, model, SMC(n), device=...)`` runs one bootstrap sweep.  PG and
-PGAS belong to the PGAS slice of the port; generic programs to a later one.
+* :func:`sample_smc` — one SMC sweep (weighted trajectories + log-evidence);
+* :func:`step_pg` / :func:`sample_pg` — one / many PG(AS) iterations;
+* :func:`sample` — the entry point that dispatches on the sampler type.
+
+Generic programs belong to a later slice of the port.
 """
 
 from __future__ import annotations
@@ -10,12 +13,15 @@ from typing import Optional
 
 import torch
 
-from .engine import SweepKernel, reconstruct, sweep
+from . import rng as rngmod
+from .engine import SweepKernel, reconstruct, replay_trajectory, sweep
+from .pg import PG, PGSample, PGState
+from .resampling import randcat_gumbel
 from .rng import Key
 from .smc import SMC, SMCSample, SSMKernel
 from .ssm import TracedSSM
 
-__all__ = ["make_kernel", "sample_smc", "sample"]
+__all__ = ["make_kernel", "sample_smc", "step_pg", "sample_pg", "sample"]
 
 
 def make_kernel(model) -> SweepKernel:
@@ -31,12 +37,18 @@ def make_kernel(model) -> SweepKernel:
     )
 
 
-def sample_smc(key: Key, model, sampler: SMC, store_states: bool = True,
-               device="cpu") -> SMCSample:
-    """One SMC sweep on ``device``.  A :class:`TracedSSM` is moved there with
-    ``.to(device)`` (in place, as for any ``nn.Module``)."""
+def _on_device(model, device):
+    """A model that is an ``nn.Module`` (a :class:`TracedSSM`) is moved to
+    ``device`` with ``.to`` (in place, as for any module)."""
     if isinstance(model, torch.nn.Module):
         model = model.to(device)
+    return model
+
+
+def sample_smc(key: Key, model, sampler: SMC, store_states: bool = True,
+               device="cpu") -> SMCSample:
+    """One SMC sweep on ``device``."""
+    model = _on_device(model, device)
     res = sweep(
         key, make_kernel(model), sampler.n_particles, sampler.resampler,
         store_states=store_states, device=device,
@@ -52,14 +64,81 @@ def sample_smc(key: Key, model, sampler: SMC, store_states: bool = True,
     )
 
 
+def step_pg(key: Key, model, sampler: PG, state: Optional[PGState] = None,
+            trajectory_storage: str = "dense", device="cpu"):
+    """One PG / PGAS iteration on ``device``: a conditional sweep on
+    ``state``'s trajectory (a plain sweep when ``state`` is None), then a new
+    retained trajectory drawn ∝ the final weights.  Returns
+    ``(PGSample, PGState)``.
+
+    ``trajectory_storage``:
+
+    * ``"dense"`` — the sweep stores ``[T, N, ...]`` snapshots and the retained
+      trajectory is gathered through the genealogy;
+    * ``"replay"`` — the sweep stores only the ``[T, N]`` ancestors and the
+      retained trajectory is re-sampled along its lineage from the positional
+      RNG (:func:`~advancedps_tpu_torch.engine.replay_trajectory`): the same
+      genealogy and draws, states equal up to float reordering, and memory
+      O(T·N) instead of O(T·N·D).
+    """
+    if trajectory_storage not in ("dense", "replay"):
+        raise ValueError(f"unknown trajectory_storage {trajectory_storage!r}")
+    replay = trajectory_storage == "replay"
+    kernel = make_kernel(_on_device(model, device))
+    ref = None if state is None else state.trajectory
+    res = sweep(
+        key, kernel, sampler.n_particles, sampler.resampler,
+        ref=ref,
+        ancestor_sampling=sampler.ancestor_sampling and ref is not None,
+        store_states=not replay,
+        device=device,
+    )
+    # Retained-trajectory draw ∝ final weights, by Gumbel-max (a device
+    # tensor: no host sync).
+    idx = randcat_gumbel(rngmod.step_key(key, rngmod.DRAW, 0), res.log_weights)
+    if replay:
+        traj = replay_trajectory(key, kernel, res.ancestors, idx, ref=ref)
+    else:
+        traj = reconstruct(res.states, res.ancestors, idx)
+    return PGSample(trajectory=traj, log_evidence=res.log_evidence), PGState(trajectory=traj)
+
+
+def sample_pg(key: Key, model, sampler: PG, n_iterations: int,
+              trajectory_storage: str = "dense", device="cpu") -> PGSample:
+    """Run a PG(AS) chain of ``n_iterations`` on ``device``: iteration ``i``
+    uses the key ``fold_in(key, i)``, and the first runs without a reference.
+    Returns the stacked :class:`PGSample`: ``trajectory [n_iterations, T, ...]``,
+    ``log_evidence [n_iterations]``.
+
+    The chain is a Python loop over iterations.  The JAX package's
+    ``jit_chain`` (the chain as one compiled ``lax.scan``) has no counterpart
+    here: PyTorch runs eagerly.
+    """
+    if n_iterations < 1:
+        raise ValueError(f"n_iterations must be >= 1, got {n_iterations}")
+    samples = []
+    st = None
+    for i in range(n_iterations):
+        smp, st = step_pg(rngmod.fold_in(key, i), model, sampler, st,
+                          trajectory_storage, device)
+        samples.append(smp)
+    return PGSample(
+        trajectory=torch.stack([s.trajectory for s in samples]),
+        log_evidence=torch.stack([s.log_evidence for s in samples]),
+    )
+
+
 def sample(key: Key, model, sampler, n_iterations: Optional[int] = None,
            device="cpu", **kwargs):
-    """``sample(key, model, SMC(n), device=...)`` → :class:`SMCSample`."""
+    """``sample(key, model, SMC(n), device=...)`` → :class:`SMCSample`;
+    ``sample(key, model, PG(n), n_iterations, device=...)`` → stacked
+    :class:`PGSample` (keyword ``trajectory_storage``, see :func:`step_pg`)."""
     if isinstance(sampler, SMC):
         if n_iterations is not None:
             raise ValueError("SMC draws one weighted population; n_iterations must be None")
         return sample_smc(key, model, sampler, device=device, **kwargs)
-    raise NotImplementedError(
-        f"sampler {type(sampler).__name__} is not ported: PG and PGAS belong to "
-        "the PGAS slice of the port"
-    )
+    if isinstance(sampler, PG):
+        if n_iterations is None:
+            raise ValueError("PG/PGAS require n_iterations")
+        return sample_pg(key, model, sampler, n_iterations, device=device, **kwargs)
+    raise TypeError(f"unknown sampler {type(sampler).__name__}")

@@ -1,6 +1,6 @@
-"""Systematic-resampling kernels: the counterpart of ``advancedps_tpu/ops/pallas_resample.py``.
+"""Resampling kernels: the counterpart of ``advancedps_tpu/ops/pallas_resample.py``.
 
-Three kernels carry the resampling step of the bootstrap sweep:
+Systematic resampling runs three kernels per firing:
 
 * B1 :func:`extents_from_logw` — log-weights to nondecreasing int32 extents
   ``f_j = clip(ceil(n·cumsum(exp(logw − m))/s1 − u), 0, n)``;
@@ -8,6 +8,16 @@ Three kernels carry the resampling step of the bootstrap sweep:
   ``anc[k] = #{j : f_j ≤ k}``;
 * B3 :func:`resample_move` — particle rows moved by ancestor, bitwise, with
   slots past the drawn population set to 0.
+
+Stratified and multinomial resampling reach the same B2/B3 through extents
+built from two more primitives:
+
+* B6 :func:`scaled_prefix_from_logw` and :func:`prefix_sum` — the float32
+  scaled prefix ``(Σ_{i≤j} e_i)·scale`` with ``e = exp(x − m)`` or ``x``,
+  bitwise nondecreasing;
+* B7 :func:`count_le_sorted_bs` and B8 :func:`count_le_sorted` — the sorted
+  merge-count ``out[j] = #{k : s_k ≤ t_j}``, by binary search and by merge
+  path; :func:`count_le_sorted_auto` picks one (:data:`COUNT_LE_SORTED`).
 
 Each wrapper takes its plain PyTorch version (``*_ref``, beside it) only when
 its tensors lie on the CPU.  On a CUDA tensor it launches the hand-written
@@ -32,11 +42,26 @@ __all__ = [
     "decode_ancestors_ref",
     "resample_move",
     "resample_move_ref",
+    "scaled_prefix_from_logw",
+    "prefix_sum",
+    "scaled_prefix_ref",
+    "count_le_sorted_bs",
+    "count_le_sorted",
+    "count_le_sorted_ref",
+    "count_le_sorted_auto",
+    "COUNT_LE_SORTED",
+    "KERNEL_WRAPPERS",
     "reset_launch_counts",
 ]
 
 #: Extents are computed in float32; larger counts are not exact there.
 MAX_N = 1 << 24
+
+#: Which merge-count :func:`count_le_sorted_auto` runs: ``"bs"`` (B7, binary
+#: search; the default, as in the JAX package) or ``"merge"`` (B8, merge
+#: path).  The JAX package chooses by the ``APS_DECODE`` environment variable;
+#: here it is set in code.
+COUNT_LE_SORTED = "bs"
 
 
 # ---------------------------------------------------------------------------
@@ -71,6 +96,22 @@ def resample_move_ref(anc, v):
     past = (anc >= m).reshape((-1,) + (1,) * (v.dim() - 1))
     moved = torch.where(past, torch.zeros((), dtype=v.dtype, device=v.device), moved)
     return anc_clipped, moved
+
+
+def scaled_prefix_ref(x, m, scale, use_exp: bool) -> torch.Tensor:
+    """``cummax(fl32(cumsum(e)) · scale)`` with ``e = exp(x − m)`` (float32)
+    or ``x``, the prefix summed in float64 and rounded once; ``scale`` None
+    means 1.  For nonnegative summands the running max changes nothing."""
+    e = torch.exp(x - m) if use_exp else x
+    p = torch.cumsum(e, 0, dtype=torch.float64).to(torch.float32)
+    if scale is not None:
+        p = p * scale
+    return torch.cummax(p, 0).values
+
+
+def count_le_sorted_ref(s, t) -> torch.Tensor:
+    """``#{k : s_k ≤ t_j}`` for each ``t_j``: ``searchsorted(s, t, right=True)``."""
+    return torch.searchsorted(s, t, right=True).to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -138,7 +179,7 @@ def extents_from_logw(logw, m, s1, u: float, n: int) -> torch.Tensor:
     if logw.numel() == 0:
         return f
     lib = _build.library()
-    ntiles = -(-logw.numel() // lib.aps_extents_tile_size())
+    ntiles = -(-logw.numel() // lib.aps_prefix_tile_size())
     dscratch = torch.empty(2 * ntiles, dtype=torch.float64, device=logw.device)
     iscratch = torch.empty(2 * ntiles, dtype=torch.int32, device=logw.device)
     with torch.cuda.device(logw.device):
@@ -209,7 +250,104 @@ def resample_move(anc, v):
     return anc_clipped, out
 
 
-KERNEL_WRAPPERS = (extents_from_logw, decode_ancestors, resample_move)
+def _scaled_prefix(wrapper, x, m, scale, use_exp: bool) -> torch.Tensor:
+    """B6 on ``x``'s device: the plain version on the CPU, else the kernel,
+    counted on ``wrapper``."""
+    tensors = (x,) + tuple(s for s in (m, scale) if s is not None)
+    if _on_cpu(*tensors):
+        return scaled_prefix_ref(x, m, scale, use_exp)
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    lib = _build.library()
+    ntiles = -(-x.numel() // lib.aps_prefix_tile_size())
+    dscratch = torch.empty(2 * ntiles, dtype=torch.float64, device=x.device)
+    fscratch = torch.empty(2 * ntiles, dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = lib.aps_scaled_prefix(
+            _ptr(x), x.numel(), int(use_exp), _ptr(m) if use_exp else None,
+            _ptr(scale) if scale is not None else None,
+            _ptr(dscratch), _ptr(fscratch), _ptr(out), _stream(x.device),
+        )
+    _raise_on(rc, wrapper.__name__)
+    wrapper.launches += 1
+    return out
+
+
+def scaled_prefix_from_logw(logw, m, scale) -> torch.Tensor:
+    """B6: ``(Σ_{i≤j} exp(logw_i − m)) · scale`` as float32 ``[M]``, bitwise
+    nondecreasing.
+
+    ``m`` (max of ``logw``) and ``scale`` are float32 scalars on ``logw``'s
+    device: ``n/s1`` gives stratified's ``c = n·cdf``, ``S_n/s1`` gives
+    multinomial's merge thresholds.  The prefix is summed in double and
+    rounded to float32 once, then multiplied by ``scale``, as in the plain
+    version; the two may differ by an ulp where double rounding straddles a
+    float32 rounding boundary.
+    """
+    _check(logw, "logw", torch.float32)
+    for name, s in (("m", m), ("scale", scale)):
+        _check(s, name, torch.float32, ndims=(0,))
+    return _scaled_prefix(scaled_prefix_from_logw, logw, m, scale, use_exp=True)
+
+
+def prefix_sum(x) -> torch.Tensor:
+    """B6 without the exponential or the scale: the inclusive prefix sum of
+    float32 ``x``, summed in double and rounded once, bitwise nondecreasing
+    (for inputs with negative entries, the running max of the prefix, as in
+    the TPU kernel)."""
+    _check(x, "x", torch.float32)
+    return _scaled_prefix(prefix_sum, x, None, None, use_exp=False)
+
+
+def _count_le(wrapper, kernel_name: str, s, t) -> torch.Tensor:
+    """B7/B8: the plain version on the CPU, else the named kernel, counted on
+    ``wrapper``."""
+    _check(s, "s", torch.float32)
+    _check(t, "t", torch.float32)
+    if s.numel() >= 1 << 31:
+        raise ValueError(f"s must hold fewer than 2**31 values, got {s.numel()}")
+    if _on_cpu(s, t):
+        return count_le_sorted_ref(s, t)
+    out = torch.empty(t.shape, dtype=torch.int32, device=t.device)
+    if t.numel() == 0:
+        return out
+    lib = _build.library()
+    with torch.cuda.device(t.device):
+        rc = getattr(lib, kernel_name)(
+            _ptr(s), s.numel(), _ptr(t), t.numel(), _ptr(out), _stream(t.device)
+        )
+    _raise_on(rc, wrapper.__name__)
+    wrapper.launches += 1
+    return out
+
+
+def count_le_sorted_bs(s, t) -> torch.Tensor:
+    """B7: ``out[j] = #{k : s_k ≤ t_j}`` as int32, one binary search over the
+    nondecreasing float32 ``s`` per threshold ``t_j``."""
+    return _count_le(count_le_sorted_bs, "aps_count_le_sorted_bs", s, t)
+
+
+def count_le_sorted(s, t) -> torch.Tensor:
+    """B8: the same counts as :func:`count_le_sorted_bs` by a merge path over
+    ``s`` and ``t``, both nondecreasing: equal tiles of the merged order,
+    balanced under any skew of the thresholds."""
+    return _count_le(count_le_sorted, "aps_count_le_sorted", s, t)
+
+
+def count_le_sorted_auto(s, t) -> torch.Tensor:
+    """The merge-count the sweep uses: B7 unless :data:`COUNT_LE_SORTED` is
+    ``"merge"``."""
+    if COUNT_LE_SORTED not in ("bs", "merge"):
+        raise ValueError(f"COUNT_LE_SORTED must be 'bs' or 'merge', got {COUNT_LE_SORTED!r}")
+    return (count_le_sorted if COUNT_LE_SORTED == "merge" else count_le_sorted_bs)(s, t)
+
+
+#: Every wrapper that launches a kernel, each with its ``launches`` count.
+KERNEL_WRAPPERS = (
+    extents_from_logw, decode_ancestors, resample_move,
+    scaled_prefix_from_logw, prefix_sum, count_le_sorted_bs, count_le_sorted,
+)
 
 
 def reset_launch_counts():

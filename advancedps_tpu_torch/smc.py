@@ -2,7 +2,9 @@
 
 :class:`SSMKernel` runs all particles at once: transition sample, observation
 score and weight update are elementwise tensor ops over the particle axis.
-This slice ports the Markov, vectorized branch.
+The reference slot of a conditional sweep reads its state from the retained
+trajectory through :func:`~advancedps_tpu_torch.engine.inject_ref`.  This
+port covers the Markov, vectorized branch.
 """
 
 from __future__ import annotations
@@ -12,7 +14,7 @@ from typing import Any
 
 import torch
 
-from .engine import SweepKernel
+from .engine import SweepKernel, inject_ref
 from .resampling import DEFAULT_RESAMPLER, ResampleWithESSThreshold
 from .ssm import TracedSSM
 
@@ -45,14 +47,19 @@ class SSMKernel(SweepKernel):
 
     def init(self, rng, ref0, ref_mask):
         x0 = self.ssm.prior.distribution().sample_rng(rng)
+        x0 = inject_ref(ref_mask, ref0, x0)
         return x0, self._obs_logw(0, x0)
 
     def step(self, t, rng, state, ref_t, ref_mask):
         x_new = self.ssm.dynamics.distribution(t, state).sample_rng(rng)
+        x_new = inject_ref(ref_mask, ref_t, x_new)
         return x_new, self._obs_logw(t, x_new)
 
     def snapshot(self, state):
         return state
+
+    def transition_logprob(self, t, state, ref_t):
+        return self.ssm.dynamics.distribution(t, state).log_prob(ref_t)
 
 
 def _build_gated_resampler(resampler, threshold):

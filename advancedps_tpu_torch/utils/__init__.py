@@ -1,3 +1,3 @@
-from .kalman import KalmanResult, kalman_filter
+from .kalman import KalmanResult, kalman_filter, kalman_smoother
 
-__all__ = ["KalmanResult", "kalman_filter"]
+__all__ = ["KalmanResult", "kalman_filter", "kalman_smoother"]

@@ -1,4 +1,5 @@
-"""Exact Kalman filter for the scalar LGSSM, in float64 — the log-evidence anchor.
+"""Exact Kalman filter and RTS smoother for the scalar LGSSM, in float64 — the
+log-evidence and posterior anchors.
 
 Port of ``advancedps_tpu/utils/kalman.py``::
 
@@ -14,7 +15,7 @@ from typing import NamedTuple
 
 import torch
 
-__all__ = ["KalmanResult", "kalman_filter"]
+__all__ = ["KalmanResult", "kalman_filter", "kalman_smoother"]
 
 
 class KalmanResult(NamedTuple):
@@ -46,4 +47,25 @@ def kalman_filter(ys, a, b, q, h, r, mu0, sigma0) -> KalmanResult:
     return KalmanResult(
         torch.tensor(means, dtype=f64), torch.tensor(variances, dtype=f64),
         torch.tensor(ll, dtype=f64),
+    )
+
+
+def kalman_smoother(ys, a, b, q, h, r, mu0, sigma0) -> KalmanResult:
+    """Exact RTS smoother in float64 on the host: per-step ``E[x_t | y_{0:T-1}]``
+    and smoothing variances, with the filter's log-likelihood.  PG/PGAS
+    retained trajectories are marginally distributed as this smoothing law."""
+    filt = kalman_filter(ys, a, b, q, h, r, mu0, sigma0)
+    fm, fv = filt.means.tolist(), filt.variances.tolist()
+    qq = q * q
+    means, variances = [fm[-1]], [fv[-1]]
+    for t in range(len(fm) - 2, -1, -1):
+        pred_mean = a * fm[t] + b
+        pred_var = a * a * fv[t] + qq
+        g = fv[t] * a / pred_var
+        means.append(fm[t] + g * (means[-1] - pred_mean))
+        variances.append(fv[t] + g * g * (variances[-1] - pred_var))
+    f64 = torch.float64
+    return KalmanResult(
+        torch.tensor(means[::-1], dtype=f64), torch.tensor(variances[::-1], dtype=f64),
+        filt.log_likelihood,
     )

@@ -1,4 +1,4 @@
-"""Drive the PyTorch/CUDA port's bootstrap-SMC main path on one GPU and check it.
+"""Drive the PyTorch/CUDA port's main paths on one GPU and check them.
 
     python3 chip_smoke.py
 
@@ -8,16 +8,28 @@ final line:
 1. the card (``nvidia-smi`` name and power limit) and the torch/CUDA versions;
 2. build the CUDA kernels from ``advancedps_tpu_torch/csrc`` with nvcc;
 3. each kernel against its plain PyTorch version on the card at M = N = 1M,
-   on four weight profiles and the guard case;
-4. the flagship sweep (stationary LGSSM a=0.9, q=0.32, r=1.0, T=100,
-   N=1,000,000, systematic resampling at ESS ≤ N/2) through ``sample``,
-   anchored to the exact Kalman log-likelihood, with the kernels' launch
-   counts equal to the number of resampling steps and a bitwise repeat;
-5. timings: the median of 5 sweeps, each kernel against its plain version,
-   and a profiled sweep for the device busy share.
+   on four weight profiles and the guard case (N−1 positions drawn): B1-B3,
+   B6 (both modes, within 1 ulp and bitwise nondecreasing), B7 and B8
+   (exact, also where every threshold falls in one tile);
+4. the SMC flagship (stationary LGSSM a=0.9, q=0.32, r=1.0, T=100,
+   N=1,000,000, resampling at ESS ≤ N/2) through ``sample`` with each fused
+   scheme — systematic, stratified, multinomial, and multinomial with the
+   B8 merge-count — anchored to the exact Kalman log-likelihood, with each
+   kernel's launch count equal to what the scheme runs per firing times the
+   firings, and a bitwise repeat;
+5. PGAS at N=1M, T=100 with replay storage (``bench_pgas.py``'s
+   configuration): the pooled chain means against the RTS smoother (RMS
+   z-score < 3 over 6 chains of 8 iterations, 4 dropped), the final
+   iteration's logZ against Kalman, 99 launches of B1-B3 per iteration; short
+   PGAS chains with multinomial and stratified; replay against dense storage;
+6. timings: the median of 5 sweeps per scheme and of a never-firing base,
+   PGAS iterations/s, each kernel against its plain version, and profiled
+   sweeps for the device busy share.
 
-The last two lines are the kernels' JSON record and
-``{"ok": true, "device": {...}}``.  Imports no JAX: the card's machine has none.
+Each launch count is read from the run of its own path, the counts set to 0
+just before it.  The last two lines are the kernels' JSON record (launches
+summed over the runs of phases 4 and 5) and ``{"ok": true, "device": {...}}``.
+Imports no JAX: the card's machine has none.
 """
 
 from __future__ import annotations
@@ -34,9 +46,31 @@ import torch
 N = 1_000_000
 T = 100
 A, Q, R = 0.9, 0.32, 1.0
+SIGMA0 = math.sqrt(Q * Q / (1 - A * A))
 REPS = 20  # launches per timing window
+SWEEPS = 5  # timed sweeps per scheme
+PGAS_ITERS, PGAS_WARM, PGAS_CHAINS = 8, 4, 6  # bench_pgas.py:34-38, 96-114
 SOURCE = "advancedps_tpu_torch/csrc/resample.cu"
 TPU_FILE = "advancedps_tpu/ops/pallas_resample.py"
+REPLACES = {
+    "extents_from_logw": f"{TPU_FILE}:237",
+    "decode_ancestors": f"{TPU_FILE}:972",
+    "resample_move": f"{TPU_FILE}:1090",
+    "scaled_prefix_from_logw": f"{TPU_FILE}:325",
+    "prefix_sum": f"{TPU_FILE}:325",
+    "count_le_sorted_bs": f"{TPU_FILE}:476",
+    "count_le_sorted": f"{TPU_FILE}:516",
+}
+#: Kernel launches per resampling firing of each fused scheme.
+PER_FIRING = {
+    "systematic": {"extents_from_logw": 1, "decode_ancestors": 1, "resample_move": 1},
+    "stratified": {"scaled_prefix_from_logw": 1, "decode_ancestors": 1, "resample_move": 1},
+    "multinomial": {"prefix_sum": 1, "scaled_prefix_from_logw": 1, "count_le_sorted_bs": 1,
+                    "decode_ancestors": 1, "resample_move": 1},
+    "multinomial, merge path": {"prefix_sum": 1, "scaled_prefix_from_logw": 1,
+                                "count_le_sorted": 1, "decode_ancestors": 1,
+                                "resample_move": 1},
+}
 
 
 def fail(msg: str):
@@ -75,6 +109,15 @@ def bits(x: torch.Tensor) -> torch.Tensor:
     return x.view(torch.int32)
 
 
+def max_ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Largest float32 ulp distance between two nonnegative tensors."""
+    return int((bits(a).long() - bits(b).long()).abs().max())
+
+
+def nondecreasing(x: torch.Tensor) -> bool:
+    return bool((x[1:] >= x[:-1]).all())
+
+
 def time_ms(fn) -> float:
     """Mean device time of one call over REPS calls, by CUDA events."""
     fn()
@@ -89,9 +132,10 @@ def time_ms(fn) -> float:
 
 
 def plain_vs_kernel(plain, kernel):
-    """Turns plain, kernel, kernel, plain in one window; mean of each pair."""
+    """Turns plain, kernel, kernel, plain in one window: the mean of each
+    pair and the four readings in turn."""
     p1, k1, k2, p2 = time_ms(plain), time_ms(kernel), time_ms(kernel), time_ms(plain)
-    return (k1 + k2) / 2, (p1 + p2) / 2
+    return (k1 + k2) / 2, (p1 + p2) / 2, (p1, k1, k2, p2)
 
 
 def main():
@@ -100,6 +144,27 @@ def main():
     import advancedps_tpu_torch as apt
     from advancedps_tpu_torch.ops import _build
     from advancedps_tpu_torch.ops import resample as ops
+
+    names = [w.__name__ for w in ops.KERNEL_WRAPPERS]
+
+    def counts():
+        return {w.__name__: w.launches for w in ops.KERNEL_WRAPPERS}
+
+    def expected(per_firing, firings):
+        return {name: per_firing.get(name, 0) * firings for name in names}
+
+    main_launches = dict.fromkeys(names, 0)
+
+    def drive(fn):
+        """Run one main path with the counts set to 0 just before it; return
+        its result and the counts read just after."""
+        ops.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        got = counts()
+        for name, c in got.items():
+            main_launches[name] += c
+        return out, got
 
     # ---- 1. device
     card = card_line()
@@ -121,7 +186,7 @@ def main():
 
     # ---- 3. kernels vs plain versions on the card, M = N = 1M
     gen = torch.Generator(device="cuda").manual_seed(0)
-    err = {"extents_from_logw": 0.0, "decode_ancestors": 0.0, "resample_move": 0.0}
+    err = dict.fromkeys(names, 0.0)
     for i, profile in enumerate(["lognormal", "uniform", "single", "survivors20"]):
         logw = profile_logw(profile, gen)
         m = torch.max(logw)
@@ -131,7 +196,7 @@ def main():
         f_ref = ops.extents_from_logw_ref(logw, m, s1, u, N)
         diff = (f.long() - f_ref.long()).abs()
         flips = float((diff > 0).float().mean())
-        check(bool((f[1:] >= f[:-1]).all()), f"{profile}: extents not nondecreasing")
+        check(nondecreasing(f), f"{profile}: extents not nondecreasing")
         # f[-1] is n, or n−1 where fl32(n·cdf − u) rounds down to n−1 (u near 1);
         # the decode reads f[-1] as n (the undershoot guard).
         check(int(f[-1]) in (N - 1, N), f"{profile}: f[-1] = {int(f[-1])}")
@@ -162,60 +227,192 @@ def main():
               f"{profile}: guarded last slot not clipped / zeroed")
         check(torch.equal(bits(moved_g), bits(ops.resample_move_ref(anc_g, x)[1])),
               f"{profile}: guarded move differs")
+
+        # B6-B8 as stratified and multinomial use them, for n = N and the
+        # guard case n = N − 1.
+        rs_key = apt.rng.key(2000 + i)
+        ulp6 = {"scaled_prefix_from_logw": 0, "prefix_sum": 0}
+        for n in (N, N - 1):
+            c = ops.scaled_prefix_from_logw(logw, m, n / s1)
+            c_ref = ops.scaled_prefix_ref(logw, m, n / s1, True)
+            g = apt.multinomial_spacings(rs_key, n, device="cuda")
+            S = ops.prefix_sum(g)
+            S_ref = ops.scaled_prefix_ref(g, None, None, False)
+            thr = ops.scaled_prefix_from_logw(logw, m, S[n] / s1)
+            thr_ref = ops.scaled_prefix_ref(logw, m, S[n] / s1, True)
+            for name, got, want in (("scaled_prefix_from_logw", c, c_ref),
+                                    ("scaled_prefix_from_logw", thr, thr_ref),
+                                    ("prefix_sum", S, S_ref)):
+                check(nondecreasing(got), f"{profile} n={n}: {name} not nondecreasing")
+                ulp6[name] = max(ulp6[name], max_ulps(got, want))
+                err[name] = max(err[name], float((got - want).abs().max()))
+            check(max(ulp6.values()) <= 1, f"{profile} n={n}: B6 off by {ulp6} ulps")
+            f_s = apt.stratified_extents(rs_key, c, n)
+            check(nondecreasing(f_s), f"{profile} n={n}: stratified extents not nondecreasing")
+            cases = [("thresholds", S[:n], thr),
+                     ("one value", S[:n], torch.full_like(thr, float(S[n // 2]))),
+                     ("one tile", S[:n], torch.linspace(float(S[n // 3]), float(S[n // 3 + 1]),
+                                                        N, device="cuda").sort().values)]
+            for what, s_, t_ in cases:
+                want = ops.count_le_sorted_ref(s_, t_)
+                for fn in (ops.count_le_sorted_bs, ops.count_le_sorted):
+                    got = fn(s_, t_)
+                    check(torch.equal(got, want), f"{profile} n={n} {what}: {fn.__name__} differs")
+            f_m = ops.count_le_sorted_bs(S[:n], thr)
+            for f_x in (f_s, f_m):
+                a_x = ops.decode_ancestors(f_x, N, guard=n)
+                check(torch.equal(a_x, ops.decode_ancestors_ref(f_x, N, guard=n)),
+                      f"{profile} n={n}: decode of scheme extents differs")
+                check((int(a_x[-1]) == N) == (n == N - 1), f"{profile} n={n}: guard slot")
         print(f"kernels vs plain [{profile}]: extents ±{int(diff.max())} in {flips:.2e} of "
-              f"entries, decode exact, move bitwise (D=1, D=3), guard ok", flush=True)
+              f"entries, decode exact, move bitwise (D=1, D=3), guard ok; B6 within "
+              f"{ulp6} ulps and nondecreasing; B7 = B8 = plain (thresholds, one value, "
+              f"one tile)", flush=True)
     torch.cuda.synchronize()
 
-    # ---- 4. the flagship sweep through the public entry point
+    # ---- 4. the SMC flagship with each fused scheme, through sample
     model = apt.models.stationary_lgssm(A, Q, R)
     _, ys = apt.simulate(torch.Generator().manual_seed(0), model, T)
     traced = apt.TracedSSM(model, ys)
+    kf_ll = float(apt.utils.kalman_filter(ys, A, 0.0, Q, 1.0, R, 0.0, SIGMA0).log_likelihood)
+    kernel = apt.SSMKernel(traced.to("cuda"))
     key = apt.rng.key(1)
-    ops.reset_launch_counts()
+    schemes = {
+        "systematic": apt.resample_systematic,
+        "stratified": apt.resample_stratified,
+        "multinomial": apt.resample_multinomial,
+        "multinomial, merge path": apt.resample_multinomial,
+    }
+    evidence = {}
+    for label, fn in schemes.items():
+        ops.COUNT_LE_SORTED = "merge" if "merge" in label else "bs"
+        sampler = apt.SMC(N, apt.ResampleWithESSThreshold(fn))
+        t0 = time.perf_counter()
+        smc, launches = drive(lambda: apt.sample(key, traced, sampler, device="cuda"))
+        first_s = time.perf_counter() - t0
+        log_z = float(smc.log_evidence)
+        n_rs = int(smc.diagnostics["resampled"].sum())
+        print(f"flagship [{label}]: logZ {log_z:.6f} kalman {kf_ll:.6f} "
+              f"|err| {abs(log_z - kf_ll):.6f} resampled {n_rs}/{T} launches {launches} "
+              f"first call {first_s:.3f}s {tag}", flush=True)
+        check(math.isfinite(log_z), f"{label}: logZ is not finite")
+        check(abs(log_z - kf_ll) < 0.1, f"{label}: |logZ - kalman| = {abs(log_z - kf_ll)} >= 0.1")
+        check(n_rs > 0, f"{label}: the gate never fired")
+        check(launches == expected(PER_FIRING[label], n_rs),
+              f"{label}: launches {launches} != {expected(PER_FIRING[label], n_rs)}")
+        check(tuple(smc.trajectories.shape) == (T, N), f"{label}: trajectories shape")
+        check(bool(torch.isfinite(smc.trajectories).all()), f"{label}: trajectories not finite")
+        check(abs(float(smc.weights.sum()) - 1.0) < 1e-4, f"{label}: weights do not sum to 1")
+
+        a = apt.sweep(key, kernel, N, sampler.resampler, store_states=False, device="cuda")
+        b = apt.sweep(key, kernel, N, sampler.resampler, store_states=False, device="cuda")
+        check(torch.equal(a.log_evidence, b.log_evidence), f"{label}: same key, logZ differs")
+        check(torch.equal(a.ancestors, b.ancestors), f"{label}: same key, ancestors differ")
+        check(torch.equal(a.log_evidence, smc.log_evidence), f"{label}: sweep and sample disagree")
+        evidence[label] = smc.log_evidence
+    # B7 and B8 give the same counts, so the same key gives the same sweep.
+    check(torch.equal(evidence["multinomial"], evidence["multinomial, merge path"]),
+          "multinomial: B7 and B8 sweeps differ")
+    ops.COUNT_LE_SORTED = "bs"
+    print("repeat: same key gives bitwise equal logZ and ancestors for every scheme; "
+          "B7 and B8 multinomial sweeps bitwise equal", flush=True)
+
+    # ---- 5. PGAS at 1M, replay storage (bench_pgas.py)
+    sm = apt.utils.kalman_smoother(ys, A, 0.0, Q, 1.0, R, 0.0, SIGMA0)
+    pgas = apt.PGAS(N)
+
+    def anchor_chains():
+        means = []
+        for c in range(PGAS_CHAINS):
+            res = apt.sample(apt.rng.fold_in(apt.rng.key(9), c), traced, pgas, PGAS_ITERS,
+                             trajectory_storage="replay", device="cuda")
+            check(bool(torch.isfinite(res.trajectory).all()), "PGAS trajectory not finite")
+            means.append(res.trajectory[PGAS_WARM:].double().mean(0).cpu())
+        return torch.stack(means), res
+
     t0 = time.perf_counter()
-    smc = apt.sample(key, traced, apt.SMC(N), device="cuda")
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
-    launches = {w.__name__: w.launches for w in ops.KERNEL_WRAPPERS}
+    (cm, last), launches = drive(anchor_chains)
+    anchor_s = time.perf_counter() - t0
+    iters = PGAS_CHAINS * PGAS_ITERS
+    est = cm.mean(0)
+    # SE from the independent chain means, floored at the posterior sd over
+    # the pooled iterates (bench_pgas.py:103-111).
+    sd = sm.variances.sqrt()
+    se = torch.maximum(cm.std(0, unbiased=True) / math.sqrt(PGAS_CHAINS),
+                       sd / math.sqrt(PGAS_CHAINS * (PGAS_ITERS - PGAS_WARM)))
+    zrms = float((((est - sm.means) / se) ** 2).mean().sqrt())
+    lz_err = abs(float(last.log_evidence[-1]) - float(sm.log_likelihood))
+    print(f"PGAS N={N} T={T} replay: {PGAS_CHAINS} chains x {PGAS_ITERS} iterations "
+          f"({PGAS_WARM} dropped) in {anchor_s:.3f}s; RMS z-score vs RTS smoother {zrms:.4f}; "
+          f"final-iteration |logZ - kalman| {lz_err:.6f}; launches {launches} {tag}", flush=True)
+    check(zrms < 3.0, f"PGAS: RMS z-score vs RTS smoother {zrms} >= 3")
+    check(lz_err < 1.0, f"PGAS: final |logZ - kalman| = {lz_err} >= 1")
+    check(launches == expected(PER_FIRING["systematic"], iters * (T - 1)),
+          f"PGAS: launches {launches}, expected {T - 1} of B1-B3 per iteration")
 
-    log_z = float(smc.log_evidence)
-    kf = apt.utils.kalman_filter(ys, A, 0.0, Q, 1.0, R, 0.0, math.sqrt(Q * Q / (1 - A * A)))
-    kf_ll = float(kf.log_likelihood)
-    n_rs = int(smc.diagnostics["resampled"].sum())
-    print(f"flagship: logZ {log_z:.6f} kalman {kf_ll:.6f} |err| {abs(log_z - kf_ll):.6f} "
-          f"resampled {n_rs}/{T} launches {launches} first call {first_s:.3f}s {tag}",
-          flush=True)
-    check(math.isfinite(log_z), "logZ is not finite")
-    check(abs(log_z - kf_ll) < 0.1, f"|logZ - kalman| = {abs(log_z - kf_ll)} >= 0.1")
-    check(n_rs > 0, "the gate never fired")
-    for name, count in launches.items():
-        check(count == n_rs, f"{name} launched {count} times for {n_rs} resampling steps")
-    check(tuple(smc.trajectories.shape) == (T, N), "trajectories shape")
-    check(bool(torch.isfinite(smc.trajectories).all()), "trajectories not finite")
-    check(abs(float(smc.weights.sum()) - 1.0) < 1e-4, "weights do not sum to 1")
+    for label in ("multinomial", "stratified"):
+        sampler = apt.PGAS(N, resampler=schemes[label])
+        chain, launches = drive(lambda: apt.sample(apt.rng.key(11), traced, sampler, 2,
+                                                   trajectory_storage="replay", device="cuda"))
+        print(f"PGAS [{label}] 2 iterations: logZ {chain.log_evidence.tolist()} "
+              f"launches {launches}", flush=True)
+        check(bool(torch.isfinite(chain.trajectory).all()), f"PGAS {label}: not finite")
+        check(float((chain.log_evidence - sm.log_likelihood).abs().max()) < 1.0,
+              f"PGAS {label}: |logZ - kalman| >= 1")
+        check(launches == expected(PER_FIRING[label], 2 * (T - 1)),
+              f"PGAS {label}: launches {launches}")
 
-    kernel = apt.SSMKernel(traced)
-    resampler = apt.SMC(N).resampler
-    a = apt.sweep(key, kernel, N, resampler, store_states=False, device="cuda")
-    b = apt.sweep(key, kernel, N, resampler, store_states=False, device="cuda")
-    check(torch.equal(a.log_evidence, b.log_evidence), "same key: log_evidence differs")
-    check(torch.equal(a.ancestors, b.ancestors), "same key: ancestors differ")
-    check(torch.equal(a.log_evidence, smc.log_evidence), "sweep and sample disagree")
-    print("repeat: same key gives bitwise equal log_evidence and ancestors", flush=True)
+    st = apt.PGState(last.trajectory[-1])
+    k_rd = apt.rng.key(12)
+    dense, _ = apt.step_pg(k_rd, traced, pgas, st, "dense", device="cuda")
+    repl, _ = apt.step_pg(k_rd, traced, pgas, st, "replay", device="cuda")
+    rd_err = float((dense.trajectory - repl.trajectory).abs().max())
+    print(f"PGAS replay vs dense storage, one iteration: max |diff| {rd_err:.3e}, "
+          f"logZ equal {torch.equal(dense.log_evidence, repl.log_evidence)}", flush=True)
+    check(rd_err <= 1e-5, f"replay and dense trajectories differ by {rd_err}")
+    check(torch.equal(dense.log_evidence, repl.log_evidence), "replay and dense logZ differ")
 
-    # ---- 5. timings
-    times = []
+    # ---- 6. timings
+    base = apt.ResampleWithESSThreshold(apt.resample_systematic, 0.0)  # never fires
+    sweep_ms = {}
+    for label, resampler in [("base, never firing", base)] + [
+            (lb, apt.ResampleWithESSThreshold(fn)) for lb, fn in schemes.items()
+            if "merge" not in lb]:
+        times, firings = [], []
+        for i in range(SWEEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = apt.sweep(apt.rng.key(10 + i), kernel, N, resampler, store_states=False,
+                            device="cuda")
+            float(res.log_evidence)
+            times.append(time.perf_counter() - t0)
+            firings.append(int(res.resampled.sum()))
+        med = statistics.median(times)
+        sweep_ms[label] = (med * 1e3, statistics.mean(firings))
+        print(f"sweep [{label}] N={N} T={T}: median {med * 1e3:.3f} ms of {SWEEPS} "
+              f"({', '.join(f'{t * 1e3:.3f}' for t in times)}), firings {firings}, "
+              f"{N * T / med:.4e} particle-steps/s {tag}", flush=True)
+    base_ms = sweep_ms["base, never firing"][0]
+    for label, (ms, fires) in sweep_ms.items():
+        if fires:
+            print(f"per firing [{label}]: {(ms - base_ms) / fires:.4f} ms "
+                  f"((median {ms:.3f} - base {base_ms:.3f}) / {fires:.1f} firings) {tag}",
+                  flush=True)
+
+    windows = []
+    st_t = st
     for i in range(5):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = apt.sweep(apt.rng.key(10 + i), kernel, N, resampler, store_states=False,
-                        device="cuda")
-        float(res.log_evidence)
-        times.append(time.perf_counter() - t0)
-    med = statistics.median(times)
-    print(f"sweep N={N} T={T}: median {med * 1e3:.3f} ms of 5 "
-          f"({', '.join(f'{t * 1e3:.3f}' for t in times)}), "
-          f"{N * T / med:.4e} particle-steps/s {tag}", flush=True)
+        for j in range(3):
+            smp, st_t = apt.step_pg(apt.rng.key(100 + 3 * i + j), traced, pgas, st_t,
+                                    "replay", device="cuda")
+        float(smp.log_evidence)
+        windows.append((time.perf_counter() - t0) / 3)
+    per_iter = statistics.median(windows)
+    print(f"PGAS N={N} T={T} replay: {1 / per_iter:.4f} iterations/s (median of 5 windows of "
+          f"3 iterations; per-iteration {', '.join(f'{w * 1e3:.3f}' for w in windows)} ms) {tag}",
+          flush=True)
 
     logw = profile_logw("lognormal", gen)
     m = torch.max(logw)
@@ -224,6 +421,11 @@ def main():
     f = ops.extents_from_logw(logw, m, s1, u, N)
     anc = ops.decode_ancestors(f, N)
     x = torch.randn(N, generator=gen, device="cuda")
+    scale = N / s1
+    g = apt.multinomial_spacings(apt.rng.key(8), N, device="cuda")
+    S = ops.prefix_sum(g)
+    thr = ops.scaled_prefix_from_logw(logw, m, S[N] / s1)
+    s_, one = S[:N], torch.full_like(thr, float(S[N // 2]))
     timing = {
         "extents_from_logw": plain_vs_kernel(
             lambda: ops.extents_from_logw_ref(logw, m, s1, u, N),
@@ -232,48 +434,85 @@ def main():
             lambda: ops.decode_ancestors_ref(f, N), lambda: ops.decode_ancestors(f, N)),
         "resample_move": plain_vs_kernel(
             lambda: ops.resample_move_ref(anc, x), lambda: ops.resample_move(anc, x)),
+        "scaled_prefix_from_logw": plain_vs_kernel(
+            lambda: ops.scaled_prefix_ref(logw, m, scale, True),
+            lambda: ops.scaled_prefix_from_logw(logw, m, scale)),
+        "prefix_sum": plain_vs_kernel(
+            lambda: ops.scaled_prefix_ref(g, None, None, False), lambda: ops.prefix_sum(g)),
+        "count_le_sorted_bs": plain_vs_kernel(
+            lambda: ops.count_le_sorted_ref(s_, thr), lambda: ops.count_le_sorted_bs(s_, thr)),
+        "count_le_sorted": plain_vs_kernel(
+            lambda: ops.count_le_sorted_ref(s_, thr), lambda: ops.count_le_sorted(s_, thr)),
     }
-    for name, (k_ms, p_ms) in timing.items():
-        print(f"kernel {name} at 1M: {k_ms:.4f} ms, plain {p_ms:.4f} ms {tag}", flush=True)
+    def turns(readings):
+        return ", ".join(f"{r:.4f}" for r in readings)
+
+    for name, (k_ms, p_ms, readings) in timing.items():
+        print(f"kernel {name} at 1M: {k_ms:.4f} ms, plain {p_ms:.4f} ms "
+              f"(plain, kernel, kernel, plain: {turns(readings)}) {tag}", flush=True)
+    for fn in (ops.count_le_sorted_bs, ops.count_le_sorted):
+        k_ms, p_ms, readings = plain_vs_kernel(lambda: ops.count_le_sorted_ref(s_, one),
+                                               lambda: fn(s_, one))
+        print(f"kernel {fn.__name__} at 1M, every threshold one value: {k_ms:.4f} ms, "
+              f"plain {p_ms:.4f} ms ({turns(readings)}) {tag}", flush=True)
+    # One firing's extents as the sweep builds them, host clock to the end of
+    # the device work: what each scheme adds before B2/B3.
+    for label in ("systematic", "stratified", "multinomial"):
+        def extents(label=label):
+            return apt.engine._fused_extents(label, apt.rng.key(30), logw, m, s1, N)
+        extents()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(REPS):
+            extents()
+        torch.cuda.synchronize()
+        print(f"extents of one firing [{label}] at 1M: "
+              f"{(time.perf_counter() - t0) / REPS * 1e3:.4f} ms (host clock) {tag}", flush=True)
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        res = apt.sweep(apt.rng.key(20), kernel, N, resampler, store_states=False,
-                        device="cuda")
-        float(res.log_evidence)
-        wall_us = (time.perf_counter() - t0) * 1e6
-    events = prof.key_averages()
-    # Only device-side rows: an aten op's row repeats its kernels' device time.
-    kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA),
-                     key=lambda e: e.self_device_time_total, reverse=True)
-    busy_us = sum(e.self_device_time_total for e in kernels)
-    gate_us = sum(e.cpu_time_total for e in events if e.key == "aten::_local_scalar_dense")
-    if busy_us > 0:
-        print(f"profiled sweep: wall {wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms "
-              f"({busy_us / wall_us:.3f} of wall; unprofiled median {med * 1e3:.3f} ms), "
-              f"host blocked at the gate {gate_us / 1e3:.3f} ms in {T - 1} reads, "
-              f"{sum(e.count for e in kernels)} kernel launches {tag}", flush=True)
-    else:
-        print("profiled sweep: device time not measured (profiler saw no device time)",
-              flush=True)
-    for e in kernels[:10]:
-        print(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}",
-              flush=True)
+    def profiled(what, fn, reads):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        events = prof.key_averages()
+        # Only device-side rows: an aten op's row repeats its kernels' device time.
+        kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA),
+                         key=lambda e: e.self_device_time_total, reverse=True)
+        busy_us = sum(e.self_device_time_total for e in kernels)
+        gate_us = sum(e.cpu_time_total for e in events if e.key == "aten::_local_scalar_dense")
+        if busy_us > 0:
+            print(f"profiled {what}: wall {wall_us / 1e3:.3f} ms, device busy "
+                  f"{busy_us / 1e3:.3f} ms ({busy_us / wall_us:.3f} of wall), host blocked "
+                  f"in scalar reads {gate_us / 1e3:.3f} ms ({reads}), "
+                  f"{sum(e.count for e in kernels)} kernel launches {tag}", flush=True)
+        else:
+            print(f"profiled {what}: device time not measured (profiler saw no device time)",
+                  flush=True)
+        for e in kernels[:10]:
+            print(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}",
+                  flush=True)
 
-    replaces = {
-        "extents_from_logw": f"{TPU_FILE}:237",
-        "decode_ancestors": f"{TPU_FILE}:972",
-        "resample_move": f"{TPU_FILE}:1090",
-    }
+    profiled("systematic sweep",
+             lambda: float(apt.sweep(apt.rng.key(20), kernel, N, apt.SMC(N).resampler,
+                                     store_states=False, device="cuda").log_evidence),
+             f"{T - 1} gate reads")
+    profiled("PGAS iteration (replay)",
+             lambda: float(apt.step_pg(apt.rng.key(21), traced, pgas, st, "replay",
+                                       device="cuda")[0].log_evidence),
+             "no gate: every step resamples")
+
     record = {"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces[name],
-         "launches": launches[name], "max_abs_err": err[name],
+        {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
+         "launches": main_launches[name], "max_abs_err": err[name],
          "ms": timing[name][0], "plain_ms": timing[name][1]}
-        for name in replaces
+        for name in names
     ]}
+    for k in record["kernels"]:
+        check(k["launches"] > 0, f"{k['name']} was never launched on a main path")
     print(json.dumps(record), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

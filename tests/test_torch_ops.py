@@ -3,9 +3,10 @@ package's Pallas kernels in interpret mode.
 
 B1 ``extents_from_logw``, B2 ``decode_ancestors_bs`` and its dense twin
 ``decode_ancestors`` (B5), B3 the v6 lookup move and the v1 staircase move
-(B4) through ``resample_move_f``.  On CPU tensors the port's wrappers run the
-plain versions; the CUDA kernels are compared with them on the card by
-``chip_smoke.py``.
+(B4) through ``resample_move_f``, B6 ``scaled_prefix_from_logw`` and
+``prefix_sum``, B7 ``count_le_sorted_bs`` and B8 ``count_le_sorted``.  On
+CPU tensors the port's wrappers run the plain versions; the CUDA kernels are
+compared with them on the card by ``chip_smoke.py``.
 """
 
 import numpy as np
@@ -219,4 +220,161 @@ def test_cpu_path_counts_no_launches():
     ops.reset_launch_counts()
     f = ops.extents_from_logw(torch.zeros(64), torch.tensor(0.0), torch.tensor(64.0), 0.5, 64)
     ops.resample_move(ops.decode_ancestors(f, 64), torch.zeros(64))
-    assert [w.launches for w in ops.KERNEL_WRAPPERS] == [0, 0, 0]
+    s = ops.prefix_sum(torch.ones(65))
+    thr = ops.scaled_prefix_from_logw(torch.zeros(64), torch.tensor(0.0), torch.tensor(1.0))
+    ops.count_le_sorted_bs(s[:64], thr)
+    ops.count_le_sorted(s[:64], thr)
+    assert len(ops.KERNEL_WRAPPERS) == 7
+    assert [w.launches for w in ops.KERNEL_WRAPPERS] == [0] * 7
+
+
+# --- B6: the scaled prefix ----------------------------------------------------
+
+
+def _ulps(a, b):
+    """float32 ulp distance of nonnegative values."""
+    return np.abs(_bits(a).astype(np.int64) - _bits(b).astype(np.int64))
+
+
+# The port sums in float64 and rounds once (held exactly below); the Pallas
+# kernel sums in float32, log-step within a block with a Kahan carry across
+# blocks, and is itself up to 4 ulps from the rounded float64 prefix at these
+# sizes (measured: 4 at m = 5000).  So the two are held to 4 ulps.
+B6_ULPS = 4
+
+
+def _exact_scaled_prefix(e, scale):
+    """The port's formula in numpy on float32 summands ``e``: the float64
+    prefix rounded to float32 once, times the float32 scale in float32."""
+    return np.cumsum(e, dtype=np.float64).astype(np.float32) * np.float32(scale)
+
+
+@pytest.mark.parametrize("m", [1000, 4096, 5000, 70])
+def test_scaled_prefix_matches_pallas(m):
+    rng = np.random.default_rng(m)
+    logw = (rng.standard_normal(m) * 3).astype(np.float32)
+    mx = np.float32(logw.max())
+    for scale in (np.float32(7.25), np.float32(m) / np.exp(logw - mx).sum(dtype=np.float32)):
+        got = ops.scaled_prefix_from_logw(torch.as_tensor(logw), torch.tensor(mx),
+                                          torch.tensor(scale)).numpy()
+        want = np.asarray(pr.scaled_prefix_from_logw(jnp.asarray(logw), jnp.float32(mx),
+                                                     jnp.float32(scale), interpret=True))
+        assert _ulps(got, want).max() <= B6_ULPS
+        assert (np.diff(got) >= 0).all(), "the scaled prefix must be bitwise nondecreasing"
+        e = torch.exp(torch.as_tensor(logw) - torch.tensor(mx)).numpy()
+        np.testing.assert_array_equal(got, _exact_scaled_prefix(e, scale))
+
+
+@pytest.mark.parametrize("profile", PROFILES)
+def test_scaled_prefix_profiles_match_pallas(profile):
+    # c = n·cdf as stratified uses it, on each weight profile, n = M and M − 1.
+    m = 4096
+    logw = _logw(profile, m, seed=11)
+    mx, s1 = _reduce(logw)
+    for n in (m, m - 1):
+        scale = np.float32(n) / s1
+        got = ops.scaled_prefix_from_logw(torch.as_tensor(logw), torch.tensor(mx),
+                                          torch.tensor(scale)).numpy()
+        want = np.asarray(pr.scaled_prefix_from_logw(jnp.asarray(logw), jnp.float32(mx),
+                                                     jnp.float32(scale), interpret=True))
+        assert _ulps(got, want).max() <= B6_ULPS
+        assert (np.diff(got) >= 0).all()
+
+
+@pytest.mark.parametrize("m", [1000, 4096, 20000])
+def test_prefix_sum_matches_pallas(m):
+    x = np.random.default_rng(m + 1).exponential(size=m).astype(np.float32)
+    got = ops.prefix_sum(torch.as_tensor(x)).numpy()
+    want = np.asarray(pr.prefix_sum(jnp.asarray(x), interpret=True))
+    assert _ulps(got, want).max() <= B6_ULPS
+    assert (np.diff(got) >= 0).all()
+    # The port's prefix is the float64 prefix rounded once.
+    np.testing.assert_array_equal(got, np.cumsum(x, dtype=np.float64).astype(np.float32))
+
+
+def test_prefix_sum_is_a_running_max_for_negative_inputs():
+    # As the TPU kernel, the output is nondecreasing whatever the input: a
+    # prefix that falls is held at its running max.
+    x = torch.tensor([1.0, -3.0, 2.0, 0.5, -0.25])
+    np.testing.assert_array_equal(ops.prefix_sum(x).numpy(), [1.0, 1.0, 1.0, 1.0, 1.0])
+    np.testing.assert_array_equal(
+        np.asarray(pr.prefix_sum(jnp.asarray(x.numpy()), interpret=True)), [1, 1, 1, 1, 1])
+
+
+# --- B7 / B8: the sorted merge-count ------------------------------------------
+
+
+def _sorted_pair(ns, nt, seed):
+    rng = np.random.default_rng(seed)
+    s = np.sort(rng.exponential(size=ns).cumsum().astype(np.float32))
+    t = np.sort((rng.random(nt) * s[-1] * 1.05).astype(np.float32))
+    return s, t
+
+
+_COUNTS = {"bs": (ops.count_le_sorted_bs, pr.count_le_sorted_bs),
+           "merge": (ops.count_le_sorted, pr.count_le_sorted)}
+
+
+@pytest.mark.parametrize("form", ["bs", "merge"])
+@pytest.mark.parametrize("ns,nt", [(1000, 1000), (4096, 3000), (3000, 4096), (100, 5000)])
+def test_count_le_sorted_matches_pallas(ns, nt, form):
+    s, t = _sorted_pair(ns, nt, seed=ns * 3 + nt)
+    port, pallas = _COUNTS[form]
+    got = port(torch.as_tensor(s), torch.as_tensor(t)).numpy()
+    np.testing.assert_array_equal(got, np.asarray(pallas(jnp.asarray(s), jnp.asarray(t),
+                                                         interpret=True)))
+    np.testing.assert_array_equal(got, np.searchsorted(s, t, side="right"))
+    assert got.dtype == np.int32
+
+
+@pytest.mark.parametrize("form", ["bs", "merge"])
+def test_count_le_sorted_extremes_and_long_stall(form):
+    port, pallas = _COUNTS[form]
+    # Thresholds below every value, between, on, above every value.
+    s = np.arange(1, 2049, dtype=np.float32)
+    t = np.asarray([0.0, 0.5, 1.0, 1024.5, 2048.0, 9999.0], np.float32)
+    got = port(torch.as_tensor(s), torch.as_tensor(t)).numpy()
+    np.testing.assert_array_equal(got, [0, 0, 1, 1024, 2048, 2048])
+    np.testing.assert_array_equal(got, np.asarray(pallas(jnp.asarray(s), jnp.asarray(t),
+                                                         interpret=True)))
+    # One tiny block of thresholds against values spanning many chunks.
+    s = np.linspace(0.0, 1.0, 8192, dtype=np.float32)
+    t = np.asarray([0.25, 0.5, 1.0], np.float32)
+    got = port(torch.as_tensor(s), torch.as_tensor(t)).numpy()
+    np.testing.assert_array_equal(got, np.searchsorted(s, t, side="right"))
+    np.testing.assert_array_equal(got, np.asarray(pallas(jnp.asarray(s), jnp.asarray(t),
+                                                         interpret=True)))
+    # No values: every count is 0 (the reference slot's draw of PG(1)).
+    assert port(torch.zeros(0), torch.as_tensor(t)).tolist() == [0, 0, 0]
+
+
+def test_count_le_sorted_auto_dispatch(monkeypatch):
+    s, t = (torch.as_tensor(a) for a in _sorted_pair(300, 200, seed=5))
+    want = ops.count_le_sorted_ref(s, t)
+    for form in ("bs", "merge"):
+        monkeypatch.setattr(ops, "COUNT_LE_SORTED", form)
+        assert torch.equal(ops.count_le_sorted_auto(s, t), want)
+    monkeypatch.setattr(ops, "COUNT_LE_SORTED", "dense")
+    with pytest.raises(ValueError, match="COUNT_LE_SORTED"):
+        ops.count_le_sorted_auto(s, t)
+
+
+def test_scheme_wrappers_check_inputs_and_never_fall_back():
+    x = torch.zeros(8)
+    with pytest.raises(TypeError):
+        ops.prefix_sum(torch.zeros(8, dtype=torch.float64))
+    with pytest.raises(ValueError):
+        ops.prefix_sum(torch.zeros(4, 2))
+    with pytest.raises(ValueError):
+        ops.scaled_prefix_from_logw(x, torch.tensor(0.0), torch.ones(1))
+    with pytest.raises(TypeError):
+        ops.count_le_sorted_bs(x, torch.zeros(8, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        ops.count_le_sorted(torch.zeros(16)[::2], x)
+    meta = torch.zeros(8, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.prefix_sum(meta)
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.count_le_sorted(meta, meta)
+    with pytest.raises(ValueError, match="different devices"):
+        ops.scaled_prefix_from_logw(x, torch.zeros((), device="meta"), torch.tensor(1.0))

@@ -201,11 +201,24 @@ def test_model_buffers_follow_to():
 def test_unported_paths_raise():
     tr = apt.traced_ssm_from_numpy(PARAMS, _ys(7, 5))
     key = apt.rng.key(0)
-    with pytest.raises(NotImplementedError, match="PGAS slice"):
-        apt.sweep(key, apt.SSMKernel(tr), 16, apt.SMC(16).resampler, ref=torch.zeros(5))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        apt.sample(key, tr, apt.SMC(16, lambda k, w, n: None))
-    with pytest.raises(NotImplementedError, match="PGAS slice"):
+    # Non-Markov dynamics and per-particle-key sampling belong to later slices.
+    lg = apt.models
+
+    class HistoryDynamics(lg.LinearGaussianDynamics):
+        needs_history = True
+
+    class ScalarPrior(lg.GaussianPrior):
+        vectorized = False
+
+    for model, match in [
+        (apt.StateSpaceModel(lg.GaussianPrior(), HistoryDynamics(),
+                             lg.LinearGaussianObservation()), "models slice"),
+        (apt.StateSpaceModel(ScalarPrior(), lg.LinearGaussianDynamics(),
+                             lg.LinearGaussianObservation()), "not vectorized"),
+    ]:
+        with pytest.raises(NotImplementedError, match=match):
+            apt.sample(key, apt.TracedSSM(model, torch.zeros(5)), apt.SMC(16))
+    with pytest.raises(TypeError, match="unknown sampler"):
         apt.sample(key, tr, object(), 10)
     with pytest.raises(ValueError):
         apt.sample(key, tr, apt.SMC(16), 10)
