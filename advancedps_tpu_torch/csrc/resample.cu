@@ -7,12 +7,18 @@
 //                prefix = inclusive cumsum of exp(logw - m), output bitwise
 //                nondecreasing.  Replaces extents_from_logw
 //                (_make_extents_kernel).
-//   B2 decode    anc[k] = #{j : f_j <= k} = upper_bound(f, k), with f[M-1]
+//   B2 decode    anc[k] = #{j : f_j <= start + k} = upper_bound(f, start + k)
+//                for the output window [start, start + n_out), with f[M-1]
 //                read as `guard`.  Replaces decode_ancestors_bs
 //                (_make_decode_bs_kernel).
 //   B3 move      out[k, :] = v[anc[k], :] bitwise, 0 where anc[k] == M.
 //                Replaces the v6 lookup move _resample_move_cols_v6
 //                (_make_lookup_kernel).
+//   B4 decode+move  B2 and B3 in one pass over an output window.  Replaces
+//                the v1 staircase _resample_move_cols (_make_move_kernel).
+//   B5 dense decode  B2 by counting instead of searching: each run of equal
+//                extents writes its end once, then an integer max-scan.
+//                Replaces decode_ancestors (_decode_kernel).
 //   B6 prefix    out_j = (sum_{i<=j} e_i) * scale, e = exp(x - m) or x,
 //                output bitwise nondecreasing.  Replaces _scaled_prefix
 //                (_make_scaled_prefix_kernel) behind scaled_prefix_from_logw
@@ -28,7 +34,10 @@
 // B7 read their sorted array through ~20 binary-search probes per output, but
 // that array (4 MB) stays in the 50 MB L2 and neighbouring outputs share their
 // probe paths; B3 reads anc and the source rows and writes the rows (12 MB at
-// D = 1); B8 reads s and t once each into shared memory and writes the counts.
+// D = 1); B8 reads s and t once each into shared memory and writes the counts;
+// B4 reads each tile's owner extents once (plus two searches) and the source
+// rows and writes anc and the rows, B3's traffic without B2's in between; B5
+// reads f once and makes two passes over anc (8 MB + 12 MB).
 // The design keeps every access either coalesced or L2-resident, and does no
 // per-row run-length scatter, so a single survivor that owns every slot costs
 // the same as uniform weights.
@@ -65,6 +74,23 @@
 // skew: one particle holding all the weight (every threshold in one tile) costs
 // what uniform weights cost.  That is what the TPU's chunk-once staircase was
 // for.
+//
+// B4 owner ranges.  The owners of a tile of consecutive output slots are a
+// contiguous run of rows [j0, j1], j0 and j1 the owners of the tile's first and
+// last slot (two binary searches over the whole f).  When that run fits in
+// shared memory its extents are staged there and every slot searches only the
+// run; a skewed tile whose run is longer (many zero-offspring rows between two
+// owners) searches the run in global memory instead.  Either way the count is
+// exact and the rows move as 32-bit words.  The TPU staircase's compare masks,
+// which stood in for the missing per-lane gather, are not carried over.
+//
+// B5 counting.  anc[k] = #{j : f_j <= k} is, for nondecreasing f, one more
+// than the last row whose extent is <= k.  Each run of equal extents ends at
+// one row j (j = M-1, or f_j < f_{j+1}); writing j + 1 at f_j (when f_j <
+// n_out) leaves a sparse array whose inclusive running max is anc.  Run ends
+// have distinct extents, so no two threads write one entry and no atomics are
+// needed.  The running max reuses B1's max-scan and cross-tile carry.  Work is
+// O(M + n_out), with no search.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -80,6 +106,9 @@ constexpr int kMoveThreads = 256;          // B2, B3, B7: one thread per output
 constexpr int kMergeThreads = 256;         // B8
 constexpr int kMergeItems = 8;             // merged elements per B8 thread
 constexpr int kMergeTile = kMergeThreads * kMergeItems;
+constexpr int kDecodeMoveThreads = 256;    // B4
+constexpr int kDecodeMoveSlots = 1024;     // output slots per B4 block
+constexpr int kDecodeMoveRows = 8192;      // owner extents staged per B4 block (32 KB)
 
 struct Add {
   template <typename T>
@@ -296,19 +325,119 @@ int prefix_scan(const float* x, int64_t len, const float* mx, Epi epi, double* d
   return (int)cudaGetLastError();
 }
 
-// ---- B2: one thread per output slot, binary search for the first extent
-// above the slot.  f[m-1] is read as `guard` (never written).
-__global__ void decode_ancestors_kernel(const int* __restrict__ f, int64_t m, int guard,
-                                        int64_t n_out, int* __restrict__ anc) {
-  const int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= n_out) return;
-  int64_t lo = 0, hi = m;
+// Extent j with f[m-1] read as `guard`.
+__device__ __forceinline__ int extent_at(const int* __restrict__ f, int64_t j, int64_t m,
+                                         int guard) {
+  return j == m - 1 ? guard : __ldg(f + j);
+}
+
+// First row j in [lo, hi) whose extent exceeds slot s, or hi: for
+// nondecreasing f, #{j < hi : f_j <= s} when every row below lo has f_j <= s.
+__device__ int64_t upper_bound_rows(const int* __restrict__ f, int64_t lo, int64_t hi,
+                                    int64_t m, int guard, int64_t s) {
   while (lo < hi) {
     const int64_t mid = (lo + hi) >> 1;
-    const int fm = mid == m - 1 ? guard : __ldg(f + mid);
-    if ((int64_t)fm > k) hi = mid; else lo = mid + 1;
+    if ((int64_t)extent_at(f, mid, m, guard) > s) hi = mid; else lo = mid + 1;
   }
-  anc[k] = (int)lo;
+  return lo;
+}
+
+// ---- B2: one thread per output slot of the window, a binary search over the
+// whole f for the first extent above the slot.  Searching all of f replaces
+// the TPU kernel's aligned seed row and gives the same counts.
+__global__ void decode_ancestors_kernel(const int* __restrict__ f, int64_t m, int guard,
+                                        int64_t start, int64_t n_out,
+                                        int* __restrict__ anc) {
+  const int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= n_out) return;
+  anc[k] = (int)upper_bound_rows(f, 0, m, m, guard, start + k);
+}
+
+// ---- B4: one block per kDecodeMoveSlots output slots (see "B4 owner ranges").
+__global__ void decode_move_kernel(const int* __restrict__ f, int64_t m, int guard,
+                                   int64_t start, int64_t n_out,
+                                   const uint32_t* __restrict__ v, int64_t d,
+                                   uint32_t* __restrict__ out, int* __restrict__ anc_clipped) {
+  __shared__ int rows_f[kDecodeMoveRows];
+  __shared__ int slot_anc[kDecodeMoveSlots];
+  __shared__ int64_t owner[2];
+  const int64_t k0 = (int64_t)blockIdx.x * kDecodeMoveSlots;
+  const int nk = (int)(n_out - k0 < kDecodeMoveSlots ? n_out - k0 : kDecodeMoveSlots);
+  if (threadIdx.x < 2) {
+    const int64_t s = start + k0 + (threadIdx.x == 0 ? 0 : nk - 1);
+    owner[threadIdx.x] = upper_bound_rows(f, 0, m, m, guard, s);
+  }
+  __syncthreads();
+  // Rows below j0 have f <= the first slot, rows from j1 on f > the last
+  // slot, so each slot's count is j0 plus its count within [j0, j1).
+  const int64_t j0 = owner[0], j1 = owner[1];
+  const int64_t run = j1 - j0;
+  const bool staged = run <= kDecodeMoveRows;
+  if (staged) {
+    for (int i = threadIdx.x; i < run; i += blockDim.x) {
+      rows_f[i] = extent_at(f, j0 + i, m, guard);
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < nk; i += blockDim.x) {
+    const int64_t s = start + k0 + i;
+    int64_t a;
+    if (staged) {
+      int lo = 0, hi = (int)run;
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if ((int64_t)rows_f[mid] > s) hi = mid; else lo = mid + 1;
+      }
+      a = j0 + lo;
+    } else {
+      a = upper_bound_rows(f, j0, j1, m, guard, s);
+    }
+    slot_anc[i] = (int)a;
+    anc_clipped[k0 + i] = a < m ? (int)a : (int)(m - 1);
+  }
+  __syncthreads();
+  // The tile's rows are contiguous in out: consecutive threads write
+  // consecutive words.
+  uint32_t* tile_out = out + k0 * d;
+  for (int64_t e = threadIdx.x; e < (int64_t)nk * d; e += blockDim.x) {
+    const int64_t i = e / d;
+    const int a = slot_anc[i];
+    tile_out[e] = (int64_t)a < m ? __ldg(v + (int64_t)a * d + (e - i * d)) : 0u;
+  }
+}
+
+// ---- B5 pass 1: run ends write one more than their row at their extent
+// (see "B5 counting").  buf is zero on entry.
+__global__ void dense_run_ends(const int* __restrict__ f, int64_t m, int guard, int64_t n_out,
+                               int* __restrict__ buf) {
+  const int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= m) return;
+  const int fj = extent_at(f, j, m, guard);
+  const bool run_end = j == m - 1 || fj < extent_at(f, j + 1, m, guard);
+  if (run_end && fj >= 0 && (int64_t)fj < n_out) buf[fj] = (int)(j + 1);
+}
+
+// ---- B5 pass 2: in-place inclusive max-scan of each tile, as B1's pass 3
+// does for its epilogue values.  Writes the tile's largest value to tile_max.
+__global__ void max_scan_tiles(int* __restrict__ x, int64_t len, int* __restrict__ tile_max) {
+  __shared__ int smem[32];
+  const int64_t first = (int64_t)blockIdx.x * kTile + (int64_t)threadIdx.x * kItems;
+  int v[kItems];
+  int run = 0;  // the values are >= 0
+#pragma unroll
+  for (int i = 0; i < kItems; ++i) {
+    const int64_t j = first + i;
+    if (j < len) run = x[j] > run ? x[j] : run;
+    v[i] = run;
+  }
+  int tmax;
+  const int carry = block_exclusive_scan(run, 0, Max(), smem, threadIdx.x == 0 ? &tmax : nullptr);
+#pragma unroll
+  for (int i = 0; i < kItems; ++i) {
+    const int64_t j = first + i;
+    if (j < len) x[j] = v[i] > carry ? v[i] : carry;
+  }
+  if (threadIdx.x == 0) tile_max[blockIdx.x] = tmax;
 }
 
 // ---- B3: one thread per output element (slot k, column c).  Values move as
@@ -429,12 +558,42 @@ int aps_scaled_prefix(const float* x, int64_t len, int use_exp, const float* mx,
                  : prefix_scan<false>(x, len, mx, epi, dscratch, fscratch, out, s);
 }
 
-// B2.  f int32[m] nondecreasing; anc int32[n_out] in [0, m].
-int aps_decode_ancestors(const int* f, int64_t m, int guard, int64_t n_out, int* anc,
-                         void* stream) {
+// B2.  f int32[m] nondecreasing (f[m-1] read as guard); anc int32[n_out] in
+// [0, m], the counts of slots start .. start + n_out - 1.
+int aps_decode_ancestors(const int* f, int64_t m, int guard, int64_t start, int64_t n_out,
+                         int* anc, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   decode_ancestors_kernel<<<blocks_for(n_out, kMoveThreads), kMoveThreads, 0, s>>>(
-      f, m, guard, n_out, anc);
+      f, m, guard, start, n_out, anc);
+  return (int)cudaGetLastError();
+}
+
+// B4.  f as for B2; v 32-bit words [m, d]; out [n_out, d] (0 past the
+// population); anc_clipped int32[n_out], the counts clipped to m - 1.
+int aps_decode_move(const int* f, int64_t m, int guard, int64_t start, int64_t n_out,
+                    const void* v, int64_t d, void* out, int* anc_clipped, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  decode_move_kernel<<<blocks_for(n_out, kDecodeMoveSlots), kDecodeMoveThreads, 0, s>>>(
+      f, m, guard, start, n_out, (const uint32_t*)v, d, (uint32_t*)out, anc_clipped);
+  return (int)cudaGetLastError();
+}
+
+// B5.  f int32[m] >= 0, nondecreasing (f[m-1] read as guard); anc
+// int32[n_out], n_out >= 1; iscratch int32[2 * ntiles],
+// ntiles = ceil(n_out / aps_prefix_tile_size()).
+int aps_decode_ancestors_dense(const int* f, int64_t m, int guard, int64_t n_out,
+                               int* iscratch, int* anc, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int ntiles = (int)((n_out + kTile - 1) / kTile);
+  int* tile_max = iscratch;
+  int* tile_carry = iscratch + ntiles;
+  cudaError_t err = cudaMemsetAsync(anc, 0, (size_t)n_out * sizeof(int), s);
+  if (err != cudaSuccess) return (int)err;
+  dense_run_ends<<<blocks_for(m, kMoveThreads), kMoveThreads, 0, s>>>(f, m, guard, n_out, anc);
+  max_scan_tiles<<<ntiles, kThreads, 0, s>>>(anc, n_out, tile_max);
+  tiles_exclusive_scan<int, Max><<<1, kScanThreads, 0, s>>>(tile_max, tile_carry, ntiles, 0,
+                                                            Max());
+  prefix_carry<int><<<ntiles, kThreads, 0, s>>>(anc, n_out, tile_carry);
   return (int)cudaGetLastError();
 }
 

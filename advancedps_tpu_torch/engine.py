@@ -18,8 +18,10 @@ through the kernels of :mod:`advancedps_tpu_torch.ops.resample`:
 * multinomial: sorted uniforms by exponential spacings, B6 prefix sums ``S``,
   B6 thresholds ``cdf·S_n``, B7 (or B8) merge-count;
 
-then B2 decode and B3 move.  Any other resampler (residual, or a user's)
-returns its ancestors and the state is gathered by them.
+then the decode and move of :func:`~advancedps_tpu_torch.ops.resample.resample_move_f`
+(B2 + B3, B4, or B5 + a gather, by ``ops.resample.MOVE_VERSION``).  Any other
+resampler (residual, or a user's) returns its ancestors and the state is
+gathered by them.
 
 Conditional sweeps (PG/PGAS): the reference trajectory occupies slot ``N−1``,
 reads its stored state instead of sampling (:func:`inject_ref`), and survives
@@ -241,11 +243,10 @@ def sweep(
             if scheme is not None:
                 f = _fused_extents(scheme, rs_key, logw, m, s1, n_resample)
                 # With a reference, slot n − 1 decodes past the drawn
-                # population (ancestor M clipped to M − 1, value 0) and is
-                # overwritten with the reference row in place.
-                anc, state_rs = ops.resample_move(
-                    ops.decode_ancestors(f, n, guard=n_resample), state
-                )
+                # population (ancestor M clipped to M − 1; row 0, or row
+                # M − 1 under move version 0) and is overwritten with the
+                # reference row in place.
+                anc, state_rs = ops.resample_move_f(f, state, n, guard_n=n_resample)
                 if has_ref:
                     anc[n - 1:] = ref_anc
                     state_rs[n - 1:] = ref_row

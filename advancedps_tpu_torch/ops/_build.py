@@ -34,8 +34,10 @@ _SIGNATURES = {
     "aps_prefix_tile_size": (),
     "aps_extents_from_logw": (_P, _I64, _P, _P, ctypes.c_float, _I32, _P, _P, _P, _P),
     "aps_scaled_prefix": (_P, _I64, _I32, _P, _P, _P, _P, _P, _P),
-    "aps_decode_ancestors": (_P, _I64, _I32, _I64, _P, _P),
+    "aps_decode_ancestors": (_P, _I64, _I32, _I64, _I64, _P, _P),
     "aps_move_rows": (_P, _I64, _I64, _P, _I64, _P, _P, _P),
+    "aps_decode_move": (_P, _I64, _I32, _I64, _I64, _P, _I64, _P, _P, _P),
+    "aps_decode_ancestors_dense": (_P, _I64, _I32, _I64, _P, _P, _P),
     "aps_count_le_sorted_bs": (_P, _I64, _P, _I64, _P, _P),
     "aps_count_le_sorted": (_P, _I64, _P, _I64, _P, _P),
 }

@@ -5,12 +5,18 @@ Systematic resampling runs three kernels per firing:
 * B1 :func:`extents_from_logw` — log-weights to nondecreasing int32 extents
   ``f_j = clip(ceil(n·cumsum(exp(logw − m))/s1 − u), 0, n)``;
 * B2 :func:`decode_ancestors` — extents to ancestors
-  ``anc[k] = #{j : f_j ≤ k}``;
-* B3 :func:`resample_move` — particle rows moved by ancestor, bitwise, with
+  ``anc[k] = #{j : f_j ≤ start + k}`` over an output window;
+* B3 :func:`move_rows` — particle rows moved by ancestor, bitwise, with
   slots past the drawn population set to 0.
 
-Stratified and multinomial resampling reach the same B2/B3 through extents
-built from two more primitives:
+Two more kernels compute the same decode in other forms:
+
+* B4 :func:`decode_move` — B2 and B3 fused into one pass over an output
+  window;
+* B5 :func:`decode_ancestors_dense` — B2 by counting, with no search.
+
+Stratified and multinomial resampling reach the decode through extents built
+from two more primitives:
 
 * B6 :func:`scaled_prefix_from_logw` and :func:`prefix_sum` — the float32
   scaled prefix ``(Σ_{i≤j} e_i)·scale`` with ``e = exp(x − m)`` or ``x``,
@@ -18,6 +24,12 @@ built from two more primitives:
 * B7 :func:`count_le_sorted_bs` and B8 :func:`count_le_sorted` — the sorted
   merge-count ``out[j] = #{k : s_k ≤ t_j}``, by binary search and by merge
   path; :func:`count_le_sorted_auto` picks one (:data:`COUNT_LE_SORTED`).
+
+:func:`resample_move_f` is the decode + move the sweep runs on a firing;
+:data:`MOVE_VERSION` picks B2 + B3 (6), B4 (1) or B5 + a gather (0), as the
+JAX package's ``APS_MOVE_VERSION`` does.  :func:`resample_move_window_fext`
+and :func:`resample_move_window` decode and move one output window, as the
+sharded exchange does.
 
 Each wrapper takes its plain PyTorch version (``*_ref``, beside it) only when
 its tensors lie on the CPU.  On a CUDA tensor it launches the hand-written
@@ -38,10 +50,15 @@ from . import _build
 __all__ = [
     "extents_from_logw",
     "extents_from_logw_ref",
+    "extents_from_prefix",
     "decode_ancestors",
     "decode_ancestors_ref",
-    "resample_move",
+    "decode_ancestors_dense",
+    "decode_ancestors_dense_ref",
+    "move_rows",
     "resample_move_ref",
+    "decode_move",
+    "decode_move_ref",
     "scaled_prefix_from_logw",
     "prefix_sum",
     "scaled_prefix_ref",
@@ -49,7 +66,13 @@ __all__ = [
     "count_le_sorted",
     "count_le_sorted_ref",
     "count_le_sorted_auto",
+    "resample_move_f",
+    "resample_move",
+    "resample_move_window",
+    "resample_move_window_fext",
+    "systematic_decode",
     "COUNT_LE_SORTED",
+    "MOVE_VERSION",
     "KERNEL_WRAPPERS",
     "reset_launch_counts",
 ]
@@ -63,29 +86,69 @@ MAX_N = 1 << 24
 #: here it is set in code.
 COUNT_LE_SORTED = "bs"
 
+#: Which decode + move :func:`resample_move_f` runs: ``6`` (B2 then B3, the
+#: default, as in the JAX package), ``1`` (B4) or ``0`` (B5, then a gather).
+#: The JAX package chooses by the ``APS_MOVE_VERSION`` environment variable;
+#: here it is set in code.  Windowed calls run version 1 for version 0.
+MOVE_VERSION = 6
+_MOVE_VERSIONS = (0, 1, 6)
+
 
 # ---------------------------------------------------------------------------
 # Plain PyTorch versions
 # ---------------------------------------------------------------------------
 
 
+def extents_from_prefix(prefix, s1, u: float, n: int) -> torch.Tensor:
+    """B1's epilogue on a prefix (float64, or float32 with ``s1 = 1``):
+    ``clip(ceil(n·(fl32(prefix)·(1/s1)) − u), 0, n)`` as int32, each operation
+    rounded to float32 on its own (not yet made nondecreasing)."""
+    cdf = prefix.to(torch.float32) * (1.0 / s1)
+    return torch.clamp(torch.ceil(n * cdf - u), 0, n).to(torch.int32)
+
+
 def extents_from_logw_ref(logw, m, s1, u: float, n: int) -> torch.Tensor:
-    """``cummax(clip(ceil(n·(prefix·(1/s1)) − u), 0, n))`` in float32, with
-    ``prefix = cumsum(exp(logw − m))`` summed in float64 and rounded once."""
-    inv_s1 = 1.0 / s1
-    prefix = torch.cumsum(torch.exp(logw - m), 0, dtype=torch.float64).to(torch.float32)
-    cdf = prefix * inv_s1
-    f = torch.clamp(torch.ceil(n * cdf - u), 0, n).to(torch.int32)
-    return torch.cummax(f, 0).values
+    """``cummax`` of :func:`extents_from_prefix` with ``prefix =
+    cumsum(exp(logw − m))`` summed in float64."""
+    prefix = torch.cumsum(torch.exp(logw - m), 0, dtype=torch.float64)
+    return torch.cummax(extents_from_prefix(prefix, s1, u, n), 0).values
 
 
-def decode_ancestors_ref(f, n_out: int, guard: Optional[int] = None) -> torch.Tensor:
-    """``searchsorted(f, arange(n_out), right=True)`` with ``f[-1]`` read as
-    ``guard`` (``n_out`` if not given); ``f`` itself is not written."""
-    last = torch.full((1,), n_out if guard is None else guard, dtype=f.dtype, device=f.device)
-    f_guarded = torch.cat([f[:-1], last])
-    k = torch.arange(n_out, dtype=f.dtype, device=f.device)
-    return torch.searchsorted(f_guarded, k, right=True).to(torch.int32)
+def _guard_of(n_out: int, guard: Optional[int], start: int) -> int:
+    """The value read for ``f[M−1]``: ``guard``, or ``n_out`` for a decode of
+    the whole population.  A window must name the drawn count itself."""
+    if guard is not None:
+        return int(guard)
+    if start:
+        raise ValueError("a windowed decode reads f[M-1] as the drawn count: pass guard=n")
+    return n_out
+
+
+def _guarded(f, guard: int):
+    return torch.cat([f[:-1], torch.full((1,), guard, dtype=f.dtype, device=f.device)])
+
+
+def decode_ancestors_ref(f, n_out: int, guard: Optional[int] = None,
+                         start: int = 0) -> torch.Tensor:
+    """``searchsorted(f, arange(start, start + n_out), right=True)`` with
+    ``f[-1]`` read as ``guard`` (see :func:`decode_ancestors`); ``f`` itself
+    is not written."""
+    k = torch.arange(start, start + n_out, dtype=f.dtype, device=f.device)
+    g = _guarded(f, _guard_of(n_out, guard, start))
+    return torch.searchsorted(g, k, right=True).to(torch.int32)
+
+
+def decode_ancestors_dense_ref(f, n_out: int, guard: Optional[int] = None) -> torch.Tensor:
+    """B5's counting form: ``j + 1`` scattered at ``f_j`` for the last row
+    ``j`` of each run of equal extents (``f_j < n_out``), then ``cummax``."""
+    g = _guarded(f, _guard_of(n_out, guard, 0))
+    run_end = torch.ones_like(g, dtype=torch.bool)
+    run_end[:-1] = g[:-1] < g[1:]
+    keep = run_end & (g >= 0) & (g < n_out)
+    rows = torch.arange(1, g.numel() + 1, dtype=torch.int32, device=f.device)
+    buf = torch.zeros(n_out, dtype=torch.int32, device=f.device)
+    buf[g[keep].long()] = rows[keep]
+    return torch.cummax(buf, 0).values
 
 
 def resample_move_ref(anc, v):
@@ -96,6 +159,11 @@ def resample_move_ref(anc, v):
     past = (anc >= m).reshape((-1,) + (1,) * (v.dim() - 1))
     moved = torch.where(past, torch.zeros((), dtype=v.dtype, device=v.device), moved)
     return anc_clipped, moved
+
+
+def decode_move_ref(f, v, n_out: int, guard: Optional[int] = None, start: int = 0):
+    """:func:`decode_ancestors_ref` then :func:`resample_move_ref`."""
+    return resample_move_ref(decode_ancestors_ref(f, n_out, guard, start), v)
 
 
 def scaled_prefix_ref(x, m, scale, use_exp: bool) -> torch.Tensor:
@@ -128,6 +196,14 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndims=(1,)):
         raise ValueError(f"{name} must have {' or '.join(map(str, ndims))} dims, got shape {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def _check_extents(f, start: int):
+    _check(f, "f", torch.int32)
+    if f.numel() == 0:
+        raise ValueError("f must not be empty")
+    if start < 0:
+        raise ValueError(f"start must be >= 0, got {start}")
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
@@ -192,34 +268,67 @@ def extents_from_logw(logw, m, s1, u: float, n: int) -> torch.Tensor:
     return f
 
 
-def decode_ancestors(f, n_out: int, guard: Optional[int] = None) -> torch.Tensor:
-    """B2: ``anc[k] = #{j : f_j ≤ k}`` for ``k < n_out`` — int32 in ``[0, M]``.
+def decode_ancestors(f, n_out: int, guard: Optional[int] = None, start: int = 0) -> torch.Tensor:
+    """B2: ``anc[k] = #{j : f_j ≤ start + k}`` for ``k < n_out`` — int32 in
+    ``[0, M]``.
 
-    ``f`` is nondecreasing int32 ``[M]``; its last entry is read as ``guard``
-    (``n_out`` if not given), which covers float undershoot of the last
-    extent and, with ``guard < n_out``, leaves the slots from ``guard`` on
-    past the drawn population (``anc == M``).
+    ``f`` is nondecreasing int32 ``[M]``; its last entry is read as ``guard``,
+    which covers float undershoot of the last extent and, with a guard below
+    the last slot, leaves the slots from ``guard`` on past the drawn
+    population (``anc == M``).  The guard is the number of positions drawn:
+    ``n_out`` if not given for the whole population (``start == 0``); a
+    window (``start > 0``) must pass it.
     """
-    _check(f, "f", torch.int32)
-    if f.numel() == 0:
-        raise ValueError("f must not be empty")
+    _check_extents(f, start)
+    g = _guard_of(n_out, guard, start)
     if _on_cpu(f):
-        return decode_ancestors_ref(f, n_out, guard)
+        return decode_ancestors_ref(f, n_out, g, start)
     anc = torch.empty(n_out, dtype=torch.int32, device=f.device)
     if n_out == 0:
         return anc
     lib = _build.library()
     with torch.cuda.device(f.device):
         rc = lib.aps_decode_ancestors(
-            _ptr(f), f.numel(), int(n_out if guard is None else guard), int(n_out),
-            _ptr(anc), _stream(f.device),
+            _ptr(f), f.numel(), g, int(start), int(n_out), _ptr(anc), _stream(f.device),
         )
     _raise_on(rc, "decode_ancestors")
     decode_ancestors.launches += 1
     return anc
 
 
-def resample_move(anc, v):
+def decode_ancestors_dense(f, n_out: int, guard: Optional[int] = None) -> torch.Tensor:
+    """B5: the same counts as :func:`decode_ancestors` for the whole
+    population, by counting instead of searching: each run of equal extents
+    marks its end, and a running max fills the slots between.  ``f`` must be
+    nonnegative (extents are)."""
+    _check_extents(f, 0)
+    g = _guard_of(n_out, guard, 0)
+    if _on_cpu(f):
+        return decode_ancestors_dense_ref(f, n_out, g)
+    anc = torch.empty(n_out, dtype=torch.int32, device=f.device)
+    if n_out == 0:
+        return anc
+    lib = _build.library()
+    ntiles = -(-n_out // lib.aps_prefix_tile_size())
+    iscratch = torch.empty(2 * ntiles, dtype=torch.int32, device=f.device)
+    with torch.cuda.device(f.device):
+        rc = lib.aps_decode_ancestors_dense(
+            _ptr(f), f.numel(), g, int(n_out), _ptr(iscratch), _ptr(anc), _stream(f.device),
+        )
+    _raise_on(rc, "decode_ancestors_dense")
+    decode_ancestors_dense.launches += 1
+    return anc
+
+
+def _check_rows(v, m: Optional[int] = None):
+    _check(v, "v", torch.float32, ndims=(1, 2))
+    if v.shape[0] == 0:
+        raise ValueError("v must hold at least one row")
+    if m is not None and v.shape[0] != m:
+        raise ValueError(f"v has {v.shape[0]} rows, f has {m} extents")
+
+
+def move_rows(anc, v):
     """B3: move particle rows by ancestor.
 
     ``anc`` int32 ``[n]`` with values in ``[0, M]``; ``v`` float32 ``[M]`` or
@@ -228,9 +337,7 @@ def resample_move(anc, v):
     ``anc[k] == M``.
     """
     _check(anc, "anc", torch.int32)
-    _check(v, "v", torch.float32, ndims=(1, 2))
-    if v.shape[0] == 0:
-        raise ValueError("v must hold at least one row")
+    _check_rows(v)
     if _on_cpu(anc, v):
         return resample_move_ref(anc, v)
     n_out = anc.shape[0]
@@ -245,8 +352,38 @@ def resample_move(anc, v):
             _ptr(anc), n_out, v.shape[0], _ptr(v), d, _ptr(out), _ptr(anc_clipped),
             _stream(v.device),
         )
-    _raise_on(rc, "resample_move")
-    resample_move.launches += 1
+    _raise_on(rc, "move_rows")
+    move_rows.launches += 1
+    return anc_clipped, out
+
+
+def decode_move(f, v, n_out: int, guard: Optional[int] = None, start: int = 0):
+    """B4: :func:`decode_ancestors` and :func:`move_rows` in one pass.
+
+    ``f`` int32 ``[M]`` extents, ``v`` float32 ``[M]`` or ``[M, D]`` rows;
+    decodes the output slots ``[start, start + n_out)`` with ``f[M−1]`` read
+    as ``guard`` (as :func:`decode_ancestors`) and returns ``(anc clipped to
+    M−1, moved)``, ``moved`` a bitwise copy of the owner rows with 0 past the
+    drawn population.
+    """
+    _check_extents(f, start)
+    _check_rows(v, f.numel())
+    g = _guard_of(n_out, guard, start)
+    if _on_cpu(f, v):
+        return decode_move_ref(f, v, n_out, g, start)
+    out = torch.empty((n_out,) + tuple(v.shape[1:]), dtype=v.dtype, device=v.device)
+    anc_clipped = torch.empty(n_out, dtype=torch.int32, device=v.device)
+    if n_out == 0:
+        return anc_clipped, out
+    d = 1 if v.dim() == 1 else v.shape[1]
+    lib = _build.library()
+    with torch.cuda.device(v.device):
+        rc = lib.aps_decode_move(
+            _ptr(f), f.numel(), g, int(start), int(n_out), _ptr(v), d, _ptr(out),
+            _ptr(anc_clipped), _stream(v.device),
+        )
+    _raise_on(rc, "decode_move")
+    decode_move.launches += 1
     return anc_clipped, out
 
 
@@ -343,9 +480,90 @@ def count_le_sorted_auto(s, t) -> torch.Tensor:
     return (count_le_sorted if COUNT_LE_SORTED == "merge" else count_le_sorted_bs)(s, t)
 
 
+# ---------------------------------------------------------------------------
+# Decode + move, as the sweep and the sharded exchange call them
+# ---------------------------------------------------------------------------
+
+
+def _resolve_version(version: Optional[int]) -> int:
+    ver = MOVE_VERSION if version is None else version
+    if ver not in _MOVE_VERSIONS:
+        raise ValueError(f"unknown move version {ver}; valid: {list(_MOVE_VERSIONS)}")
+    return ver
+
+
+def resample_move_f(f, state, n: int, version: Optional[int] = None,
+                    guard_n: Optional[int] = None):
+    """Decode the ``n`` output slots of extents ``f`` and move ``state``
+    (float32 ``[M]`` or ``[M, D]``) by them.  Returns ``(anc clipped to M−1,
+    moved)``.
+
+    ``f[M−1]`` is read as ``guard_n`` (``n`` if not given): slots from the
+    guard on lie past the drawn population.  Their rows are 0 under versions
+    1 and 6, and ``state[M−1]`` under version 0, which clips the counts and
+    gathers (``pallas_resample.py:1273-1280``).  ``version`` None means
+    :data:`MOVE_VERSION`.
+    """
+    ver = _resolve_version(version)
+    if ver == 0:
+        anc = decode_ancestors_dense(f, n, guard=guard_n)
+        anc = torch.clamp(anc, max=f.shape[0] - 1)
+        return anc, state.index_select(0, anc)
+    if ver == 1:
+        return decode_move(f, state, n, guard=guard_n)
+    return move_rows(decode_ancestors(f, n, guard=guard_n), state)
+
+
+def _systematic_extents(u, weights, n: int) -> torch.Tensor:
+    """:func:`extents_from_prefix` on the float32 ``cumsum`` of normalised
+    ``weights``, as the JAX package takes it."""
+    return extents_from_prefix(torch.cumsum(weights, 0), 1.0, u, n)
+
+
+def resample_move(u, weights, state, n: int, version: Optional[int] = None):
+    """Systematic resampling of ``n`` positions from normalised ``weights``
+    with offset ``u``, the state moved by :func:`resample_move_f`."""
+    return resample_move_f(_systematic_extents(u, weights, n), state, n, version)
+
+
+def resample_move_window_fext(f_ext, state, n: int, start: int, n_out: int,
+                              version: Optional[int] = None):
+    """Decode and move the output slots ``[start, start + n_out)`` against
+    ``f_ext``, the global extents of a run of rows, and ``state``, those rows.
+
+    ``n`` is the number of positions drawn (read as the guard, as the JAX
+    package does).  Every owner of the window must lie in the run and every
+    row before the run have an extent ``≤ start``; then the returned
+    ancestors are run-local (global owner − the run's first row), clipped to
+    the run.  Given the whole population as the run, they are global.
+    Version 0 runs version 1, as ``pallas_resample.py:1323-1328`` does.
+    """
+    ver = _resolve_version(version)
+    if ver == 6:
+        return move_rows(decode_ancestors(f_ext, n_out, guard=n, start=start), state)
+    return decode_move(f_ext, state, n_out, guard=n, start=start)
+
+
+def resample_move_window(u, weights, state, n: int, start: int, n_out: int,
+                         version: Optional[int] = None):
+    """The window ``[start, start + n_out)`` of :func:`resample_move`: the
+    same extents, so the ancestors are that slice of the whole population's.
+    Slots at or past ``n`` decode past the population (ancestor M − 1, row
+    0)."""
+    f = _systematic_extents(u, weights, n)
+    return resample_move_window_fext(f, state, n, start, n_out, version)
+
+
+def systematic_decode(u, weights, n: int) -> torch.Tensor:
+    """Systematic ancestors through B5, clipped to ``M − 1``: the counterpart
+    of ``systematic_pallas`` (``pallas_resample.py:123-128``)."""
+    anc = decode_ancestors_dense(_systematic_extents(u, weights, n), n)
+    return torch.clamp(anc, max=weights.shape[0] - 1)
+
+
 #: Every wrapper that launches a kernel, each with its ``launches`` count.
 KERNEL_WRAPPERS = (
-    extents_from_logw, decode_ancestors, resample_move,
+    extents_from_logw, decode_ancestors, move_rows, decode_move, decode_ancestors_dense,
     scaled_prefix_from_logw, prefix_sum, count_le_sorted_bs, count_le_sorted,
 )
 

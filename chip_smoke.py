@@ -9,26 +9,40 @@ final line:
 2. build the CUDA kernels from ``advancedps_tpu_torch/csrc`` with nvcc;
 3. each kernel against its plain PyTorch version on the card at M = N = 1M,
    on four weight profiles and the guard case (N−1 positions drawn): B1-B3,
-   B6 (both modes, within 1 ulp and bitwise nondecreasing), B7 and B8
-   (exact, also where every threshold falls in one tile);
+   B4 and B5 and the windowed B2 (whole population, the four windows of
+   K = 4 shards of L = 250,000, and the 3L-row form of the neighbour
+   exchange; bitwise), B6 (both modes, within 1 ulp and bitwise
+   nondecreasing), B7 and B8 (exact, also where every threshold falls in one
+   tile);
 4. the SMC flagship (stationary LGSSM a=0.9, q=0.32, r=1.0, T=100,
    N=1,000,000, resampling at ESS ≤ N/2) through ``sample`` with each fused
    scheme — systematic, stratified, multinomial, and multinomial with the
    B8 merge-count — anchored to the exact Kalman log-likelihood, with each
    kernel's launch count equal to what the scheme runs per firing times the
-   firings, and a bitwise repeat;
-5. PGAS at N=1M, T=100 with replay storage (``bench_pgas.py``'s
+   firings, and a bitwise repeat; then the systematic flagship under each
+   move version (6: B2 + B3, 1: B4, 0: B5 + a gather), bitwise equal;
+5. the sharded flagship on K = 4 logical shards of the card
+   (``parallel.sharded_sweep``) with each exchange, against Kalman and the
+   single-device sweep (equal until the first firing whose Σe, summed in
+   another order, moves an extent; there every differing ancestor is off by
+   one), ``auto`` against ``neighbor`` and move version 1 against 6,
+   bitwise;
+6. PGAS at N=1M, T=100 with replay storage (``bench_pgas.py``'s
    configuration): the pooled chain means against the RTS smoother (RMS
    z-score < 3 over 6 chains of 8 iterations, 4 dropped), the final
    iteration's logZ against Kalman, 99 launches of B1-B3 per iteration; short
    PGAS chains with multinomial and stratified; replay against dense storage;
-6. timings: the median of 5 sweeps per scheme and of a never-firing base,
-   PGAS iterations/s, each kernel against its plain version, and profiled
-   sweeps for the device busy share.
+   then sharded PGAS (K = 4, replay, ``auto``) and sharded chains on a 2 × 2
+   chain mesh;
+7. timings: the median of 5 sweeps per scheme and of a never-firing base,
+   the sharded sweep's median beside the single-device one and its exchange
+   time per firing, PGAS iterations/s (single-device and sharded), each
+   kernel against its plain version, and profiled sweeps for the device busy
+   share.
 
 Each launch count is read from the run of its own path, the counts set to 0
 just before it.  The last two lines are the kernels' JSON record (launches
-summed over the runs of phases 4 and 5) and ``{"ok": true, "device": {...}}``.
+summed over the runs of phases 4-6) and ``{"ok": true, "device": {...}}``.
 Imports no JAX: the card's machine has none.
 """
 
@@ -45,17 +59,23 @@ import torch
 
 N = 1_000_000
 T = 100
+K = 4  # logical shards of the sharded phases
+L = N // K
 A, Q, R = 0.9, 0.32, 1.0
 SIGMA0 = math.sqrt(Q * Q / (1 - A * A))
 REPS = 20  # launches per timing window
 SWEEPS = 5  # timed sweeps per scheme
 PGAS_ITERS, PGAS_WARM, PGAS_CHAINS = 8, 4, 6  # bench_pgas.py:34-38, 96-114
+SHARDED_PGAS_ITERS = 3
+CHAIN_ITERS = 3
 SOURCE = "advancedps_tpu_torch/csrc/resample.cu"
 TPU_FILE = "advancedps_tpu/ops/pallas_resample.py"
 REPLACES = {
     "extents_from_logw": f"{TPU_FILE}:237",
     "decode_ancestors": f"{TPU_FILE}:972",
-    "resample_move": f"{TPU_FILE}:1090",
+    "move_rows": f"{TPU_FILE}:1090",
+    "decode_move": f"{TPU_FILE}:728",
+    "decode_ancestors_dense": f"{TPU_FILE}:103",
     "scaled_prefix_from_logw": f"{TPU_FILE}:325",
     "prefix_sum": f"{TPU_FILE}:325",
     "count_le_sorted_bs": f"{TPU_FILE}:476",
@@ -63,13 +83,19 @@ REPLACES = {
 }
 #: Kernel launches per resampling firing of each fused scheme.
 PER_FIRING = {
-    "systematic": {"extents_from_logw": 1, "decode_ancestors": 1, "resample_move": 1},
-    "stratified": {"scaled_prefix_from_logw": 1, "decode_ancestors": 1, "resample_move": 1},
+    "systematic": {"extents_from_logw": 1, "decode_ancestors": 1, "move_rows": 1},
+    "stratified": {"scaled_prefix_from_logw": 1, "decode_ancestors": 1, "move_rows": 1},
     "multinomial": {"prefix_sum": 1, "scaled_prefix_from_logw": 1, "count_le_sorted_bs": 1,
-                    "decode_ancestors": 1, "resample_move": 1},
+                    "decode_ancestors": 1, "move_rows": 1},
     "multinomial, merge path": {"prefix_sum": 1, "scaled_prefix_from_logw": 1,
                                 "count_le_sorted": 1, "decode_ancestors": 1,
-                                "resample_move": 1},
+                                "move_rows": 1},
+}
+#: The decode + move of each move version, per firing (systematic).
+PER_VERSION = {
+    6: {"extents_from_logw": 1, "decode_ancestors": 1, "move_rows": 1},
+    1: {"extents_from_logw": 1, "decode_move": 1},
+    0: {"extents_from_logw": 1, "decode_ancestors_dense": 1},
 }
 
 
@@ -136,6 +162,63 @@ def plain_vs_kernel(plain, kernel):
     pair and the four readings in turn."""
     p1, k1, k2, p2 = time_ms(plain), time_ms(kernel), time_ms(kernel), time_ms(plain)
     return (k1 + k2) / 2, (p1 + p2) / 2, (p1, k1, k2, p2)
+
+
+def extents_of(anc: torch.Tensor) -> torch.Tensor:
+    """The extents a decode inverted: ``f_j = #{k : anc_k ≤ j}``."""
+    return torch.cumsum(torch.bincount(anc.long(), minlength=anc.numel()), 0)
+
+
+def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+
+
+def check_decode_forms(ops, f, n, vs, label, err):
+    """B5, the windowed B2 and B4 against their plain versions and against
+    the whole-population B2 (+ B3) on extents ``f`` drawn for ``n``
+    positions: the whole population, the K windows of L slots, and the
+    neighbour exchange's 3L-row form with both windowed move versions."""
+    whole = ops.decode_ancestors(f, N, guard=n)
+    a5 = ops.decode_ancestors_dense(f, N, guard=n)
+    err["decode_ancestors_dense"] = max(err["decode_ancestors_dense"],
+                                        max_abs(a5, ops.decode_ancestors_dense_ref(f, N, guard=n)))
+    check(torch.equal(a5, ops.decode_ancestors_dense_ref(f, N, guard=n)), f"{label}: B5 differs")
+    check(torch.equal(a5, whole), f"{label}: B5 and B2 differ")
+    for v in vs:
+        a4, mv4 = ops.decode_move(f, v, N, guard=n)
+        r4 = ops.decode_move_ref(f, v, N, guard=n)
+        err["decode_move"] = max(err["decode_move"], max_abs(a4, r4[0]), max_abs(mv4, r4[1]))
+        check(torch.equal(a4, r4[0]) and torch.equal(bits(mv4), bits(r4[1])),
+              f"{label}: B4 differs from its plain version")
+        b3 = ops.move_rows(whole, v)
+        check(torch.equal(a4, b3[0]) and torch.equal(bits(mv4), bits(b3[1])),
+              f"{label}: B4 differs from B2 + B3")
+        for k in range(K):
+            start = k * L
+            a2 = ops.decode_ancestors(f, L, guard=n, start=start)
+            a2_ref = ops.decode_ancestors_ref(f, L, guard=n, start=start)
+            err["decode_ancestors"] = max(err["decode_ancestors"], max_abs(a2, a2_ref))
+            check(torch.equal(a2, a2_ref) and torch.equal(a2, whole[start:start + L]),
+                  f"{label}: windowed B2 differs (window {k})")
+            a4w, mv4w = ops.decode_move(f, v, L, guard=n, start=start)
+            r4w = ops.decode_move_ref(f, v, L, guard=n, start=start)
+            check(torch.equal(a4w, r4w[0]) and torch.equal(bits(mv4w), bits(r4w[1])),
+                  f"{label}: windowed B4 differs (window {k})")
+            check(torch.equal(mv4w, mv4[start:start + L]), f"{label}: B4 window {k} not a slice")
+            # The 3L rows of shards k−1, k, k+1, ring-wrapped and masked as
+            # the neighbour exchange hands them over.
+            rows = [(k + d) % K for d in (-1, 0, 1)]
+            f_ext = torch.cat([f[r * L:(r + 1) * L] for r in rows])
+            if k == 0:
+                f_ext[:L] = 0
+            if k == K - 1:
+                f_ext[2 * L:] = n
+            v_ext = torch.cat([v[r * L:(r + 1) * L] for r in rows])
+            plain = ops.decode_move_ref(f_ext, v_ext, L, guard=n, start=start)
+            for ver in (1, 6):
+                a, mv = ops.resample_move_window_fext(f_ext, v_ext, n, start, L, version=ver)
+                check(torch.equal(a, plain[0]) and torch.equal(bits(mv), bits(plain[1])),
+                      f"{label}: 3L-row form, version {ver}, window {k} differs")
 
 
 def main():
@@ -210,7 +293,7 @@ def main():
         x = torch.randn(N, generator=gen, device="cuda")
         xd = torch.randn(N, 3, generator=gen, device="cuda")
         for v in (x, xd):
-            anc_c, moved = ops.resample_move(anc, v)
+            anc_c, moved = ops.move_rows(anc, v)
             anc_c_ref, moved_ref = ops.resample_move_ref(anc, v)
             check(torch.equal(anc_c, anc_c_ref), f"{profile}: clipped ancestors differ")
             check(torch.equal(bits(moved), bits(moved_ref)), f"{profile}: moved rows differ")
@@ -222,11 +305,15 @@ def main():
         check(torch.equal(anc_g, ops.decode_ancestors_ref(f_g, N, guard=N - 1)),
               f"{profile}: guarded ancestors differ")
         check(int(anc_g[-1]) == N, f"{profile}: guarded last slot anc = {int(anc_g[-1])}")
-        anc_gc, moved_g = ops.resample_move(anc_g, x)
+        anc_gc, moved_g = ops.move_rows(anc_g, x)
         check(int(anc_gc[-1]) == N - 1 and float(moved_g[-1]) == 0.0,
               f"{profile}: guarded last slot not clipped / zeroed")
         check(torch.equal(bits(moved_g), bits(ops.resample_move_ref(anc_g, x)[1])),
               f"{profile}: guarded move differs")
+
+        # B4, B5 and the windowed B2 for n = N and the guard case.
+        for n, f_n in ((N, f), (N - 1, f_g)):
+            check_decode_forms(ops, f_n, n, (x, xd), f"{profile} n={n}", err)
 
         # B6-B8 as stratified and multinomial use them, for n = N and the
         # guard case n = N − 1.
@@ -265,7 +352,8 @@ def main():
                       f"{profile} n={n}: decode of scheme extents differs")
                 check((int(a_x[-1]) == N) == (n == N - 1), f"{profile} n={n}: guard slot")
         print(f"kernels vs plain [{profile}]: extents ±{int(diff.max())} in {flips:.2e} of "
-              f"entries, decode exact, move bitwise (D=1, D=3), guard ok; B6 within "
+              f"entries, decode exact, move bitwise (D=1, D=3), guard ok; B4, B5 and the "
+              f"windowed B2 exact and bitwise (whole, {K} windows, 3L rows); B6 within "
               f"{ulp6} ulps and nondecreasing; B7 = B8 = plain (thresholds, one value, "
               f"one tile)", flush=True)
     torch.cuda.synchronize()
@@ -317,7 +405,100 @@ def main():
     print("repeat: same key gives bitwise equal logZ and ancestors for every scheme; "
           "B7 and B8 multinomial sweeps bitwise equal", flush=True)
 
-    # ---- 5. PGAS at 1M, replay storage (bench_pgas.py)
+    # The systematic flagship under each move version: B4 (1) and B5 (0)
+    # launch once per firing in place of B2 + B3 (6), with the same result.
+    systematic = apt.ResampleWithESSThreshold(apt.resample_systematic)
+    by_version = {}
+    for ver in (6, 1, 0):
+        ops.MOVE_VERSION = ver
+        res, launches = drive(lambda: apt.sweep(key, kernel, N, systematic, store_states=False,
+                                                device="cuda"))
+        fires = int(res.resampled.sum())
+        print(f"flagship [systematic, move version {ver}]: logZ {float(res.log_evidence):.6f} "
+              f"launches {launches}", flush=True)
+        check(launches == expected(PER_VERSION[ver], fires),
+              f"move version {ver}: launches {launches} != {expected(PER_VERSION[ver], fires)}")
+        by_version[ver] = res
+    ops.MOVE_VERSION = 6
+    single = by_version[6]
+    for ver in (1, 0):
+        check(torch.equal(by_version[ver].log_evidence, single.log_evidence)
+              and torch.equal(by_version[ver].ancestors, single.ancestors),
+              f"move version {ver}: sweep differs from version 6")
+    print("move versions 6, 1, 0: bitwise equal logZ and ancestors", flush=True)
+
+    # ---- 5. the sharded flagship on K logical shards of the card
+    from advancedps_tpu_torch import parallel
+    from advancedps_tpu_torch.parallel import sharded as sharded_mod
+
+    mesh = parallel.particle_mesh(K, "cuda")
+    sharded = {}
+    for ex in ("allgather", "neighbor", "auto"):
+        mesh.reset_counts()
+        t0 = time.perf_counter()
+        res, launches = drive(lambda: parallel.sharded_sweep(key, kernel, N, systematic, mesh,
+                                                             store_states=False, exchange=ex))
+        first_s = time.perf_counter() - t0
+        branches = dict(mesh.exchanges)
+        log_z = float(res.log_evidence)
+        same = res.ancestors == single.ancestors
+        agree = float(same.double().mean())
+        # The sharded Σe is a psum of per-shard float32 sums, the
+        # single-device one a torch.sum over all N: an ulp apart, they move
+        # the extents within that ulp of a stratum boundary by one.  Until
+        # the first such firing the two sweeps are the same computation;
+        # there, the extents the two decodes inverted (#{k : anc_k ≤ j}, read
+        # back from the ancestors) differ by at most one.
+        flips = (~same).sum(1)
+        first = int(torch.argmax((flips > 0).int())) if bool(flips.any()) else T
+        off = 0 if first == T else int(
+            (extents_of(res.ancestors[first]) - extents_of(single.ancestors[first])).abs().max())
+        rs_equal = torch.equal(res.resampled, single.resampled)
+        rs_equal_to_first = torch.equal(res.resampled[:first + 1], single.resampled[:first + 1])
+        dlz = abs(log_z - float(single.log_evidence))
+        print(f"sharded flagship [{ex}] K={K}: logZ {log_z:.6f} |err| {abs(log_z - kf_ll):.6f} "
+              f"vs single-device: first flip at step {first} "
+              f"(after {int(single.resampled[:first].sum())} firings; "
+              f"{0 if first == T else int(flips[first])} ancestors, extents off by {off}), "
+              f"ancestors agree {agree:.6f}, |dlogZ| {dlz:.3e}, flags equal {rs_equal}; "
+              f"firings by branch {branches}; collectives {dict(mesh.calls)}; "
+              f"launches {launches}; first call {first_s:.3f}s {tag}", flush=True)
+        check(abs(log_z - kf_ll) < 0.1, f"sharded {ex}: |logZ - kalman| = {abs(log_z - kf_ll)}")
+        check(rs_equal_to_first, f"sharded {ex}: flags differ before the first flip")
+        check(off <= 1, f"sharded {ex}: extents off by {off} at the first flip (step {first})")
+        check(dlz < 0.05, f"sharded {ex}: |dlogZ| = {dlz}")
+        n_ag = branches.get("allgather", 0)
+        fires_ex = int(res.resampled.sum())
+        check(sum(branches.values()) == fires_ex, f"sharded {ex}: branches {branches}")
+        want = expected({"decode_ancestors": K, "move_rows": K}, fires_ex)
+        want["extents_from_logw"] = K * n_ag
+        check(launches == want, f"sharded {ex}: launches {launches} != {want}")
+        sharded[ex] = (res, branches)
+    ag, nb = sharded["allgather"][0], sharded["neighbor"][0]
+    print(f"sharded flagship: allgather against neighbor: "
+          f"{int((ag.ancestors != nb.ancestors).sum())} ancestors differ, logZ equal "
+          f"{torch.equal(ag.log_evidence, nb.log_evidence)}", flush=True)
+    auto, auto_branches = sharded["auto"]
+    if auto_branches.get("allgather", 0) == 0:
+        check(torch.equal(auto.log_evidence, sharded["neighbor"][0].log_evidence)
+              and torch.equal(auto.ancestors, sharded["neighbor"][0].ancestors),
+              "sharded: auto differs from neighbor though every firing took the neighbour branch")
+    ops.MOVE_VERSION = 1
+    mesh.reset_counts()
+    res, launches = drive(lambda: parallel.sharded_sweep(key, kernel, N, systematic, mesh,
+                                                         store_states=False))
+    ops.MOVE_VERSION = 6
+    check(torch.equal(res.log_evidence, auto.log_evidence)
+          and torch.equal(res.ancestors, auto.ancestors),
+          "sharded: move version 1 differs from version 6")
+    check(launches["decode_move"] == K * int(auto.resampled.sum())
+          and launches["decode_ancestors"] == 0,
+          f"sharded, move version 1: launches {launches}")
+    print(f"sharded flagship: auto bitwise equal to neighbor "
+          f"({'checked' if auto_branches.get('allgather', 0) == 0 else 'not checked: a firing fell back'}); "
+          f"move version 1 (B4, {launches['decode_move']} launches) bitwise equal to 6", flush=True)
+
+    # ---- 6. PGAS at 1M, replay storage (bench_pgas.py), single-device and sharded
     sm = apt.utils.kalman_smoother(ys, A, 0.0, Q, 1.0, R, 0.0, SIGMA0)
     pgas = apt.PGAS(N)
 
@@ -372,7 +553,60 @@ def main():
     check(rd_err <= 1e-5, f"replay and dense trajectories differ by {rd_err}")
     check(torch.equal(dense.log_evidence, repl.log_evidence), "replay and dense logZ differ")
 
-    # ---- 6. timings
+    # Sharded PGAS: K shards, replay storage, the auto exchange.  Every step
+    # fires, each firing launches the decode and move on every shard.
+    mesh.reset_counts()
+    t0 = time.perf_counter()
+    chain, launches = drive(lambda: parallel.sharded_sample_pg(
+        apt.rng.key(40), kernel, pgas, mesh, SHARDED_PGAS_ITERS, trajectory_storage="replay"))
+    sharded_pgas_s = (time.perf_counter() - t0) / SHARDED_PGAS_ITERS
+    branches = dict(mesh.exchanges)
+    lz_err = abs(float(chain.log_evidence[-1]) - float(sm.log_likelihood))
+    single_chain = apt.sample(apt.rng.key(40), traced, pgas, SHARDED_PGAS_ITERS,
+                              trajectory_storage="replay", device="cuda")
+    print(f"sharded PGAS N={N} T={T} K={K} replay auto: {SHARDED_PGAS_ITERS} iterations, "
+          f"{1 / sharded_pgas_s:.4f} iterations/s (first call included); logZ "
+          f"{chain.log_evidence.tolist()}; final |logZ - kalman| {lz_err:.6f}; against the "
+          f"single-device chain of the same key: max |traj diff| "
+          f"{float((chain.trajectory - single_chain.trajectory).abs().max()):.3e}, max |dlogZ| "
+          f"{float((chain.log_evidence - single_chain.log_evidence).abs().max()):.3e}; "
+          f"firings by branch {branches}; launches {launches} {tag}", flush=True)
+    check(bool(torch.isfinite(chain.trajectory).all()), "sharded PGAS trajectory not finite")
+    check(lz_err < 1.0, f"sharded PGAS: final |logZ - kalman| = {lz_err}")
+    firings = SHARDED_PGAS_ITERS * (T - 1)
+    want = expected({"decode_ancestors": K, "move_rows": K}, firings)
+    want["extents_from_logw"] = K * branches.get("allgather", 0)
+    check(sum(branches.values()) == firings and launches == want,
+          f"sharded PGAS: launches {launches} != {want}")
+    st_s = apt.PGState(chain.trajectory[-1])
+    k_rd = apt.rng.key(41)
+    dense, _ = parallel.sharded_step_pg(k_rd, kernel, pgas, mesh, st_s, trajectory_storage="dense")
+    repl, _ = parallel.sharded_step_pg(k_rd, kernel, pgas, mesh, st_s, trajectory_storage="replay")
+    rd_err = float((dense.trajectory - repl.trajectory).abs().max())
+    print(f"sharded PGAS replay vs dense storage, one iteration: max |diff| {rd_err:.3e}, "
+          f"logZ equal {torch.equal(dense.log_evidence, repl.log_evidence)}", flush=True)
+    check(rd_err <= 1e-5, f"sharded: replay and dense trajectories differ by {rd_err}")
+    check(torch.equal(dense.log_evidence, repl.log_evidence), "sharded: replay and dense logZ differ")
+
+    # Sharded chains: 2 chain rows × 2 particle shards (all-gather exchange).
+    cmesh = parallel.chain_particle_mesh(2, 2, "cuda")
+    t0 = time.perf_counter()
+    (trajs, lzs), launches = drive(lambda: parallel.sharded_chains_pg(
+        apt.rng.key(50), kernel, pgas, cmesh, 2, CHAIN_ITERS))
+    chains_s = time.perf_counter() - t0
+    trajs2, lzs2 = parallel.sharded_chains_pg(apt.rng.key(50), kernel, pgas, cmesh, 2, CHAIN_ITERS)
+    print(f"sharded chains on a 2 x 2 chain mesh, N={N}: 2 chains x {CHAIN_ITERS} iterations in "
+          f"{chains_s:.3f}s; logZ {lzs.tolist()}; same key bitwise equal "
+          f"{torch.equal(trajs, trajs2) and torch.equal(lzs, lzs2)}; launches {launches} {tag}",
+          flush=True)
+    check(tuple(trajs.shape) == (2, CHAIN_ITERS, T), "sharded chains: trajectory shape")
+    check(bool(torch.isfinite(lzs).all()), "sharded chains: logZ not finite")
+    check(torch.equal(trajs, trajs2) and torch.equal(lzs, lzs2), "sharded chains: not repeatable")
+    firings = 2 * CHAIN_ITERS * (T - 1) * 2  # chains × iterations × steps × shards
+    check(launches == expected({"extents_from_logw": 1, "decode_ancestors": 1, "move_rows": 1},
+                               firings), f"sharded chains: launches {launches}")
+
+    # ---- 7. timings
     base = apt.ResampleWithESSThreshold(apt.resample_systematic, 0.0)  # never fires
     sweep_ms = {}
     for label, resampler in [("base, never firing", base)] + [
@@ -398,6 +632,55 @@ def main():
             print(f"per firing [{label}]: {(ms - base_ms) / fires:.4f} ms "
                   f"((median {ms:.3f} - base {base_ms:.3f}) / {fires:.1f} firings) {tag}",
                   flush=True)
+
+    # The sharded sweep (auto) against the single-device one, in turns.
+    turn_times = {"single-device": [], f"sharded K={K}": []}
+    for i in range(SWEEPS):
+        for label in turn_times:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if label == "single-device":
+                res = apt.sweep(apt.rng.key(10 + i), kernel, N, systematic, store_states=False,
+                                device="cuda")
+            else:
+                res = parallel.sharded_sweep(apt.rng.key(10 + i), kernel, N, systematic, mesh,
+                                             store_states=False)
+            float(res.log_evidence)
+            turn_times[label].append(time.perf_counter() - t0)
+    for label, times in turn_times.items():
+        m_s = statistics.median(times)
+        print(f"sweep [systematic, {label}] N={N} T={T}: median {m_s * 1e3:.3f} ms of {SWEEPS} "
+              f"({', '.join(f'{t * 1e3:.3f}' for t in times)}), in turns with the other {tag}",
+              flush=True)
+
+    # Host time of each exchange, synchronised before and after it.
+    spent = {"allgather": [], "neighbor": []}
+    originals = {"allgather": sharded_mod._exchange_allgather,
+                 "neighbor": sharded_mod._exchange_neighbor}
+
+    def timed(name):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = originals[name](*args, **kwargs)
+            torch.cuda.synchronize()
+            spent[name].append(time.perf_counter() - t0)
+            return out
+        return run
+
+    sharded_mod._exchange_allgather, sharded_mod._exchange_neighbor = (
+        timed("allgather"), timed("neighbor"))
+    try:
+        for ex in ("neighbor", "allgather"):
+            parallel.sharded_sweep(apt.rng.key(15), kernel, N, systematic, mesh,
+                                   store_states=False, exchange=ex)
+    finally:
+        sharded_mod._exchange_allgather = originals["allgather"]
+        sharded_mod._exchange_neighbor = originals["neighbor"]
+    for name, times in spent.items():
+        print(f"exchange [{name}] K={K} at 1M: {statistics.mean(times) * 1e3:.4f} ms per firing "
+              f"(host clock, synchronised; {len(times)} firings, median "
+              f"{statistics.median(times) * 1e3:.4f} ms) {tag}", flush=True)
 
     windows = []
     st_t = st
@@ -432,8 +715,12 @@ def main():
             lambda: ops.extents_from_logw(logw, m, s1, u, N)),
         "decode_ancestors": plain_vs_kernel(
             lambda: ops.decode_ancestors_ref(f, N), lambda: ops.decode_ancestors(f, N)),
-        "resample_move": plain_vs_kernel(
-            lambda: ops.resample_move_ref(anc, x), lambda: ops.resample_move(anc, x)),
+        "move_rows": plain_vs_kernel(
+            lambda: ops.resample_move_ref(anc, x), lambda: ops.move_rows(anc, x)),
+        "decode_move": plain_vs_kernel(
+            lambda: ops.decode_move_ref(f, x, N), lambda: ops.decode_move(f, x, N)),
+        "decode_ancestors_dense": plain_vs_kernel(
+            lambda: ops.decode_ancestors_dense_ref(f, N), lambda: ops.decode_ancestors_dense(f, N)),
         "scaled_prefix_from_logw": plain_vs_kernel(
             lambda: ops.scaled_prefix_ref(logw, m, scale, True),
             lambda: ops.scaled_prefix_from_logw(logw, m, scale)),
@@ -444,12 +731,23 @@ def main():
         "count_le_sorted": plain_vs_kernel(
             lambda: ops.count_le_sorted_ref(s_, thr), lambda: ops.count_le_sorted(s_, thr)),
     }
+
     def turns(readings):
         return ", ".join(f"{r:.4f}" for r in readings)
 
     for name, (k_ms, p_ms, readings) in timing.items():
         print(f"kernel {name} at 1M: {k_ms:.4f} ms, plain {p_ms:.4f} ms "
               f"(plain, kernel, kernel, plain: {turns(readings)}) {tag}", flush=True)
+    k_ms, p_ms, readings = plain_vs_kernel(
+        lambda: ops.decode_ancestors_ref(f, L, guard=N, start=2 * L),
+        lambda: ops.decode_ancestors(f, L, guard=N, start=2 * L))
+    print(f"kernel decode_ancestors at 1M, window of L={L}: {k_ms:.4f} ms, plain {p_ms:.4f} ms "
+          f"({turns(readings)}) {tag}", flush=True)
+    k_ms, p_ms, readings = plain_vs_kernel(
+        lambda: ops.decode_move_ref(f, x, L, guard=N, start=2 * L),
+        lambda: ops.decode_move(f, x, L, guard=N, start=2 * L))
+    print(f"kernel decode_move at 1M, window of L={L}: {k_ms:.4f} ms, plain {p_ms:.4f} ms "
+          f"({turns(readings)}) {tag}", flush=True)
     for fn in (ops.count_le_sorted_bs, ops.count_le_sorted):
         k_ms, p_ms, readings = plain_vs_kernel(lambda: ops.count_le_sorted_ref(s_, one),
                                                lambda: fn(s_, one))
@@ -504,6 +802,10 @@ def main():
              lambda: float(apt.step_pg(apt.rng.key(21), traced, pgas, st, "replay",
                                        device="cuda")[0].log_evidence),
              "no gate: every step resamples")
+    profiled(f"sharded systematic sweep, K={K}, auto",
+             lambda: float(parallel.sharded_sweep(apt.rng.key(20), kernel, N, systematic, mesh,
+                                                  store_states=False).log_evidence),
+             f"{T - 1} gate reads and a boundary read per firing")
 
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],

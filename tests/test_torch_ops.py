@@ -1,10 +1,11 @@
 """The port's resampling kernels (plain versions, on the CPU) against the JAX
 package's Pallas kernels in interpret mode.
 
-B1 ``extents_from_logw``, B2 ``decode_ancestors_bs`` and its dense twin
-``decode_ancestors`` (B5), B3 the v6 lookup move and the v1 staircase move
-(B4) through ``resample_move_f``, B6 ``scaled_prefix_from_logw`` and
-``prefix_sum``, B7 ``count_le_sorted_bs`` and B8 ``count_le_sorted``.  On
+B1 ``extents_from_logw``, B2 ``decode_ancestors_bs`` (whole and windowed)
+and its dense twin ``decode_ancestors`` (B5), B3 the v6 lookup move, B4 the
+v1 staircase ``_resample_move_cols`` (whole and windowed), the versions of
+``resample_move_f`` and the windowed moves, B6 ``scaled_prefix_from_logw``
+and ``prefix_sum``, B7 ``count_le_sorted_bs`` and B8 ``count_le_sorted``.  On
 CPU tensors the port's wrappers run the plain versions; the CUDA kernels are
 compared with them on the card by ``chip_smoke.py``.
 """
@@ -24,12 +25,17 @@ PROFILES = ["lognormal", "uniform", "single", "survivors20"]
 
 
 def _logw(profile, m, seed):
-    """Log-weight profiles: random log-normal, uniform, one survivor, 20 survivors."""
+    """Log-weight profiles: random log-normal, uniform, one survivor, 20
+    survivors, and zeros (90% of the weights exactly 0 in float32)."""
     rng = np.random.default_rng(seed)
     if profile == "lognormal":
         return (rng.standard_normal(m) * 2.0).astype(np.float32)
     if profile == "uniform":
         return np.zeros(m, np.float32)
+    if profile == "zeros":
+        logw = rng.standard_normal(m).astype(np.float32)
+        logw[rng.random(m) < 0.9] = -200.0  # exp(-200 - max) is 0 in float32
+        return logw
     logw = np.full(m, -80.0, np.float32)
     k = 1 if profile == "single" else 20
     logw[rng.choice(m, size=k, replace=False)] = rng.standard_normal(k).astype(np.float32)
@@ -144,8 +150,8 @@ def _bits(x):
 @pytest.mark.parametrize("m", SIZES)
 def test_move_matches_pallas_bitwise(m, profile, guarded):
     f, n, x = _case(profile, m, guarded)
-    anc_c, moved = ops.resample_move(ops.decode_ancestors(torch.as_tensor(f), m, guard=n),
-                                     torch.as_tensor(x))
+    anc_c, moved = ops.move_rows(ops.decode_ancestors(torch.as_tensor(f), m, guard=n),
+                                 torch.as_tensor(x))
     for version in (6, 1):  # the v6 lookup move (B3) and the v1 staircase (B4)
         anc_j, moved_j = pr.resample_move_f(
             jnp.asarray(f), jnp.asarray(x), m, interpret=True, version=version, guard_n=n
@@ -165,7 +171,7 @@ def test_move_rows_bitwise_wide_state():
     bits = rng.integers(-(2**31), 2**31, size=(m, d), dtype=np.int64).astype(np.int32)
     v = torch.as_tensor(bits.view(np.float32))
     anc = torch.as_tensor(np.sort(rng.integers(0, m + 1, size=600)).astype(np.int32))
-    anc_c, moved = ops.resample_move(anc, v)
+    anc_c, moved = ops.move_rows(anc, v)
     a = anc.numpy()
     want = np.where((a < m)[:, None], bits[np.minimum(a, m - 1)], 0)
     np.testing.assert_array_equal(moved.numpy().view(np.int32), want)
@@ -177,9 +183,9 @@ def test_wrappers_check_inputs_and_never_fall_back():
     with pytest.raises(TypeError):
         ops.decode_ancestors(torch.zeros(8, dtype=torch.int64), 8)
     with pytest.raises(ValueError):
-        ops.resample_move(torch.zeros(8, dtype=torch.int32), torch.zeros(8, 2, 2))
+        ops.move_rows(torch.zeros(8, dtype=torch.int32), torch.zeros(8, 2, 2))
     with pytest.raises(ValueError):
-        ops.resample_move(torch.zeros(8, dtype=torch.int32), torch.zeros(2, 8).t())
+        ops.move_rows(torch.zeros(8, dtype=torch.int32), torch.zeros(2, 8).t())
     with pytest.raises(ValueError):
         ops.extents_from_logw(x, torch.tensor(0.0), torch.tensor(8.0), 0.5, 2**24)
     # A tensor on a device without a kernel raises; it is not computed on the CPU.
@@ -219,13 +225,15 @@ def test_resample_systematic_and_ess_match_jax(m):
 def test_cpu_path_counts_no_launches():
     ops.reset_launch_counts()
     f = ops.extents_from_logw(torch.zeros(64), torch.tensor(0.0), torch.tensor(64.0), 0.5, 64)
-    ops.resample_move(ops.decode_ancestors(f, 64), torch.zeros(64))
+    ops.move_rows(ops.decode_ancestors(f, 64), torch.zeros(64))
+    ops.decode_move(f, torch.zeros(64), 32, guard=64, start=16)
+    ops.decode_ancestors_dense(f, 64)
     s = ops.prefix_sum(torch.ones(65))
     thr = ops.scaled_prefix_from_logw(torch.zeros(64), torch.tensor(0.0), torch.tensor(1.0))
     ops.count_le_sorted_bs(s[:64], thr)
     ops.count_le_sorted(s[:64], thr)
-    assert len(ops.KERNEL_WRAPPERS) == 7
-    assert [w.launches for w in ops.KERNEL_WRAPPERS] == [0] * 7
+    assert len(ops.KERNEL_WRAPPERS) == 9
+    assert [w.launches for w in ops.KERNEL_WRAPPERS] == [0] * 9
 
 
 # --- B6: the scaled prefix ----------------------------------------------------
@@ -378,3 +386,214 @@ def test_scheme_wrappers_check_inputs_and_never_fall_back():
         ops.count_le_sorted(meta, meta)
     with pytest.raises(ValueError, match="different devices"):
         ops.scaled_prefix_from_logw(x, torch.zeros((), device="meta"), torch.tensor(1.0))
+
+
+# --- B2 windowed, B4, B5 and the move versions ----------------------------------
+
+WINDOW_M = 4096
+WINDOW_PROFILES = ["uniform", "lognormal", "single", "zeros"]
+WINDOWS = [(0, 1024), (1024, 1024), (3072, 1024), (1000, 777)]
+
+
+def _as_given(f, guard):
+    """``f`` with its last extent set to ``guard``, as the JAX callers pass it."""
+    g = np.array(f)
+    g[-1] = guard
+    return g
+
+
+@pytest.mark.parametrize("guarded", [False, True])
+@pytest.mark.parametrize("profile", WINDOW_PROFILES)
+def test_windowed_decode_matches_pallas(profile, guarded):
+    m = WINDOW_M
+    f, n, _ = _case(profile, m, guarded)
+    whole = ops.decode_ancestors(torch.as_tensor(f), m, guard=n).numpy()
+    for start, n_out in WINDOWS:
+        got = ops.decode_ancestors(torch.as_tensor(f), n_out, guard=n, start=start).numpy()
+        want = pr.decode_ancestors_bs(jnp.asarray(_as_given(f, n)), n, start=start, n_out=n_out,
+                                      interpret=True)
+        np.testing.assert_array_equal(got, np.asarray(want))
+        np.testing.assert_array_equal(got, whole[start:start + n_out])
+
+
+@pytest.mark.parametrize("guarded", [False, True])
+@pytest.mark.parametrize("profile", WINDOW_PROFILES)
+def test_decode_move_matches_pallas(profile, guarded):
+    # B4 against the v1 staircase, whole and windowed, on two columns ([M, 2]
+    # rows in the port).
+    m = WINDOW_M
+    f, n, x = _case(profile, m, guarded)
+    cols = (x, -2.0 * x)
+    rows = torch.as_tensor(np.stack(cols, axis=1))
+    for start, n_out in [(None, None), (1024, 1024), (3072, 1024)]:
+        anc_j, moved_j = pr._resample_move_cols(
+            jnp.asarray(f), tuple(jnp.asarray(c) for c in cols), m, start=start, n_out=n_out,
+            interpret=True, guard=n,
+        )
+        if start is None:
+            anc, moved = ops.decode_move(torch.as_tensor(f), rows, m, guard=n)
+        else:
+            anc, moved = ops.decode_move(torch.as_tensor(f), rows, n_out, guard=n, start=start)
+        np.testing.assert_array_equal(anc.numpy(), np.minimum(np.asarray(anc_j), m - 1))
+        for c in range(2):
+            np.testing.assert_array_equal(_bits(moved[:, c].contiguous().numpy()),
+                                          _bits(moved_j[c]))
+        want = ops.decode_move_ref(torch.as_tensor(f), rows, anc.shape[0], n, start or 0)
+        assert torch.equal(anc, want[0]) and torch.equal(moved, want[1])
+    if guarded:  # the whole decode's last slot lies past the population
+        assert anc_j[-1] == m
+
+
+@pytest.mark.parametrize("guarded", [False, True])
+@pytest.mark.parametrize("profile", WINDOW_PROFILES)
+def test_dense_decode_matches_pallas(profile, guarded):
+    m = WINDOW_M
+    f, n, _ = _case(profile, m, guarded)
+    got = ops.decode_ancestors_dense(torch.as_tensor(f), m, guard=n).numpy()
+    np.testing.assert_array_equal(
+        got, np.asarray(pr.decode_ancestors(jnp.asarray(_as_given(f, n)), m, interpret=True)))
+    np.testing.assert_array_equal(got, ops.decode_ancestors(torch.as_tensor(f), m, guard=n).numpy())
+    # Read as given: the JAX decode on the unguarded extents.
+    as_given = ops.decode_ancestors_dense(torch.as_tensor(f), m, guard=int(f[-1])).numpy()
+    np.testing.assert_array_equal(
+        as_given, np.asarray(pr.decode_ancestors(jnp.asarray(f), m, interpret=True)))
+
+
+def test_dense_decode_counts_run_ends():
+    f = torch.tensor([0, 2, 2, 3], dtype=torch.int32)
+    before = f.clone()
+    np.testing.assert_array_equal(ops.decode_ancestors_dense(f, 4).numpy(), [1, 1, 3, 3])
+    np.testing.assert_array_equal(ops.decode_ancestors_dense(f, 4, guard=3).numpy(), [1, 1, 3, 4])
+    # Extents at or past n_out mark nothing; the slots before them count
+    # only the rows below.
+    np.testing.assert_array_equal(ops.decode_ancestors_dense(f, 2, guard=9).numpy(), [1, 1])
+    np.testing.assert_array_equal(
+        ops.decode_ancestors_dense(torch.tensor([4, 4, 4], dtype=torch.int32), 3).numpy(),
+        [0, 0, 0])
+    assert torch.equal(f, before)
+    np.testing.assert_array_equal(ops.decode_ancestors(f, 2, guard=4, start=2).numpy(), [3, 3])
+
+
+@pytest.mark.parametrize("version", [0, 1, 6])
+@pytest.mark.parametrize("guarded", [False, True])
+@pytest.mark.parametrize("profile", WINDOW_PROFILES)
+def test_resample_move_f_versions_match_pallas(profile, guarded, version):
+    m = WINDOW_M
+    f, n, x = _case(profile, m, guarded)
+    anc, moved = ops.resample_move_f(torch.as_tensor(f), torch.as_tensor(x), m,
+                                     version=version, guard_n=n)
+    anc_j, moved_j = pr.resample_move_f(jnp.asarray(f), jnp.asarray(x), m, interpret=True,
+                                        version=version, guard_n=n)
+    np.testing.assert_array_equal(anc.numpy(), np.asarray(anc_j))
+    np.testing.assert_array_equal(_bits(moved.numpy()), _bits(moved_j))
+    if guarded:
+        # The slot past the drawn population: version 0 clips and gathers
+        # the last row; versions 1 and 6 move 0.
+        assert anc[-1] == m - 1
+        assert _bits(moved[-1:].numpy())[0] == _bits(x[-1:] if version == 0 else np.zeros(1))[0]
+
+
+def _dyadic_weights(profile, m, seed):
+    """Normalised weights ``c_i / 2^p`` with integer ``c_i`` summing to
+    ``2^p``: every float32 prefix sum is exact, so both packages' float32
+    cumsums give the same systematic extents."""
+    rng = np.random.default_rng(seed)
+    if profile == "uniform":
+        c = np.ones(m, np.int64)
+    elif profile == "single":
+        c = np.zeros(m, np.int64)
+        c[rng.integers(m)] = 1
+    elif profile == "zeros":
+        c = np.where(rng.random(m) < 0.5, 0, 1).astype(np.int64)
+    else:  # skewed
+        c = np.floor(np.exp(2.0 * rng.standard_normal(m))).astype(np.int64)
+    total = 1 << int(np.ceil(np.log2(c.sum())))
+    deficit = total - c.sum()
+    c += deficit // m
+    c[rng.choice(m, size=int(deficit % m), replace=False)] += 1
+    assert c.sum() == total
+    return (c / total).astype(np.float32)
+
+
+@pytest.mark.parametrize("version", [0, 1, 6])
+@pytest.mark.parametrize("profile", ["uniform", "skewed", "single", "zeros"])
+def test_resample_move_window_matches_pallas(profile, version):
+    m = WINDOW_M
+    w = _dyadic_weights(profile, m, seed=5)
+    u = float(np.float32(np.random.default_rng(6).random()))
+    x = np.random.default_rng(7).standard_normal(m).astype(np.float32)
+    tw, tx = torch.as_tensor(w), torch.as_tensor(x)
+    anc_all, moved_all = ops.resample_move(u, tw, tx, m, version=version)
+    anc_pj, moved_pj = pr.resample_move(u, jnp.asarray(w), jnp.asarray(x), m, interpret=True,
+                                        version=version)
+    np.testing.assert_array_equal(anc_all.numpy(), np.asarray(anc_pj))
+    np.testing.assert_array_equal(_bits(moved_all.numpy()), _bits(moved_pj))
+    for start, n_out in [(0, 1024), (2048, 1024), (3072, 1024)]:
+        anc, moved = ops.resample_move_window(u, tw, tx, m, start, n_out, version=version)
+        anc_j, moved_j = pr.resample_move_window(u, jnp.asarray(w), jnp.asarray(x), m, start,
+                                                 n_out, interpret=True, version=version)
+        np.testing.assert_array_equal(anc.numpy(), np.asarray(anc_j))
+        np.testing.assert_array_equal(_bits(moved.numpy()), _bits(moved_j))
+        # The window is that slice of the whole population's draw.
+        np.testing.assert_array_equal(anc.numpy(), anc_all.numpy()[start:start + n_out])
+    np.testing.assert_array_equal(ops.systematic_decode(u, tw, m).numpy(),
+                                  np.asarray(pr.systematic_pallas(u, jnp.asarray(w), m,
+                                                                  interpret=True)))
+
+
+@pytest.mark.parametrize("version", [1, 6])
+@pytest.mark.parametrize("guarded", [False, True])
+@pytest.mark.parametrize("profile", ["uniform", "lognormal"])
+def test_resample_move_window_fext_matches_pallas(profile, guarded, version):
+    # The neighbour exchange's form: shard k of K = 4 decodes its window
+    # against the 3L rows of shards k−1, k, k+1 (ring-wrapped, the wrapped
+    # extents masked to 0 and n as the sharded sweep does).
+    m, K = WINDOW_M, 4
+    L = m // K
+    f, n, x = _case(profile, m, guarded)
+    whole_anc, whole_moved = ops.resample_move_f(torch.as_tensor(f), torch.as_tensor(x), m,
+                                                 guard_n=n)
+    for k in range(K):
+        rows = [(k + d) % K for d in (-1, 0, 1)]
+        f_ext = np.concatenate([f[r * L:(r + 1) * L] for r in rows])
+        if k == 0:
+            f_ext[:L] = 0
+        if k == K - 1:
+            f_ext[2 * L:] = n
+        x_ext = np.concatenate([x[r * L:(r + 1) * L] for r in rows])
+        anc, moved = ops.resample_move_window_fext(torch.as_tensor(f_ext), torch.as_tensor(x_ext),
+                                                   n, k * L, L, version=version)
+        anc_j, moved_j = pr.resample_move_window_fext(jnp.asarray(f_ext), jnp.asarray(x_ext), n,
+                                                      k * L, L, interpret=True, version=version)
+        np.testing.assert_array_equal(anc.numpy(), np.asarray(anc_j))
+        np.testing.assert_array_equal(_bits(moved.numpy()), _bits(moved_j))
+        # Mapped back to global ids, the window-local owners are the whole
+        # population's (the neighbour predicate holds for these profiles).
+        glob = np.clip((k - 1) * L + anc.numpy(), 0, m - 1)
+        np.testing.assert_array_equal(glob, whole_anc.numpy()[k * L:(k + 1) * L])
+        np.testing.assert_array_equal(_bits(moved.numpy()),
+                                      _bits(whole_moved.numpy()[k * L:(k + 1) * L]))
+
+
+def test_decode_wrappers_check_inputs_and_never_fall_back():
+    f = torch.tensor([0, 2, 2, 3], dtype=torch.int32)
+    # A window must name the drawn count as its guard.
+    with pytest.raises(ValueError, match="guard"):
+        ops.decode_ancestors(f, 2, start=1)
+    with pytest.raises(ValueError, match="guard"):
+        ops.decode_move(f, torch.zeros(4), 2, start=1)
+    with pytest.raises(ValueError, match="start"):
+        ops.decode_ancestors(f, 2, guard=4, start=-1)
+    with pytest.raises(ValueError, match="rows"):
+        ops.decode_move(f, torch.zeros(5), 4)
+    with pytest.raises(ValueError, match="empty"):
+        ops.decode_ancestors_dense(torch.zeros(0, dtype=torch.int32), 4)
+    with pytest.raises(ValueError, match="move version"):
+        ops.resample_move_f(f, torch.zeros(4), 4, version=5)
+    meta_f = torch.zeros(4, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.decode_ancestors_dense(meta_f, 4)
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.decode_move(meta_f, torch.zeros(4, device="meta"), 4)
+    with pytest.raises(ValueError, match="different devices"):
+        ops.decode_move(f, torch.zeros(4, device="meta"), 4)

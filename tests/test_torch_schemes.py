@@ -147,8 +147,8 @@ def test_fused_step_matches_pallas(scheme, profile, guarded):
     assert diff.max() <= 1 and (diff > 0).mean() <= 2e-3
     assert (np.diff(f) >= 0).all() and f.min() >= 0 and f.max() <= n
     # Given the same extents, the decode and move are exact.
-    anc, moved = ops.resample_move(ops.decode_ancestors(torch.as_tensor(f), m, guard=n),
-                                   torch.as_tensor(x))
+    anc, moved = ops.move_rows(ops.decode_ancestors(torch.as_tensor(f), m, guard=n),
+                               torch.as_tensor(x))
     anc_j, moved_j = pr.resample_move_f(jnp.asarray(f), jnp.asarray(x), m, interpret=True,
                                         guard_n=n)
     np.testing.assert_array_equal(anc.numpy(), np.asarray(anc_j))
