@@ -6,7 +6,9 @@ models, the systematic, stratified, multinomial and residual schemes under the
 ESS gate, the sweep engine with reference trajectories and ancestor sampling,
 and the SMC and PG entry points.  Resampling runs through hand-written CUDA
 kernels (:mod:`advancedps_tpu_torch.ops.resample`) on CUDA tensors and
-through their plain PyTorch versions on CPU tensors.
+through their plain PyTorch versions on CPU tensors.  Every entry point runs
+on the GPU unless the caller passes ``device="cpu"``; without a CUDA device a
+call that names no device raises.
 
 Quick start::
 
@@ -16,9 +18,10 @@ Quick start::
     model = apt.models.stationary_lgssm(a=0.9, q=0.32, r=1.0)
     _, ys = apt.simulate(torch.Generator().manual_seed(0), model, 100)
     traced = apt.TracedSSM(model, ys)
-    smc = apt.sample(apt.rng.key(1), traced, apt.SMC(100_000), device="cuda")
+    smc = apt.sample(apt.rng.key(1), traced, apt.SMC(100_000))  # on the GPU
     chain = apt.sample(apt.rng.key(2), traced, apt.PGAS(100_000), 10,
-                       trajectory_storage="replay", device="cuda")
+                       trajectory_storage="replay")
+    cpu = apt.sample(apt.rng.key(1), traced, apt.SMC(4096), device="cpu")
 """
 
 from . import convert, distributions, models, ops, rng, utils

@@ -10,6 +10,7 @@ from typing import Mapping
 
 import numpy as np
 
+from ._device import resolve_device
 from .models.lgssm import LinearGaussianSSM
 from .rng import Key
 from .ssm import TracedSSM
@@ -30,11 +31,11 @@ def key_from_words(words) -> Key:
     return Key(int(w[0]), int(w[1]))
 
 
-def traced_ssm_from_numpy(params: Mapping[str, object], ys, device="cpu") -> TracedSSM:
+def traced_ssm_from_numpy(params: Mapping[str, object], ys, device=None) -> TracedSSM:
     """A :class:`TracedSSM` of the scalar LGSSM with ``params`` (the names in
-    :data:`LGSSM_PARAMS`) and observations ``ys``, on ``device``."""
+    :data:`LGSSM_PARAMS`) and observations ``ys``, on ``device`` (None: the GPU)."""
     missing = set(LGSSM_PARAMS) - set(params)
     if missing:
         raise ValueError(f"missing LGSSM parameters: {sorted(missing)}")
     model = LinearGaussianSSM(*(np.float32(params[k]) for k in LGSSM_PARAMS))
-    return TracedSSM(model, np.array(ys, dtype=np.float32)).to(device)
+    return TracedSSM(model, np.array(ys, dtype=np.float32)).to(resolve_device(device))

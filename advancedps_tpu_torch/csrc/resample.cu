@@ -23,18 +23,20 @@
 //                output bitwise nondecreasing.  Replaces _scaled_prefix
 //                (_make_scaled_prefix_kernel) behind scaled_prefix_from_logw
 //                and prefix_sum.
-//   B7 count     out[j] = #{k : s_k <= t_j} for sorted s, one binary search
-//                per threshold.  Replaces count_le_sorted_bs
-//                (_count_le_bs_kernel).
-//   B8 merge     the same counts by a merge path over sorted s and t.
-//                Replaces count_le_sorted (_count_le_kernel).
+//   B7 count     out[j] = #{k : s_k <= t_j} for sorted s: a block per tile
+//                of thresholds searches the tile's own run of s in shared
+//                memory.  Replaces count_le_sorted_bs (_count_le_bs_kernel).
+//   B8 merge     the same counts by a merge path over sorted s and t: equal
+//                tiles of the merged order, each block finding its own two
+//                splits.  Replaces count_le_sorted (_count_le_kernel).
 //
 // What bounds them on the card is memory traffic, not arithmetic.  At
-// M = n = 1M: B1 and B6 read their input twice (8 MB) and write 4 MB; B2 and
-// B7 read their sorted array through ~20 binary-search probes per output, but
+// M = n = 1M: B1 and B6 read their input twice (8 MB) and write 4 MB; B2
+// reads its sorted array through ~20 binary-search probes per output, but
 // that array (4 MB) stays in the 50 MB L2 and neighbouring outputs share their
 // probe paths; B3 reads anc and the source rows and writes the rows (12 MB at
-// D = 1); B8 reads s and t once each into shared memory and writes the counts;
+// D = 1); B7 and B8 read s and t once each into shared memory and write the
+// counts (12 MB; see "B7 tile search" and "B8 merge path");
 // B4 reads each tile's owner extents once (plus two searches) and the source
 // rows and writes anc and the rows, B3's traffic without B2's in between; B5
 // reads f once and makes two passes over anc (8 MB + 12 MB).
@@ -68,12 +70,51 @@
 // intrinsics so that nvcc does not contract n*cdf - u into an FMA: the plain
 // PyTorch versions round each operation separately.
 //
-// B8 balance.  The merge path (Green, McColl, Bader 2012) cuts the merged
-// order of s and t into equal tiles by a binary search along each tile's first
-// diagonal, so every block merges exactly kMergeTile elements, whatever the
-// skew: one particle holding all the weight (every threshold in one tile) costs
-// what uniform weights cost.  That is what the TPU's chunk-once staircase was
-// for.
+// B7 tile search.  One thread per threshold searching all of s is a chain of
+// ~20 dependent loads, each a round trip to the L2 (s is resident there, 4 MB
+// of 50): the kernel is then bound by that latency, ~20M sector requests for
+// the 12 MB it needs, and neighbouring thresholds repeat each other's first
+// ~10 probes.  So a block takes kCountTile consecutive thresholds, reduces
+// them to their smallest and largest (exact for any t; for nondecreasing t
+// these are the first and last), and two warps find the counts of those two
+// values by a 32-way search each (every lane probes one of 32 evenly spaced
+// entries, a ballot narrows the range 32 times: 4 rounds at 1M in place of
+// 20).  Every count of the tile lies between these two, so only that run of s
+// is staged into shared memory, with 16-byte cp.async copies, and each
+// threshold is searched there with 32-bit indices in a branchless loop whose
+// length depends on the run only, so a thread's four searches run interleaved.
+// A warp's lanes hold neighbouring thresholds: their probes fall on
+// neighbouring entries of the run, in different banks (a thread holding four
+// consecutive thresholds put its warp's probes four entries apart and lost
+// most of the kernel's time to bank conflicts), and thresholds and counts
+// move as coalesced 128-byte rows.  A run longer than the staging
+// buffer (a tile whose thresholds jump over many s: one particle holding most
+// of the weight) is searched in global memory between the same two bounds, as
+// B4 does.  Thresholds that are all equal, or all inside one gap of s, have an
+// empty or one-entry run and cost less than the uniform case.
+//
+// B8 merge path.  The merge path (Green, McColl, Bader 2012) cuts the merged
+// order of s and t into equal tiles along its diagonals, so every block
+// handles exactly kMergeTile merged entries, whatever the skew: one particle
+// holding all the weight (every threshold in one tile) costs what uniform
+// weights cost.  That is what the TPU's chunk-once staircase was for.  The
+// earlier kernel began each block with two serial searches by threads 0 and 1
+// (~20 dependent loads each) while the rest waited, staged 2048 entries with
+// 4-byte loads, and merged 8 entries per thread serially from shared memory,
+// lanes 8 entries apart: bank conflicts on every step and a 4-byte store per
+// count.  Now two warps find the block's two splits by the 32-way search along
+// the diagonal (a separate partition pass was tried and was slower: a second
+// launch costs more than the searches it shares), the block's run of s (at
+// most kMergeTile entries) is staged with 16-byte cp.async copies, and its
+// thresholds are ranked in that run exactly as B7 ranks them: neighbouring
+// lanes on neighbouring thresholds, four interleaved searches a thread,
+// coalesced loads of t and stores of the counts.  A tile holds at most
+// kMergeTile thresholds and at most kMergeTile entries of s, so the staging
+// buffer always suffices and no block does more than a fixed amount of work.
+// The tile is 16 KB, so several blocks are resident on an SM and one block's
+// copies overlap another's searches; a persistent block with two buffers
+// would add nothing at 2M merged entries, where every tile is resident at
+// once.
 //
 // B4 owner ranges.  The owners of a tile of consecutive output slots are a
 // contiguous run of rows [j0, j1], j0 and j1 the owners of the tile's first and
@@ -102,10 +143,13 @@ constexpr int kThreads = 256;              // threads per tile block
 constexpr int kItems = 8;                  // consecutive elements per thread
 constexpr int kTile = kThreads * kItems;   // elements per tile
 constexpr int kScanThreads = 1024;         // single-block cross-tile scans
-constexpr int kMoveThreads = 256;          // B2, B3, B7: one thread per output
+constexpr int kMoveThreads = 256;          // B2, B3: one thread per output
+constexpr int kCountThreads = 256;         // B7
+constexpr int kCountItems = 4;             // thresholds a thread searches together
+constexpr int kCountTile = kCountThreads * kCountItems;
+constexpr int kCountStage = 4096;          // entries of s staged per B7 block (16 KB)
 constexpr int kMergeThreads = 256;         // B8
-constexpr int kMergeItems = 8;             // merged elements per B8 thread
-constexpr int kMergeTile = kMergeThreads * kMergeItems;
+constexpr int kMergeTile = 4096;           // merged entries per B8 block (16 KB of s at most)
 constexpr int kDecodeMoveThreads = 256;    // B4
 constexpr int kDecodeMoveSlots = 1024;     // output slots per B4 block
 constexpr int kDecodeMoveRows = 8192;      // owner extents staged per B4 block (32 KB)
@@ -456,70 +500,215 @@ __global__ void move_rows_kernel(const int* __restrict__ anc, int64_t n_out, int
   if (c == 0) anc_clipped[k] = (int64_t)a < m ? a : (int)(m - 1);
 }
 
-// ---- B7: one thread per threshold, upper bound of t_j in the sorted s.
-__global__ void count_le_bs_kernel(const float* __restrict__ s, int64_t ns,
-                                   const float* __restrict__ t, int64_t nt,
-                                   int* __restrict__ out) {
-  const int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= nt) return;
-  const float tj = t[j];
-  int64_t lo = 0, hi = ns;
-  while (lo < hi) {
-    const int64_t mid = (lo + hi) >> 1;
-    if (__ldg(s + mid) > tj) hi = mid; else lo = mid + 1;
-  }
-  out[j] = (int)lo;
+// ---- Pieces shared by B7 and B8.
+
+constexpr unsigned kFullWarp = 0xffffffffu;
+
+__device__ __forceinline__ bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem));
 }
 
-// ---- B8: merge path.  The merged order takes s_k before t_j exactly when
-// s_k <= t_j, so the count for t_j is the number of s entries merged before
-// it.  merge_split returns how many s entries lie among the first d merged
-// entries: the first i at which s_i > t_{d-1-i} (a predicate that turns false
-// once as i grows, s and t being sorted).
-template <typename Idx>
-__device__ Idx merge_split(const float* s, Idx ns, const float* t, Idx nt, Idx d) {
-  Idx lo = d > nt ? d - nt : 0;
-  Idx hi = d < ns ? d : ns;
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Start the block's copy of src[lo, hi) into shared memory at dst (16-byte
+// aligned), so that src[lo] lands at dst[r] for the returned r in [0, 3]:
+// where src is 16-byte aligned the copy starts at the aligned entry at or
+// below lo and moves 16 bytes at a time, with a 4-byte ragged tail; otherwise
+// every entry moves on its own.  dst needs room for hi - lo + 3 entries.
+// Complete after cp_async_wait_all() and a barrier.
+__device__ int stage_run(float* dst, const float* __restrict__ src, int64_t lo, int64_t hi) {
+  const bool vec = aligned16(src);
+  const int64_t a0 = vec ? (lo & ~(int64_t)3) : lo;
+  const int64_t v_end = vec ? a0 + ((hi - a0) & ~(int64_t)3) : a0;
+  for (int64_t k = a0 + 4 * (int64_t)threadIdx.x; k < v_end; k += 4 * (int64_t)blockDim.x) {
+    cp_async16(dst + (k - a0), src + k);
+  }
+  for (int64_t k = v_end + threadIdx.x; k < hi; k += blockDim.x) {
+    cp_async4(dst + (k - a0), src + k);
+  }
+  return (int)(lo - a0);
+}
+
+// The first i in [lo, hi) at which pred(i) is false, or hi, for a predicate
+// that is true up to some point and false from there on; called by a whole
+// warp.  Each round the 32 lanes probe 32 evenly spaced entries and a ballot
+// keeps the one gap that holds the answer.
+template <typename Pred>
+__device__ int64_t warp_partition_point(int64_t lo, int64_t hi, Pred pred) {
+  const int lane = threadIdx.x & 31;
   while (lo < hi) {
-    const Idx mid = (lo + hi) >> 1;
-    if (s[mid] <= t[d - 1 - mid]) lo = mid + 1; else hi = mid;
+    const int64_t step = (hi - lo + 31) >> 5;
+    const int64_t p = lo + (int64_t)(lane + 1) * step - 1;
+    const int c = __popc(__ballot_sync(kFullWarp, p < hi && pred(p)));
+    // Probes 0 .. c-1 hold, probe c (if there is one) does not.
+    const int64_t next_hi = lo + (int64_t)(c + 1) * step - 1;
+    if (c < 32 && next_hi < hi) hi = next_hi;
+    lo = lo + c * step < hi ? lo + c * step : hi;
   }
   return lo;
 }
 
-// One block per kMergeTile merged entries: two global splits bound the
-// block's run of s and of t, both are staged in shared memory, and each
-// thread merges kMergeItems entries from its own split within the tile.
-__global__ void count_le_merge_kernel(const float* __restrict__ s, int64_t ns,
-                                      const float* __restrict__ t, int64_t nt,
-                                      int* __restrict__ out) {
-  __shared__ float tile[kMergeTile];
-  __shared__ int64_t split[2];
+// cnt[i] = #{k < len : r_k <= t[i]} for nondecreasing r, len >= 1, with no
+// branch on the data: the trip count depends on len only, so the K searches
+// run interleaved and their loads overlap.  (!(r > t) and not r <= t: a NaN
+// threshold counts every entry, as searchsorted does.)
+template <int K, typename Load>
+__device__ __forceinline__ void upper_bound_uniform(Load r, int len, const float (&t)[K],
+                                                    int (&cnt)[K]) {
+#pragma unroll
+  for (int i = 0; i < K; ++i) cnt[i] = 0;
+  while (len > 1) {
+    const int half = len >> 1;
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+      cnt[i] = !(r(cnt[i] + half - 1) > t[i]) ? cnt[i] + half : cnt[i];
+    }
+    len -= half;
+  }
+#pragma unroll
+  for (int i = 0; i < K; ++i) cnt[i] += !(r(cnt[i]) > t[i]) ? 1 : 0;
+}
+
+// ---- B7: one block per kCountTile consecutive thresholds (see "B7 tile
+// search").  Item i of thread x is threshold i * kCountThreads + x of the
+// tile: a warp's lanes hold neighbouring thresholds, so their loads and stores
+// coalesce and their probes of the staged run fall on neighbouring entries,
+// in different banks.
+__global__ void __launch_bounds__(kCountThreads)
+count_le_tile_kernel(const float* __restrict__ s, int ns, const float* __restrict__ t,
+                     int64_t nt, int* __restrict__ out) {
+  __shared__ __align__(16) float run_s[kCountStage + 4];
+  __shared__ float warp_min[kCountThreads / 32], warp_max[kCountThreads / 32];
+  __shared__ int bound[2];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t j0 = (int64_t)blockIdx.x * kCountTile;
+  const int nj = (int)(nt - j0 < kCountTile ? nt - j0 : kCountTile);
+
+  float tv[kCountItems];
+#pragma unroll
+  for (int i = 0; i < kCountItems; ++i) {
+    // Past the end: the tile's first threshold again, which moves no bound.
+    const int k = i * kCountThreads + threadIdx.x;
+    tv[i] = t[j0 + (k < nj ? k : 0)];
+  }
+
+  // The tile's smallest and largest threshold.  A NaN threshold counts all of
+  // s, so it raises the upper bound to the top.
+  float lo_t = tv[0], hi_t = tv[0];
+#pragma unroll
+  for (int i = 0; i < kCountItems; ++i) {
+    lo_t = fminf(lo_t, tv[i]);
+    hi_t = tv[i] != tv[i] ? INFINITY : fmaxf(hi_t, tv[i]);
+  }
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) {
+    lo_t = fminf(lo_t, __shfl_xor_sync(kFullWarp, lo_t, d));
+    hi_t = fmaxf(hi_t, __shfl_xor_sync(kFullWarp, hi_t, d));
+  }
+  if (lane == 0) {
+    warp_min[warp] = lo_t;
+    warp_max[warp] = hi_t;
+  }
+  __syncthreads();
+  if (warp < 2) {
+    // Warp 0 counts the entries <= the smallest threshold, warp 1 those <=
+    // the largest.
+    float v = warp == 0 ? warp_min[0] : warp_max[0];
+    for (int w = 1; w < kCountThreads / 32; ++w) {
+      v = warp == 0 ? fminf(v, warp_min[w]) : fmaxf(v, warp_max[w]);
+    }
+    const int64_t c = warp_partition_point(0, ns, [&](int64_t i) { return !(__ldg(s + i) > v); });
+    if (lane == 0) bound[warp] = (int)c;
+  }
+  __syncthreads();
+
+  // Entries below i_lo are <= every threshold of the tile, entries from i_hi
+  // on are above every one: each count is i_lo plus its count within the run.
+  const int i_lo = bound[0], i_hi = bound[1];
+  const int run = i_hi - i_lo;
+  int cnt[kCountItems] = {};
+  if (run > kCountStage) {
+    const float* r = s + i_lo;
+    upper_bound_uniform([&](int k) { return __ldg(r + k); }, run, tv, cnt);
+  } else if (run > 0) {
+    const float* r = run_s + stage_run(run_s, s, i_lo, i_hi);
+    cp_async_wait_all();
+    __syncthreads();
+    upper_bound_uniform([&](int k) { return r[k]; }, run, tv, cnt);
+  }
+#pragma unroll
+  for (int i = 0; i < kCountItems; ++i) {
+    const int k = i * kCountThreads + threadIdx.x;
+    if (k < nj) out[j0 + k] = i_lo + cnt[i];
+  }
+}
+
+// ---- B8: merge path (see "B8 merge path").  The merged order takes s_k
+// before t_j exactly when s_k <= t_j, so the count for t_j is the number of s
+// entries merged before it.  The number of s entries among the first d merged
+// entries is the first i at which s_i > t_{d-1-i} (a predicate that turns
+// false once as i grows, s and t being sorted).  Called by a whole warp.
+__device__ int merge_split_warp(const float* __restrict__ s, int ns,
+                                const float* __restrict__ t, int64_t nt, int64_t d) {
+  const int64_t lo = d > nt ? d - nt : 0;
+  const int64_t hi = d < ns ? d : ns;
+  return (int)warp_partition_point(
+      lo, hi, [&](int64_t k) { return __ldg(s + k) <= __ldg(t + (d - 1 - k)); });
+}
+
+// One block per kMergeTile merged entries: its run of s, s[i0, i1), and of t,
+// t[j0, j0 + nj), lie between the splits of its first and last diagonal, which
+// its first two warps find.  Every s entry before i0 is <= t_j0 and every one
+// from i1 on is above the run's last threshold, so each count is i0 plus the
+// count within the staged run of s, found as B7 finds it.
+__global__ void __launch_bounds__(kMergeThreads)
+count_le_merge_kernel(const float* __restrict__ s, int ns, const float* __restrict__ t,
+                      int64_t nt, int* __restrict__ out) {
+  __shared__ __align__(16) float run_s[kMergeTile + 4];
+  __shared__ int split[2];
+  const int64_t total = (int64_t)ns + nt;
   const int64_t d0 = (int64_t)blockIdx.x * kMergeTile;
-  const int64_t d1 = d0 + kMergeTile < ns + nt ? d0 + kMergeTile : ns + nt;
-  if (threadIdx.x < 2) {
-    split[threadIdx.x] = merge_split<int64_t>(s, ns, t, nt, threadIdx.x == 0 ? d0 : d1);
+  const int64_t d1 = d0 + kMergeTile < total ? d0 + kMergeTile : total;
+  const int warp = threadIdx.x >> 5;
+  if (warp < 2) {
+    const int i = merge_split_warp(s, ns, t, nt, warp == 0 ? d0 : d1);
+    if ((threadIdx.x & 31) == 0) split[warp] = i;
   }
   __syncthreads();
-  const int64_t i0 = split[0], j0 = d0 - split[0];
-  const int ni = (int)(split[1] - i0);
-  const int nj = (int)(d1 - split[1] - j0);
-  for (int k = threadIdx.x; k < ni + nj; k += blockDim.x) {
-    tile[k] = k < ni ? s[i0 + k] : t[j0 + (k - ni)];
+  const int i0 = split[0], i1 = split[1];
+  const int64_t j0 = d0 - i0;
+  const int ni = i1 - i0;
+  const int nj = (int)(d1 - d0) - ni;
+  const float* r = run_s;
+  if (ni > 0) {
+    r += stage_run(run_s, s, i0, i1);
+    cp_async_wait_all();
+    __syncthreads();
   }
-  __syncthreads();
-  const float* ts = tile;       // s[i0, i0 + ni)
-  const float* tt = tile + ni;  // t[j0, j0 + nj)
-  const int dd = min((int)threadIdx.x * kMergeItems, ni + nj);
-  const int end = min(dd + kMergeItems, ni + nj);
-  int i = merge_split<int>(ts, ni, tt, nj, dd);
-  int j = dd - i;
-  for (int k = dd; k < end; ++k) {
-    if (i < ni && (j >= nj || ts[i] <= tt[j])) {
-      ++i;
-    } else {
-      out[j0 + j] = (int)(i0 + i);
-      ++j;
+  for (int first = 0; first < nj; first += kCountItems * kMergeThreads) {
+    float tv[kCountItems];
+    int cnt[kCountItems] = {};
+#pragma unroll
+    for (int i = 0; i < kCountItems; ++i) {
+      const int k = first + i * kMergeThreads + threadIdx.x;
+      tv[i] = t[j0 + (k < nj ? k : first)];
+    }
+    if (ni > 0) upper_bound_uniform([&](int k) { return r[k]; }, ni, tv, cnt);
+#pragma unroll
+    for (int i = 0; i < kCountItems; ++i) {
+      const int k = first + i * kMergeThreads + threadIdx.x;
+      if (k < nj) out[j0 + k] = i0 + cnt[i];
     }
   }
 }
@@ -607,22 +796,28 @@ int aps_move_rows(const int* anc, int64_t n_out, int64_t m, const void* v, int64
   return (int)cudaGetLastError();
 }
 
-// B7.  s float32[ns] nondecreasing; t float32[nt]; out int32[nt], nt >= 1.
+// The geometry of B7 and B8: 0 kCountTile, 1 kCountStage, 2 kMergeTile.
+int aps_count_le_geometry(int which) {
+  return which == 0 ? kCountTile : which == 1 ? kCountStage : which == 2 ? kMergeTile : -1;
+}
+
+// B7.  s float32[ns] nondecreasing, ns < 2^31; t float32[nt]; out int32[nt],
+// nt >= 1.
 int aps_count_le_sorted_bs(const float* s, int64_t ns, const float* t, int64_t nt,
                            int* out, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  count_le_bs_kernel<<<blocks_for(nt, kMoveThreads), kMoveThreads, 0, st>>>(s, ns, t, nt,
-                                                                            out);
+  count_le_tile_kernel<<<blocks_for(nt, kCountTile), kCountThreads, 0, st>>>(s, (int)ns, t, nt,
+                                                                             out);
   return (int)cudaGetLastError();
 }
 
-// B8.  s float32[ns] and t float32[nt] both nondecreasing; out int32[nt],
-// nt >= 1.
+// B8.  s float32[ns] and t float32[nt] both nondecreasing, ns < 2^31;
+// out int32[nt], nt >= 1.
 int aps_count_le_sorted(const float* s, int64_t ns, const float* t, int64_t nt, int* out,
                         void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   count_le_merge_kernel<<<blocks_for(ns + nt, kMergeTile), kMergeThreads, 0, st>>>(
-      s, ns, t, nt, out);
+      s, (int)ns, t, nt, out);
   return (int)cudaGetLastError();
 }
 

@@ -44,6 +44,7 @@ from typing import Any, Optional
 import torch
 
 from . import rng as rngmod
+from ._device import resolve_device
 from .ops import resample as ops
 from .resampling import (
     ResampleWithESSThreshold,
@@ -163,10 +164,10 @@ def sweep(
     ref: Any = None,
     ancestor_sampling: bool = False,
     store_states: bool = True,
-    device="cpu",
+    device=None,
 ) -> SweepResult:
-    """Run one particle sweep on ``device``: bootstrap SMC, or conditional
-    SMC when ``ref`` (a ``[T, ...]`` trajectory) is given.
+    """Run one particle sweep on ``device`` (None: the GPU): bootstrap SMC,
+    or conditional SMC when ``ref`` (a ``[T, ...]`` trajectory) is given.
 
     ``kernel``'s tensors must already lie on ``device``.  Resampling is gated
     at ``ESS ≤ threshold · n``.
@@ -176,7 +177,7 @@ def sweep(
     has_ref = ref is not None
     if ancestor_sampling and not has_ref:
         raise ValueError("ancestor_sampling requires a reference trajectory")
-    device = torch.device(device)
+    device = resolve_device(device)
     gids = torch.arange(n, device=device)
     ref_mask = None
     if has_ref:

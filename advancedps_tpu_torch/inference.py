@@ -14,6 +14,7 @@ from typing import Optional
 import torch
 
 from . import rng as rngmod
+from ._device import resolve_device
 from .engine import SweepKernel, reconstruct, replay_trajectory, sweep
 from .pg import PG, PGSample, PGState
 from .resampling import randcat_gumbel
@@ -46,8 +47,9 @@ def _on_device(model, device):
 
 
 def sample_smc(key: Key, model, sampler: SMC, store_states: bool = True,
-               device="cpu") -> SMCSample:
-    """One SMC sweep on ``device``."""
+               device=None) -> SMCSample:
+    """One SMC sweep on ``device`` (None: the GPU)."""
+    device = resolve_device(device)
     model = _on_device(model, device)
     res = sweep(
         key, make_kernel(model), sampler.n_particles, sampler.resampler,
@@ -65,8 +67,8 @@ def sample_smc(key: Key, model, sampler: SMC, store_states: bool = True,
 
 
 def step_pg(key: Key, model, sampler: PG, state: Optional[PGState] = None,
-            trajectory_storage: str = "dense", device="cpu"):
-    """One PG / PGAS iteration on ``device``: a conditional sweep on
+            trajectory_storage: str = "dense", device=None):
+    """One PG / PGAS iteration on ``device`` (None: the GPU): a conditional sweep on
     ``state``'s trajectory (a plain sweep when ``state`` is None), then a new
     retained trajectory drawn ∝ the final weights.  Returns
     ``(PGSample, PGState)``.
@@ -84,6 +86,7 @@ def step_pg(key: Key, model, sampler: PG, state: Optional[PGState] = None,
     if trajectory_storage not in ("dense", "replay"):
         raise ValueError(f"unknown trajectory_storage {trajectory_storage!r}")
     replay = trajectory_storage == "replay"
+    device = resolve_device(device)
     kernel = make_kernel(_on_device(model, device))
     ref = None if state is None else state.trajectory
     res = sweep(
@@ -104,8 +107,8 @@ def step_pg(key: Key, model, sampler: PG, state: Optional[PGState] = None,
 
 
 def sample_pg(key: Key, model, sampler: PG, n_iterations: int,
-              trajectory_storage: str = "dense", device="cpu") -> PGSample:
-    """Run a PG(AS) chain of ``n_iterations`` on ``device``: iteration ``i``
+              trajectory_storage: str = "dense", device=None) -> PGSample:
+    """Run a PG(AS) chain of ``n_iterations`` on ``device`` (None: the GPU): iteration ``i``
     uses the key ``fold_in(key, i)``, and the first runs without a reference.
     Returns the stacked :class:`PGSample`: ``trajectory [n_iterations, T, ...]``,
     ``log_evidence [n_iterations]``.
@@ -129,10 +132,11 @@ def sample_pg(key: Key, model, sampler: PG, n_iterations: int,
 
 
 def sample(key: Key, model, sampler, n_iterations: Optional[int] = None,
-           device="cpu", **kwargs):
+           device=None, **kwargs):
     """``sample(key, model, SMC(n), device=...)`` → :class:`SMCSample`;
     ``sample(key, model, PG(n), n_iterations, device=...)`` → stacked
-    :class:`PGSample` (keyword ``trajectory_storage``, see :func:`step_pg`)."""
+    :class:`PGSample` (keyword ``trajectory_storage``, see :func:`step_pg`).
+    ``device`` None means the GPU; ``"cpu"`` runs the plain versions."""
     if isinstance(sampler, SMC):
         if n_iterations is not None:
             raise ValueError("SMC draws one weighted population; n_iterations must be None")

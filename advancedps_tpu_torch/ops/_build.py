@@ -40,6 +40,7 @@ _SIGNATURES = {
     "aps_decode_ancestors_dense": (_P, _I64, _I32, _I64, _P, _P, _P),
     "aps_count_le_sorted_bs": (_P, _I64, _P, _I64, _P, _P),
     "aps_count_le_sorted": (_P, _I64, _P, _I64, _P, _P),
+    "aps_count_le_geometry": (_I32,),
 }
 
 

@@ -22,8 +22,9 @@ from two more primitives:
   scaled prefix ``(Σ_{i≤j} e_i)·scale`` with ``e = exp(x − m)`` or ``x``,
   bitwise nondecreasing;
 * B7 :func:`count_le_sorted_bs` and B8 :func:`count_le_sorted` — the sorted
-  merge-count ``out[j] = #{k : s_k ≤ t_j}``, by binary search and by merge
-  path; :func:`count_le_sorted_auto` picks one (:data:`COUNT_LE_SORTED`).
+  merge-count ``out[j] = #{k : s_k ≤ t_j}``, by a search per tile of
+  thresholds and by merge path; :func:`count_le_sorted_auto` picks one
+  (:data:`COUNT_LE_SORTED`).
 
 :func:`resample_move_f` is the decode + move the sweep runs on a firing;
 :data:`MOVE_VERSION` picks B2 + B3 (6), B4 (1) or B5 + a gather (0), as the
@@ -66,6 +67,9 @@ __all__ = [
     "count_le_sorted",
     "count_le_sorted_ref",
     "count_le_sorted_auto",
+    "COUNT_TILE",
+    "COUNT_STAGE",
+    "MERGE_TILE",
     "resample_move_f",
     "resample_move",
     "resample_move_window",
@@ -80,11 +84,19 @@ __all__ = [
 #: Extents are computed in float32; larger counts are not exact there.
 MAX_N = 1 << 24
 
-#: Which merge-count :func:`count_le_sorted_auto` runs: ``"bs"`` (B7, binary
+#: Which merge-count :func:`count_le_sorted_auto` runs: ``"bs"`` (B7, the
 #: search; the default, as in the JAX package) or ``"merge"`` (B8, merge
 #: path).  The JAX package chooses by the ``APS_DECODE`` environment variable;
 #: here it is set in code.
 COUNT_LE_SORTED = "bs"
+
+#: The geometry of B7 and B8, for tests to build their cases around:
+#: thresholds per B7 block, entries of ``s`` a B7 block stages in shared
+#: memory, merged entries per B8 block.  The kernels' own values are in
+#: ``csrc/resample.cu`` (``aps_count_le_geometry`` reads them back).
+COUNT_TILE = 1024
+COUNT_STAGE = 4096
+MERGE_TILE = 4096
 
 #: Which decode + move :func:`resample_move_f` runs: ``6`` (B2 then B3, the
 #: default, as in the JAX package), ``1`` (B4) or ``0`` (B5, then a gather).
@@ -437,9 +449,9 @@ def prefix_sum(x) -> torch.Tensor:
     return _scaled_prefix(prefix_sum, x, None, None, use_exp=False)
 
 
-def _count_le(wrapper, kernel_name: str, s, t) -> torch.Tensor:
-    """B7/B8: the plain version on the CPU, else the named kernel, counted on
-    ``wrapper``."""
+def _count_le(wrapper, entry: str, s, t) -> torch.Tensor:
+    """B7/B8: the plain version on the CPU, else the kernel behind the C
+    entry ``entry``, counted on ``wrapper``."""
     _check(s, "s", torch.float32)
     _check(t, "t", torch.float32)
     if s.numel() >= 1 << 31:
@@ -451,7 +463,7 @@ def _count_le(wrapper, kernel_name: str, s, t) -> torch.Tensor:
         return out
     lib = _build.library()
     with torch.cuda.device(t.device):
-        rc = getattr(lib, kernel_name)(
+        rc = getattr(lib, entry)(
             _ptr(s), s.numel(), _ptr(t), t.numel(), _ptr(out), _stream(t.device)
         )
     _raise_on(rc, wrapper.__name__)
@@ -460,15 +472,18 @@ def _count_le(wrapper, kernel_name: str, s, t) -> torch.Tensor:
 
 
 def count_le_sorted_bs(s, t) -> torch.Tensor:
-    """B7: ``out[j] = #{k : s_k ≤ t_j}`` as int32, one binary search over the
-    nondecreasing float32 ``s`` per threshold ``t_j``."""
+    """B7: ``out[j] = #{k : s_k ≤ t_j}`` as int32 for nondecreasing float32
+    ``s`` and any float32 ``t``: each block of :data:`COUNT_TILE` consecutive
+    thresholds searches only the run of ``s`` between the counts of its
+    smallest and largest threshold (staged on chip up to :data:`COUNT_STAGE`
+    entries)."""
     return _count_le(count_le_sorted_bs, "aps_count_le_sorted_bs", s, t)
 
 
 def count_le_sorted(s, t) -> torch.Tensor:
     """B8: the same counts as :func:`count_le_sorted_bs` by a merge path over
-    ``s`` and ``t``, both nondecreasing: equal tiles of the merged order,
-    balanced under any skew of the thresholds."""
+    ``s`` and ``t``, both nondecreasing: equal tiles of :data:`MERGE_TILE`
+    entries of the merged order, balanced under any skew of the thresholds."""
     return _count_le(count_le_sorted, "aps_count_le_sorted", s, t)
 
 

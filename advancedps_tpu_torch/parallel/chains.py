@@ -24,8 +24,8 @@ __all__ = ["sample_chains", "smc_ensemble", "sharded_chains_pg"]
 
 
 def sample_chains(key: rngmod.Key, model, sampler: PG, n_iterations: int, n_chains: int,
-                  trajectory_storage: str = "dense", device="cpu") -> PGSample:
-    """``n_chains`` independent PG(AS) chains on ``device``.  Returns stacked
+                  trajectory_storage: str = "dense", device=None) -> PGSample:
+    """``n_chains`` independent PG(AS) chains on ``device`` (None: the GPU).  Returns stacked
     samples with a leading chain axis: ``trajectory [n_chains, n_iterations,
     T, ...]``, ``log_evidence [n_chains, n_iterations]``."""
     runs = [sample_pg(rngmod.fold_in(key, i), model, sampler, n_iterations,
@@ -37,9 +37,9 @@ def sample_chains(key: rngmod.Key, model, sampler: PG, n_iterations: int, n_chai
 
 
 def smc_ensemble(key: rngmod.Key, model, sampler: SMC, n_runs: int,
-                 store_states: bool = True, device="cpu") -> SMCSample:
-    """``n_runs`` independent SMC sweeps (e.g. for the variance of the
-    log-evidence), stacked on a leading run axis."""
+                 store_states: bool = True, device=None) -> SMCSample:
+    """``n_runs`` independent SMC sweeps on ``device`` (None: the GPU), e.g.
+    for the variance of the log-evidence, stacked on a leading run axis."""
     runs = [sample_smc(rngmod.fold_in(key, i), model, sampler, store_states, device)
             for i in range(n_runs)]
     return SMCSample(

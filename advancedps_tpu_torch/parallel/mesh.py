@@ -27,6 +27,8 @@ from typing import Sequence, Union
 
 import torch
 
+from .._device import resolve_device
+
 __all__ = [
     "PARTICLE_AXIS",
     "CHAIN_AXIS",
@@ -114,26 +116,28 @@ class ChainParticleMesh:
 
 
 def _devices(count: int, device) -> list:
-    """``count`` devices from one device (repeated) or a sequence of them."""
-    if isinstance(device, (str, torch.device)):
-        return [device] * count
+    """``count`` devices from one device (repeated; None: the GPU) or a
+    sequence of them."""
+    if device is None or isinstance(device, (str, torch.device)):
+        return [resolve_device(device)] * count
     devices = list(device)
     if len(devices) < count:
         raise ValueError(f"{count} shards need {count} devices, got {len(devices)}")
     return devices[:count]
 
 
-def particle_mesh(n_shards: int, device="cpu") -> ParticleMesh:
+def particle_mesh(n_shards: int, device=None) -> ParticleMesh:
     """1-D mesh of ``n_shards`` shards on ``device`` (one device, repeated:
-    ``n_shards`` logical shards on it) or on a sequence of devices."""
+    ``n_shards`` logical shards on it; None means the GPU) or on a sequence
+    of devices."""
     if n_shards < 1:
         raise ValueError(f"n_shards must be >= 1, got {n_shards}")
     return ParticleMesh(_devices(n_shards, device))
 
 
-def chain_particle_mesh(n_chains: int, n_particle_shards: int, device="cpu") -> ChainParticleMesh:
+def chain_particle_mesh(n_chains: int, n_particle_shards: int, device=None) -> ChainParticleMesh:
     """2-D mesh: ``n_chains`` rows of ``n_particle_shards`` shards, on one
-    device or on a sequence of ``n_chains · n_particle_shards`` devices in
+    device (None: the GPU) or on a sequence of ``n_chains · n_particle_shards`` devices in
     row order."""
     if n_chains < 1 or n_particle_shards < 1:
         raise ValueError("a chain mesh needs n_chains >= 1 and n_particle_shards >= 1")

@@ -25,6 +25,7 @@ from typing import Callable
 import torch
 
 from . import rng as rngmod
+from ._device import resolve_device
 
 __all__ = [
     "randcat_gumbel",
@@ -96,11 +97,12 @@ def resample_stratified(key: rngmod.Key, weights: torch.Tensor, n: int) -> torch
     return _inverse_cdf(weights, us)
 
 
-def multinomial_spacings(key: rngmod.Key, n: int, device="cpu") -> torch.Tensor:
+def multinomial_spacings(key: rngmod.Key, n: int, device=None) -> torch.Tensor:
     """``n + 1`` positional Exp(1) gaps ``−log1p(−u)``: the ``n`` sorted
     uniforms are ``S_k / S_n`` for the inclusive prefix sums ``S`` of these
-    gaps (Devroye 1986, §V.3).  The fused multinomial path's draw."""
-    u = rngmod.pos_uniform(key, torch.arange(n + 1, device=device))
+    gaps (Devroye 1986, §V.3), on ``device`` (None: the GPU).  The fused
+    multinomial path's draw."""
+    u = rngmod.pos_uniform(key, torch.arange(n + 1, device=resolve_device(device)))
     return -torch.log1p(-u)
 
 

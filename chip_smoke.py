@@ -12,15 +12,24 @@ final line:
    B4 and B5 and the windowed B2 (whole population, the four windows of
    K = 4 shards of L = 250,000, and the 3L-row form of the neighbour
    exchange; bitwise), B6 (both modes, within 1 ulp and bitwise
-   nondecreasing), B7 and B8 (exact, also where every threshold falls in one
-   tile);
+   nondecreasing), B7 and B8 (exact against the plain version: the scheme's
+   thresholds, every threshold one value, every threshold inside one gap,
+   heavy ties, ns ≠ nt from unaligned slices, thresholds below and above all
+   of s and +inf, and for B7 unsorted thresholds and NaN); and B7 and B8 at
+   the edges of their own geometry, read back from the built library: sizes
+   one short of, equal to and one past a tile, a tile whose run of s is one
+   short of, exactly and one past the staging buffer from an unaligned start,
+   a merge tile that holds entries of s alone or thresholds alone;
 4. the SMC flagship (stationary LGSSM a=0.9, q=0.32, r=1.0, T=100,
    N=1,000,000, resampling at ESS ≤ N/2) through ``sample`` with each fused
    scheme — systematic, stratified, multinomial, and multinomial with the
    B8 merge-count — anchored to the exact Kalman log-likelihood, with each
    kernel's launch count equal to what the scheme runs per firing times the
-   firings, and a bitwise repeat; then the systematic flagship under each
-   move version (6: B2 + B3, 1: B4, 0: B5 + a gather), bitwise equal;
+   firings, and a bitwise repeat (systematic through the default device, no
+   ``device`` named); the multinomial sweeps on B7 and on B8 bitwise equal to
+   each other and at the |logZ − Kalman| recorded for the kernels they
+   replaced; then the systematic flagship under each move version (6: B2 + B3,
+   1: B4, 0: B5 + a gather), bitwise equal;
 5. the sharded flagship on K = 4 logical shards of the card
    (``parallel.sharded_sweep``) with each exchange, against Kalman and the
    single-device sweep (equal until the first firing whose Σe, summed in
@@ -31,18 +40,31 @@ final line:
    configuration): the pooled chain means against the RTS smoother (RMS
    z-score < 3 over 6 chains of 8 iterations, 4 dropped), the final
    iteration's logZ against Kalman, 99 launches of B1-B3 per iteration; short
-   PGAS chains with multinomial and stratified; replay against dense storage;
+   PGAS chains with multinomial (logZ bitwise what the chain on the earlier
+   B7 gave) and stratified; replay against dense storage;
    then sharded PGAS (K = 4, replay, ``auto``) and sharded chains on a 2 × 2
    chain mesh;
 7. timings: the median of 5 sweeps per scheme and of a never-firing base,
    the sharded sweep's median beside the single-device one and its exchange
-   time per firing, PGAS iterations/s (single-device and sharded), each
-   kernel against its plain version, and profiled sweeps for the device busy
-   share.
+   time per firing, PGAS iterations/s (single-device and sharded), and
+   profiled sweeps for the device busy share.  For each kernel at 1M: its
+   device time (the profiler's device-side rows over a window of REPS calls,
+   every launch of the call summed), the same for its plain version and, where
+   one PyTorch call computes the same function, for that call; the time per
+   call by CUDA events, wrapper and host included (plain, kernel, kernel,
+   plain); the bytes it must move and the least time they take at the card's
+   memory rate.  The inputs are the same tensors on every call, as in the
+   sweep, where each was written by the step before: they sit in the 50 MB L2,
+   so the readings are L2-warm.  A second window takes each kernel L2-cold, on
+   128 MB of copies of its inputs in turn.  The bound is the device memory's:
+   a cold time below it fails the phase.  A warm time may pass it, the L2
+   being faster than the memory behind it, and is held to the L2's ceiling
+   instead (``L2_BYTES_PER_S``); a warm share above 1 is printed.
 
 Each launch count is read from the run of its own path, the counts set to 0
-just before it.  The last two lines are the kernels' JSON record (launches
-summed over the runs of phases 4-6) and ``{"ok": true, "device": {...}}``.
+just before it.  The last lines are the kernels' JSON record (launches summed
+over the runs of phases 4-6, and per sweep and per PGAS iteration by scheme),
+the card, and ``{"ok": true, "device": {...}}``.
 Imports no JAX: the card's machine has none.
 """
 
@@ -56,6 +78,9 @@ import sys
 import time
 
 import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity
+from torch.profiler import profile as profiler_window  # main() has a local named profile
 
 N = 1_000_000
 T = 100
@@ -64,6 +89,18 @@ L = N // K
 A, Q, R = 0.9, 0.32, 1.0
 SIGMA0 = math.sqrt(Q * Q / (1 - A * A))
 REPS = 20  # launches per timing window
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
+# The L2's ceiling, for L2-warm readings: 5120 bytes a clock (NVIDIA's figure
+# for the A100's L2; none is published for the H100, which is no narrower) at
+# the H100 SXM's 1.98 GHz boost clock.  About three times the memory's rate.
+L2_BYTES_PER_S = 5120 * 1.98e9
+# Kineto drops a device record whose timestamp, converted to the host's clock,
+# falls outside the window, and that conversion is off by up to a few
+# milliseconds in bursts: a window that closes right after its last launch now
+# and then comes back short of records or empty.  So the window stays open this
+# long before its first launch and after its last.
+PROFILER_PAD_S = 0.02
+COLD_BYTES = 128 << 20  # inputs cycled through per L2-cold window, over the 50 MB L2
 SWEEPS = 5  # timed sweeps per scheme
 PGAS_ITERS, PGAS_WARM, PGAS_CHAINS = 8, 4, 6  # bench_pgas.py:34-38, 96-114
 SHARDED_PGAS_ITERS = 3
@@ -81,6 +118,11 @@ REPLACES = {
     "count_le_sorted_bs": f"{TPU_FILE}:476",
     "count_le_sorted": f"{TPU_FILE}:516",
 }
+#: The multinomial paths as they ran on the B7 and B8 kernels of before the
+#: redesign (H100 80GB HBM3, same seeds): the flagship's |logZ − Kalman| to the
+#: six decimals printed, and the two logZ of the 2-iteration PGAS chain.
+EARLIER_MULTINOMIAL_ERR = "0.000238"
+EARLIER_MULTINOMIAL_PGAS_LOGZ = [-161.53640747070312, -161.53016662597656]
 #: Kernel launches per resampling firing of each fused scheme.
 PER_FIRING = {
     "systematic": {"extents_from_logw": 1, "decode_ancestors": 1, "move_rows": 1},
@@ -145,7 +187,8 @@ def nondecreasing(x: torch.Tensor) -> bool:
 
 
 def time_ms(fn) -> float:
-    """Mean device time of one call over REPS calls, by CUDA events."""
+    """Mean time of one call over REPS calls, by CUDA events around the
+    window: the wrapper's host work is inside it."""
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -162,6 +205,94 @@ def plain_vs_kernel(plain, kernel):
     pair and the four readings in turn."""
     p1, k1, k2, p2 = time_ms(plain), time_ms(kernel), time_ms(kernel), time_ms(plain)
     return (k1 + k2) / 2, (p1 + p2) / 2, (p1, k1, k2, p2)
+
+
+def device_rows(fn, reps: int):
+    """The profiler's device-side rows (kernels and memsets; an aten op's own
+    row repeats its kernels' time) of a window of ``reps`` calls of ``fn``.
+    Fails if a record is missing: every row must count a multiple of
+    ``reps``."""
+    with profiler_window(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILER_PAD_S)
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(PROFILER_PAD_S)
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    check(sum(e.self_device_time_total for e in rows) > 0, "the profiler saw no device time")
+    short = [f"{e.key[:60]} x{e.count}" for e in rows if e.count % reps]
+    check(not short, f"the profiler lost device records of a window of {reps} calls: {short}")
+    return rows
+
+
+def device_ms(fn) -> float:
+    """Device time of one call: the device-side rows of a window of REPS
+    calls, every launch of the call summed, over REPS."""
+    fn()
+    torch.cuda.synchronize()
+    rows = device_rows(fn, REPS)
+    return sum(e.self_device_time_total for e in rows) / REPS / 1e3
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def geometry_cases(tile: int, stage: int, merge: int, gen: torch.Generator):
+    """Merge-count inputs ``(label, s, t)`` on the card at the edges of B7's
+    and B8's geometry (thresholds per B7 block, entries of s a B7 block stages,
+    merged entries per B8 block); every ``t`` is nondecreasing."""
+    def spaced(n):
+        return torch.cumsum(torch.empty(n, device="cuda").exponential_(generator=gen), 0)
+
+    def ar(n):
+        return torch.arange(n, dtype=torch.float32, device="cuda")
+
+    def lin(lo, hi, n):
+        return torch.linspace(lo, hi, n, device="cuda")
+
+    cases = []
+    for ns, nt in [(tile - 1, tile + 1), (tile + 1, tile - 1), (tile, tile), (1, tile), (tile, 1),
+                   (1, 1), (stage - 1, 7), (stage, 7), (stage + 1, 7), (merge // 2, merge // 2),
+                   (merge // 2, merge // 2 + 1), (merge - 1, 1), (5, merge + 1), (merge, merge),
+                   (merge + 1, 5)]:
+        s = spaced(ns)
+        t = (torch.rand(nt, generator=gen, device="cuda") * s[-1] * 1.05).sort().values
+        cases.append((f"sizes ({ns}, {nt})", s, t))
+    # One B7 tile whose run of s starts at entry 3 and is one short of, exactly
+    # and one past the staging buffer: a few thresholds and a tile of them, s
+    # itself 16-byte aligned (off 0) and not (off 1).
+    base = ar(3 * stage + 8)
+    for run in (stage - 1, stage, stage + 1):
+        for nt in (7, tile - 1, tile, tile + 1):
+            t = lin(2.5, 2.5 + run, nt)
+            t[0], t[-1] = 2.5, 2.5 + run
+            for off in (0, 1):
+                cases.append((f"run of {run} from entry 3, {nt} thresholds, s offset {off}",
+                              base[off:], t + off))
+    cases += [
+        ("ties across tile boundaries", torch.floor(ar(stage + tile + 5) / 37),
+         torch.floor(ar(2 * tile + 3) / 41 * 2)),
+        ("a tile inside one gap of s", ar(stage),
+         torch.cat([lin(7.1, 7.9, tile), lin(9.1, 2000.0, tile)])),
+        ("three thresholds over a long run of s", lin(0.0, 1.0, 2 * stage + 1),
+         torch.tensor([0.01, 0.5, 0.99], device="cuda")),
+        ("thresholds below, above and inf", spaced(tile + 1) + 10.0,
+         torch.cat([torch.ones(tile, device="cuda"), lin(10.0, 500.0, tile),
+                    torch.full((tile,), 1e9, device="cuda"),
+                    torch.full((3,), math.inf, device="cuda")])),
+    ]
+    s = spaced(merge + 1)
+    cases.append(("every threshold one value", s, torch.full((tile + 1,), float(s[merge // 2]),
+                                                             device="cuda")))
+    # B8 tiles that hold entries of s alone (ni = the whole tile) or thresholds
+    # alone (an empty run of s).
+    for nt in (1, 5, merge):
+        cases.append((f"a merge tile of s alone, then {nt} thresholds", ar(merge), merge + ar(nt)))
+    cases.append(("a merge tile of thresholds alone, then one of s alone",
+                  2 * merge + ar(merge), ar(merge)))
+    cases.append(("every threshold below all of s", merge + ar(5), ar(merge)))
+    return cases
 
 
 def extents_of(anc: torch.Tensor) -> torch.Tensor:
@@ -260,16 +391,33 @@ def main():
     # ---- 2. build
     t0 = time.perf_counter()
     lib_path = _build.build()
-    _build.library()
-    ptxas = [ln.strip() for ln in lib_path.with_suffix(".log").read_text().splitlines()
-             if "registers" in ln or "spill" in ln]
+    lib = _build.library()
     print(f"build: {time.perf_counter() - t0:.2f}s {lib_path.name}", flush=True)
-    for ln in ptxas:
-        print(f"  ptxas {ln}", flush=True)
+    for ln in lib_path.with_suffix(".log").read_text().splitlines():
+        if "Compiling entry function" in ln:
+            mangled = ln.split("'")[1]
+            print(f"  ptxas {mangled[:110]}", flush=True)
+        elif "registers" in ln or "spill" in ln:
+            print(f"  ptxas   {ln.strip()}", flush=True)
+    geometry = [lib.aps_count_le_geometry(i) for i in range(3)]
+    # The CPU tests build their cases around the wrappers' constants.
+    check(geometry == [ops.COUNT_TILE, ops.COUNT_STAGE, ops.MERGE_TILE],
+          f"B7/B8 geometry {geometry} differs from the wrappers' constants")
 
     # ---- 3. kernels vs plain versions on the card, M = N = 1M
     gen = torch.Generator(device="cuda").manual_seed(0)
     err = dict.fromkeys(names, 0.0)
+    edge_cases = geometry_cases(*geometry, gen)
+    for what, s_, t_ in edge_cases:
+        want = ops.count_le_sorted_ref(s_, t_)
+        for fn, t_x, want_x in ((ops.count_le_sorted_bs, t_, want), (ops.count_le_sorted, t_, want),
+                                (ops.count_le_sorted_bs, t_.flip(0).contiguous(), want.flip(0))):
+            got = fn(s_, t_x)
+            err[fn.__name__] = max(err[fn.__name__], max_abs(got, want_x))
+            check(torch.equal(got, want_x), f"{what}: {fn.__name__} differs from its plain version")
+    print(f"B7 and B8 at the edges of their geometry (tile {geometry[0]}, stage {geometry[1]}, "
+          f"merge tile {geometry[2]}): {len(edge_cases)} cases exact, B7 also on each case's "
+          f"thresholds in reverse", flush=True)
     for i, profile in enumerate(["lognormal", "uniform", "single", "survivors20"]):
         logw = profile_logw(profile, gen)
         m = torch.max(logw)
@@ -336,15 +484,27 @@ def main():
             check(max(ulp6.values()) <= 1, f"{profile} n={n}: B6 off by {ulp6} ulps")
             f_s = apt.stratified_extents(rs_key, c, n)
             check(nondecreasing(f_s), f"{profile} n={n}: stratified extents not nondecreasing")
+            edge = torch.tensor([-1.0] * 10 + [3e38] * 10 + [math.inf] * 10, device="cuda")
             cases = [("thresholds", S[:n], thr),
                      ("one value", S[:n], torch.full_like(thr, float(S[n // 2]))),
                      ("one tile", S[:n], torch.linspace(float(S[n // 3]), float(S[n // 3 + 1]),
-                                                        N, device="cuda").sort().values)]
+                                                        N, device="cuda").sort().values),
+                     ("heavy ties", torch.floor(S[:n] / 7) * 7, torch.floor(thr / 7) * 7),
+                     ("ns != nt, unaligned", S[1:n // 3], thr[3:700_000]),
+                     ("below, above, inf", S[:n], torch.cat([edge[:10], thr[:-30], edge[10:]])),
+                     ("one entry", S[:1], thr[:1])]
             for what, s_, t_ in cases:
                 want = ops.count_le_sorted_ref(s_, t_)
                 for fn in (ops.count_le_sorted_bs, ops.count_le_sorted):
                     got = fn(s_, t_)
+                    err[fn.__name__] = max(err[fn.__name__], max_abs(got, want))
                     check(torch.equal(got, want), f"{profile} n={n} {what}: {fn.__name__} differs")
+            # B7 takes any thresholds: unsorted, and NaN (which counts all of s).
+            t_any = thr[torch.randperm(N, generator=gen, device="cuda")]
+            t_any[::1000] = math.nan
+            check(torch.equal(ops.count_le_sorted_bs(S[:n], t_any),
+                              ops.count_le_sorted_ref(S[:n], t_any)),
+                  f"{profile} n={n}: B7 differs on unsorted thresholds with NaN")
             f_m = ops.count_le_sorted_bs(S[:n], thr)
             for f_x in (f_s, f_m):
                 a_x = ops.decode_ancestors(f_x, N, guard=n)
@@ -354,8 +514,9 @@ def main():
         print(f"kernels vs plain [{profile}]: extents ±{int(diff.max())} in {flips:.2e} of "
               f"entries, decode exact, move bitwise (D=1, D=3), guard ok; B4, B5 and the "
               f"windowed B2 exact and bitwise (whole, {K} windows, 3L rows); B6 within "
-              f"{ulp6} ulps and nondecreasing; B7 = B8 = plain (thresholds, one value, "
-              f"one tile)", flush=True)
+              f"{ulp6} ulps and nondecreasing; B7 = B8 = plain "
+              f"(thresholds, one value, one tile, heavy ties, ns != nt unaligned, below/above/"
+              f"inf, one entry); B7 = plain on unsorted thresholds with NaN", flush=True)
     torch.cuda.synchronize()
 
     # ---- 4. the SMC flagship with each fused scheme, through sample
@@ -371,12 +532,15 @@ def main():
         "multinomial": apt.resample_multinomial,
         "multinomial, merge path": apt.resample_multinomial,
     }
-    evidence = {}
+    evidence, ancestors = {}, {}
+    per_sweep, per_pgas_iteration = {}, {}
     for label, fn in schemes.items():
         ops.COUNT_LE_SORTED = "merge" if "merge" in label else "bs"
         sampler = apt.SMC(N, apt.ResampleWithESSThreshold(fn))
         t0 = time.perf_counter()
-        smc, launches = drive(lambda: apt.sample(key, traced, sampler, device="cuda"))
+        # Systematic names no device: the default itself, the card, is driven.
+        where = {} if label == "systematic" else {"device": "cuda"}
+        smc, launches = drive(lambda: apt.sample(key, traced, sampler, **where))
         first_s = time.perf_counter() - t0
         log_z = float(smc.log_evidence)
         n_rs = int(smc.diagnostics["resampled"].sum())
@@ -397,13 +561,24 @@ def main():
         check(torch.equal(a.log_evidence, b.log_evidence), f"{label}: same key, logZ differs")
         check(torch.equal(a.ancestors, b.ancestors), f"{label}: same key, ancestors differ")
         check(torch.equal(a.log_evidence, smc.log_evidence), f"{label}: sweep and sample disagree")
+        check(a.ancestors.is_cuda, f"{label}: the sweep did not run on the card")
         evidence[label] = smc.log_evidence
+        per_sweep[label] = {k: v for k, v in launches.items() if v}
+        if fn is apt.resample_multinomial:
+            # The counts are exact, so the sweep is what the earlier kernels gave.
+            check(f"{abs(log_z - kf_ll):.6f}" == EARLIER_MULTINOMIAL_ERR,
+                  f"{label}: |logZ - kalman| is not the {EARLIER_MULTINOMIAL_ERR} recorded for "
+                  f"the earlier kernel")
+            ancestors[label] = a.ancestors
     # B7 and B8 give the same counts, so the same key gives the same sweep.
-    check(torch.equal(evidence["multinomial"], evidence["multinomial, merge path"]),
+    check(torch.equal(evidence["multinomial"], evidence["multinomial, merge path"])
+          and torch.equal(ancestors["multinomial"], ancestors["multinomial, merge path"]),
           "multinomial: B7 and B8 sweeps differ")
+    del ancestors
     ops.COUNT_LE_SORTED = "bs"
     print("repeat: same key gives bitwise equal logZ and ancestors for every scheme; "
-          "B7 and B8 multinomial sweeps bitwise equal", flush=True)
+          "B7 and B8 multinomial sweeps bitwise equal (logZ and ancestors), at the "
+          "|logZ - kalman| recorded for the earlier kernels", flush=True)
 
     # The systematic flagship under each move version: B4 (1) and B5 (0)
     # launch once per firing in place of B2 + B3 (6), with the same result.
@@ -431,7 +606,8 @@ def main():
     from advancedps_tpu_torch import parallel
     from advancedps_tpu_torch.parallel import sharded as sharded_mod
 
-    mesh = parallel.particle_mesh(K, "cuda")
+    mesh = parallel.particle_mesh(K)  # no device named: K shards on the card
+    check(all(d.type == "cuda" for d in mesh.devices), "particle_mesh(K) is not on the card")
     sharded = {}
     for ex in ("allgather", "neighbor", "auto"):
         mesh.reset_counts()
@@ -530,6 +706,7 @@ def main():
     check(lz_err < 1.0, f"PGAS: final |logZ - kalman| = {lz_err} >= 1")
     check(launches == expected(PER_FIRING["systematic"], iters * (T - 1)),
           f"PGAS: launches {launches}, expected {T - 1} of B1-B3 per iteration")
+    per_pgas_iteration["systematic"] = {k: v // iters for k, v in launches.items() if v}
 
     for label in ("multinomial", "stratified"):
         sampler = apt.PGAS(N, resampler=schemes[label])
@@ -542,6 +719,10 @@ def main():
               f"PGAS {label}: |logZ - kalman| >= 1")
         check(launches == expected(PER_FIRING[label], 2 * (T - 1)),
               f"PGAS {label}: launches {launches}")
+        per_pgas_iteration[label] = {k: v // 2 for k, v in launches.items() if v}
+        if label == "multinomial":
+            check(chain.log_evidence.tolist() == EARLIER_MULTINOMIAL_PGAS_LOGZ,
+                  "PGAS multinomial: logZ is not what the chain on the earlier B7 gave")
 
     st = apt.PGState(last.trajectory[-1])
     k_rd = apt.rng.key(12)
@@ -709,50 +890,113 @@ def main():
     S = ops.prefix_sum(g)
     thr = ops.scaled_prefix_from_logw(logw, m, S[N] / s1)
     s_, one = S[:N], torch.full_like(thr, float(S[N // 2]))
-    timing = {
-        "extents_from_logw": plain_vs_kernel(
-            lambda: ops.extents_from_logw_ref(logw, m, s1, u, N),
-            lambda: ops.extents_from_logw(logw, m, s1, u, N)),
-        "decode_ancestors": plain_vs_kernel(
-            lambda: ops.decode_ancestors_ref(f, N), lambda: ops.decode_ancestors(f, N)),
-        "move_rows": plain_vs_kernel(
-            lambda: ops.resample_move_ref(anc, x), lambda: ops.move_rows(anc, x)),
-        "decode_move": plain_vs_kernel(
-            lambda: ops.decode_move_ref(f, x, N), lambda: ops.decode_move(f, x, N)),
-        "decode_ancestors_dense": plain_vs_kernel(
-            lambda: ops.decode_ancestors_dense_ref(f, N), lambda: ops.decode_ancestors_dense(f, N)),
-        "scaled_prefix_from_logw": plain_vs_kernel(
-            lambda: ops.scaled_prefix_ref(logw, m, scale, True),
-            lambda: ops.scaled_prefix_from_logw(logw, m, scale)),
-        "prefix_sum": plain_vs_kernel(
-            lambda: ops.scaled_prefix_ref(g, None, None, False), lambda: ops.prefix_sum(g)),
-        "count_le_sorted_bs": plain_vs_kernel(
-            lambda: ops.count_le_sorted_ref(s_, thr), lambda: ops.count_le_sorted_bs(s_, thr)),
-        "count_le_sorted": plain_vs_kernel(
-            lambda: ops.count_le_sorted_ref(s_, thr), lambda: ops.count_le_sorted(s_, thr)),
+    # Per kernel: the plain version and the wrapper as functions of the
+    # tensors the kernel must read, the one PyTorch call that computes the
+    # same function (None where there is none: B1 and B6 are a cumsum chain
+    # with an epilogue, B4 a decode and a move; B5 computes B2's function, so
+    # B2's call is its call too), and those tensors.  The library calls' own inputs are made here,
+    # outside the windows.
+    f_guarded = torch.cat([f[:-1], torch.full((1,), N, dtype=f.dtype, device="cuda")])
+    slots = torch.arange(N, dtype=torch.int32, device="cuda")
+
+    def count_library():
+        return torch.searchsorted(s_, thr, right=True, out_int32=True)
+
+    def decode_library():
+        return torch.searchsorted(f_guarded, slots, right=True, out_int32=True)
+
+    measured = {
+        "extents_from_logw": (
+            lambda lw: ops.extents_from_logw_ref(lw, m, s1, u, N),
+            lambda lw: ops.extents_from_logw(lw, m, s1, u, N), None, (logw,)),
+        "decode_ancestors": (
+            lambda f_: ops.decode_ancestors_ref(f_, N), lambda f_: ops.decode_ancestors(f_, N),
+            decode_library, (f,)),
+        "move_rows": (
+            ops.resample_move_ref, ops.move_rows, lambda: x.index_select(0, anc), (anc, x)),
+        "decode_move": (
+            lambda f_, v: ops.decode_move_ref(f_, v, N), lambda f_, v: ops.decode_move(f_, v, N),
+            None, (f, x)),
+        "decode_ancestors_dense": (
+            lambda f_: ops.decode_ancestors_dense_ref(f_, N),
+            lambda f_: ops.decode_ancestors_dense(f_, N), decode_library, (f,)),
+        "scaled_prefix_from_logw": (
+            lambda lw: ops.scaled_prefix_ref(lw, m, scale, True),
+            lambda lw: ops.scaled_prefix_from_logw(lw, m, scale), None, (logw,)),
+        "prefix_sum": (
+            lambda g_: ops.scaled_prefix_ref(g_, None, None, False), ops.prefix_sum, None, (g,)),
+        "count_le_sorted_bs": (
+            ops.count_le_sorted_ref, ops.count_le_sorted_bs, count_library, (s_, thr)),
+        "count_le_sorted": (
+            ops.count_le_sorted_ref, ops.count_le_sorted, count_library, (s_, thr)),
     }
 
     def turns(readings):
         return ", ".join(f"{r:.4f}" for r in readings)
 
-    for name, (k_ms, p_ms, readings) in timing.items():
-        print(f"kernel {name} at 1M: {k_ms:.4f} ms, plain {p_ms:.4f} ms "
-              f"(plain, kernel, kernel, plain: {turns(readings)}) {tag}", flush=True)
-    k_ms, p_ms, readings = plain_vs_kernel(
-        lambda: ops.decode_ancestors_ref(f, L, guard=N, start=2 * L),
-        lambda: ops.decode_ancestors(f, L, guard=N, start=2 * L))
-    print(f"kernel decode_ancestors at 1M, window of L={L}: {k_ms:.4f} ms, plain {p_ms:.4f} ms "
-          f"({turns(readings)}) {tag}", flush=True)
-    k_ms, p_ms, readings = plain_vs_kernel(
-        lambda: ops.decode_move_ref(f, x, L, guard=N, start=2 * L),
-        lambda: ops.decode_move(f, x, L, guard=N, start=2 * L))
-    print(f"kernel decode_move at 1M, window of L={L}: {k_ms:.4f} ms, plain {p_ms:.4f} ms "
-          f"({turns(readings)}) {tag}", flush=True)
-    for fn in (ops.count_le_sorted_bs, ops.count_le_sorted):
-        k_ms, p_ms, readings = plain_vs_kernel(lambda: ops.count_le_sorted_ref(s_, one),
-                                               lambda: fn(s_, one))
-        print(f"kernel {fn.__name__} at 1M, every threshold one value: {k_ms:.4f} ms, "
-              f"plain {p_ms:.4f} ms ({turns(readings)}) {tag}", flush=True)
+    timing = {}
+    for name, (plain, kernel_fn, library, inputs) in measured.items():
+        call_ms, plain_call_ms, readings = plain_vs_kernel(lambda: plain(*inputs),
+                                                           lambda: kernel_fn(*inputs))
+        outputs = kernel_fn(*inputs)
+        moved = nbytes(*inputs) + nbytes(*(outputs if isinstance(outputs, tuple) else (outputs,)))
+        # The same call on copies of its inputs taken in turn, 128 MB of them:
+        # by the time a copy comes round again the 50 MB L2 has lost it.
+        copies = [tuple(a.clone() for a in inputs) for _ in range(-(-COLD_BYTES // moved))]
+        turn = iter(range(10 ** 9))
+        row = {
+            "device_ms": device_ms(lambda: kernel_fn(*inputs)),
+            "cold_device_ms": device_ms(lambda: kernel_fn(*copies[next(turn) % len(copies)])),
+            "plain_ms": device_ms(lambda: plain(*inputs)),
+            "library_ms": device_ms(library) if library is not None else None,
+            "call_ms": call_ms, "plain_call_ms": plain_call_ms,
+            "bytes": moved, "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
+        }
+        del copies
+        row["bound_share"] = row["bound_ms"] / row["device_ms"]
+        row["cold_bound_share"] = row["bound_ms"] / row["cold_device_ms"]
+        row["l2_bound_ms"] = moved / L2_BYTES_PER_S * 1e3
+        timing[name] = row
+        lib_txt = "no single call" if library is None else f"{row['library_ms']:.5f} ms"
+        print(f"kernel {name} at 1M: device {row['device_ms']:.5f} ms L2-warm, "
+              f"{row['cold_device_ms']:.5f} ms L2-cold, plain {row['plain_ms']:.5f} ms, library "
+              f"{lib_txt}; bound {row['bound_ms']:.5f} ms ({moved} bytes at 3.35 TB/s), share "
+              f"{row['bound_share']:.4f} warm, {row['cold_bound_share']:.4f} cold; per call by "
+              f"events, host included: {call_ms:.4f} ms, plain {plain_call_ms:.4f} ms (plain, "
+              f"kernel, kernel, plain: {turns(readings)}) {tag}", flush=True)
+        # From device memory nothing moves faster than the bound; from the L2
+        # nothing faster than the L2's ceiling.
+        check(row["cold_bound_share"] <= 1.0, f"{name}: L2-cold device time "
+              f"{row['cold_device_ms']} ms below its bound {row['bound_ms']} ms")
+        check(row["device_ms"] >= row["l2_bound_ms"], f"{name}: L2-warm device time "
+              f"{row['device_ms']} ms below the L2's ceiling {row['l2_bound_ms']} ms")
+        if row["bound_share"] > 1.0:
+            print(f"  note: {name} L2-warm is faster than the device memory allows "
+                  f"(share {row['bound_share']:.4f}): its tensors never left the L2", flush=True)
+    for what, plain, kernel_fn in (
+            (f"decode_ancestors at 1M, window of L={L}",
+             lambda: ops.decode_ancestors_ref(f, L, guard=N, start=2 * L),
+             lambda: ops.decode_ancestors(f, L, guard=N, start=2 * L)),
+            (f"decode_move at 1M, window of L={L}",
+             lambda: ops.decode_move_ref(f, x, L, guard=N, start=2 * L),
+             lambda: ops.decode_move(f, x, L, guard=N, start=2 * L))):
+        k_ms, p_ms, readings = plain_vs_kernel(plain, kernel_fn)
+        print(f"kernel {what}: device {device_ms(kernel_fn):.5f} ms, plain "
+              f"{device_ms(plain):.5f} ms; per call by events {k_ms:.4f} ms, plain {p_ms:.4f} ms "
+              f"({turns(readings)}) {tag}", flush=True)
+    # B7 and B8 beside the library call, device time in one window each: the
+    # sweep's thresholds, every threshold one value, and (B7 only) the
+    # thresholds in random order.
+    shuffled = thr[torch.randperm(N, generator=gen, device="cuda")]
+    count_kernels = (
+        ("B7", ops.count_le_sorted_bs), ("B8", ops.count_le_sorted),
+        ("searchsorted", lambda a, b: torch.searchsorted(a, b, right=True, out_int32=True)))
+    for what, t_ in (("the sweep's thresholds", thr), ("every threshold one value", one),
+                     ("unsorted thresholds", shuffled)):
+        got = ", ".join(f"{label} {device_ms(lambda: fn(s_, t_)):.5f}"
+                        for label, fn in count_kernels
+                        if not ("B8" in label and t_ is shuffled))
+        print(f"merge-count at 1M, {what}, device ms: {got} {tag}", flush=True)
     # One firing's extents as the sweep builds them, host clock to the end of
     # the device work: what each scheme adds before B2/B3.
     for label in ("systematic", "stratified", "multinomial"):
@@ -767,15 +1011,14 @@ def main():
         print(f"extents of one firing [{label}] at 1M: "
               f"{(time.perf_counter() - t0) / REPS * 1e3:.4f} ms (host clock) {tag}", flush=True)
 
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     def profiled(what, fn, reads):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profiler_window(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILER_PAD_S)
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
+            time.sleep(PROFILER_PAD_S)
         events = prof.key_averages()
         # Only device-side rows: an aten op's row repeats its kernels' device time.
         kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA),
@@ -810,7 +1053,10 @@ def main():
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
          "launches": main_launches[name], "max_abs_err": err[name],
-         "ms": timing[name][0], "plain_ms": timing[name][1]}
+         "ms": timing[name]["device_ms"], **timing[name], "bound_by": "bytes",
+         "launches_per_sweep": {k: v[name] for k, v in per_sweep.items() if name in v},
+         "launches_per_pgas_iteration": {k: v[name] for k, v in per_pgas_iteration.items()
+                                         if name in v}}
         for name in names
     ]}
     for k in record["kernels"]:

@@ -7,6 +7,7 @@ against the RTS smoother.
 Same key words, JAX-simulated observations, small sizes.
 """
 
+import functools
 import math
 
 import numpy as np
@@ -22,6 +23,13 @@ from advancedps_tpu.engine import SweepKernel as JSweepKernel  # noqa: E402
 from advancedps_tpu.engine import inject_ref as jinject_ref  # noqa: E402
 from advancedps_tpu.utils.trees import pytree_dataclass  # noqa: E402
 import advancedps_tpu_torch as apt  # noqa: E402
+
+# The port runs on the GPU unless the caller asks for the CPU: every call of an
+# entry point in this file names device="cpu", through these partials.
+cpu_sweep = functools.partial(apt.sweep, device="cpu")
+cpu_sample = functools.partial(apt.sample, device="cpu")
+cpu_step_pg = functools.partial(apt.step_pg, device="cpu")
+cpu_traced_ssm = functools.partial(apt.traced_ssm_from_numpy, device="cpu")
 
 A, Q, R = 0.9, 0.32, 1.0
 SIGMA0 = math.sqrt(Q * Q / (1 - A * A))
@@ -40,7 +48,7 @@ def _ys(seed, steps):
 
 
 def _traced(seed=0, steps=6):
-    return apt.traced_ssm_from_numpy(PARAMS, _ys(seed, steps))
+    return cpu_traced_ssm(PARAMS, _ys(seed, steps))
 
 
 def test_kalman_smoother_matches_jax():
@@ -74,7 +82,7 @@ def test_conditional_sweep_matches_jax_until_the_first_boundary_flip(ancestor_sa
                                                         jnp.asarray(ys))),
                    n, sampler_j.resampler, ref=jnp.asarray(ref),
                    ancestor_sampling=ancestor_sampling)
-    tr = apt.sweep(_port_key(key), apt.SSMKernel(apt.traced_ssm_from_numpy(PARAMS, ys)), n,
+    tr = cpu_sweep(_port_key(key), apt.SSMKernel(cpu_traced_ssm(PARAMS, ys)), n,
                    sampler_t.resampler, ref=torch.as_tensor(ref),
                    ancestor_sampling=ancestor_sampling)
     j_anc, t_anc = np.asarray(jr.ancestors), tr.ancestors.numpy()
@@ -103,15 +111,15 @@ def test_replay_storage_matches_dense(sampler_cls):
     # to float reordering (one-element against N-element elementwise kernels).
     traced = _traced(seed=3)
     key = apt.rng.key(9)
-    dense = apt.sample(key, traced, sampler_cls(12), 8)
-    repl = apt.sample(key, traced, sampler_cls(12), 8, trajectory_storage="replay")
+    dense = cpu_sample(key, traced, sampler_cls(12), 8)
+    repl = cpu_sample(key, traced, sampler_cls(12), 8, trajectory_storage="replay")
     np.testing.assert_allclose(dense.trajectory.numpy(), repl.trajectory.numpy(), rtol=0,
                                atol=1e-5)
     assert torch.equal(dense.log_evidence, repl.log_evidence)
     # And one conditional iteration at a larger N.
     st = apt.PGState(dense.trajectory[-1])
-    d, d_st = apt.step_pg(apt.rng.key(4), traced, sampler_cls(2048), st, "dense")
-    r, r_st = apt.step_pg(apt.rng.key(4), traced, sampler_cls(2048), st, "replay")
+    d, d_st = cpu_step_pg(apt.rng.key(4), traced, sampler_cls(2048), st, "dense")
+    r, r_st = cpu_step_pg(apt.rng.key(4), traced, sampler_cls(2048), st, "replay")
     np.testing.assert_allclose(d.trajectory.numpy(), r.trajectory.numpy(), rtol=0, atol=1e-5)
     assert torch.equal(d.log_evidence, r.log_evidence)
     assert d_st.trajectory is d.trajectory and d.trajectory.shape == (6,)
@@ -120,12 +128,12 @@ def test_replay_storage_matches_dense(sampler_cls):
 @pytest.mark.parametrize("sampler_cls", [apt.PG, apt.PGAS])
 def test_seeded_determinism(sampler_cls):
     traced = _traced(seed=0, steps=6)
-    c1 = apt.sample(apt.rng.key(7), traced, sampler_cls(10), 10)
-    c2 = apt.sample(apt.rng.key(7), traced, sampler_cls(10), 10)
+    c1 = cpu_sample(apt.rng.key(7), traced, sampler_cls(10), 10)
+    c2 = cpu_sample(apt.rng.key(7), traced, sampler_cls(10), 10)
     assert torch.equal(c1.trajectory, c2.trajectory)
     assert torch.equal(c1.log_evidence, c2.log_evidence)
     assert c1.trajectory.shape == (10, 6) and c1.log_evidence.shape == (10,)
-    c3 = apt.sample(apt.rng.key(8), traced, sampler_cls(10), 10)
+    c3 = cpu_sample(apt.rng.key(8), traced, sampler_cls(10), 10)
     assert not torch.equal(c1.trajectory, c3.trajectory)
 
 
@@ -188,7 +196,7 @@ def test_pgas_ancestor_update_whitebox(scheme):
     # As test_pg_pgas.py:86-104, through each scheme: the ancestor weights
     # are [-inf, 0, -inf, -inf], so the reference slot's ancestor is slot 1 at
     # every step, and so is every other slot's.
-    res = apt.sweep(apt.rng.key(0), _CtrlKernel(4), 4,
+    res = cpu_sweep(apt.rng.key(0), _CtrlKernel(4), 4,
                     apt.ResampleWithESSThreshold(scheme, float("inf")),
                     ref=torch.full((3,), 99.0), ancestor_sampling=True)
     assert (res.ancestors[1:] == 1).all()
@@ -201,7 +209,7 @@ def test_pgas_ancestor_update_whitebox(scheme):
 
 @pytest.mark.parametrize("scheme", SCHEMES, ids=lambda f: f.__name__)
 def test_pg_reference_ancestor_is_fixed_without_ancestor_sampling(scheme):
-    res = apt.sweep(apt.rng.key(0), _CtrlKernel(4), 4,
+    res = cpu_sweep(apt.rng.key(0), _CtrlKernel(4), 4,
                     apt.ResampleWithESSThreshold(scheme, float("inf")),
                     ref=torch.zeros(3), ancestor_sampling=False)
     assert (res.ancestors[:, -1] == 3).all()
@@ -212,7 +220,7 @@ def test_pg_reference_ancestor_is_fixed_without_ancestor_sampling(scheme):
 def test_single_particle_pg_replays(scheme):
     # PG with one particle returns the same trajectory and log-evidence every
     # iteration: no position is drawn, the reference fills the only slot.
-    chain = apt.sample(apt.rng.key(0), _traced(steps=5), apt.PG(1, scheme, 1.0), 3)
+    chain = cpu_sample(apt.rng.key(0), _traced(steps=5), apt.PG(1, scheme, 1.0), 3)
     t = chain.trajectory
     assert torch.equal(t[0], t[1]) and torch.equal(t[1], t[2])
     assert float(chain.log_evidence[0]) == float(chain.log_evidence[2])
@@ -237,18 +245,18 @@ def test_pgas_constructor_default_always_resamples():
 def test_pg_errors():
     traced = _traced(steps=4)
     with pytest.raises(ValueError, match="n_iterations"):
-        apt.sample(apt.rng.key(0), traced, apt.PG(8))
+        cpu_sample(apt.rng.key(0), traced, apt.PG(8))
     with pytest.raises(ValueError, match="trajectory_storage"):
-        apt.step_pg(apt.rng.key(0), traced, apt.PG(8), trajectory_storage="sparse")
+        cpu_step_pg(apt.rng.key(0), traced, apt.PG(8), trajectory_storage="sparse")
     with pytest.raises(ValueError, match="reference"):
-        apt.sweep(apt.rng.key(0), apt.SSMKernel(traced), 8, apt.PG(8).resampler,
+        cpu_sweep(apt.rng.key(0), apt.SSMKernel(traced), 8, apt.PG(8).resampler,
                   ancestor_sampling=True)
 
     class NoDensity(_CtrlKernel):
         transition_logprob = apt.SweepKernel.transition_logprob
 
     with pytest.raises(NotImplementedError, match="transition densities"):
-        apt.sweep(apt.rng.key(0), NoDensity(4), 4, apt.PGAS(4).resampler,
+        cpu_sweep(apt.rng.key(0), NoDensity(4), 4, apt.PGAS(4).resampler,
                   ref=torch.zeros(3), ancestor_sampling=True)
 
 
@@ -260,10 +268,10 @@ def test_pgas_posterior_mean_matches_rts(scheme):
     # bench_pgas.py:103-111 (chain means, floored at sd/sqrt(iterates)).
     steps, n, chains, iters, warm = 15, 256, 4, 25, 5
     ys = _ys(2, steps)
-    traced = apt.traced_ssm_from_numpy(PARAMS, ys)
+    traced = cpu_traced_ssm(PARAMS, ys)
     sm = apt.utils.kalman_smoother(ys, A, 0.0, Q, 1.0, R, 0.0, SIGMA0)
     cm = torch.stack([
-        apt.sample(apt.rng.fold_in(apt.rng.key(9), c), traced, apt.PGAS(n, scheme, 1.0),
+        cpu_sample(apt.rng.fold_in(apt.rng.key(9), c), traced, apt.PGAS(n, scheme, 1.0),
                    iters).trajectory[warm:].double().mean(0)
         for c in range(chains)
     ])

@@ -7,6 +7,7 @@ sweep against the Kalman evidence.
 Same key words, numpy inputs, small sizes.
 """
 
+import functools
 import math
 
 import numpy as np
@@ -25,6 +26,13 @@ import advancedps_tpu_torch as apt  # noqa: E402
 from advancedps_tpu_torch import engine as tengine  # noqa: E402
 from advancedps_tpu_torch import resampling as tres  # noqa: E402
 from advancedps_tpu_torch.ops import resample as ops  # noqa: E402
+
+# The port runs on the GPU unless the caller asks for the CPU: every call of an
+# entry point in this file names device="cpu", through these partials.
+cpu_sweep = functools.partial(apt.sweep, device="cpu")
+cpu_sample = functools.partial(apt.sample, device="cpu")
+cpu_traced_ssm = functools.partial(apt.traced_ssm_from_numpy, device="cpu")
+cpu_spacings = functools.partial(tres.multinomial_spacings, device="cpu")
 
 A, Q, R = 0.9, 0.32, 1.0
 SIGMA0 = math.sqrt(Q * Q / (1 - A * A))
@@ -160,7 +168,7 @@ def test_fused_step_matches_pallas(scheme, profile, guarded):
 def test_multinomial_spacings_match_jax():
     key = jax.random.key(4)
     want = np.asarray(jres.multinomial_spacings(key, 5000))
-    got = tres.multinomial_spacings(_port_key(key), 5000).numpy()
+    got = cpu_spacings(_port_key(key), 5000).numpy()
     assert got.shape == (5001,) and np.isfinite(got).all() and (got >= 0).all()
     # −log1p(−u) of bitwise-equal uniforms: log1p differs by an ulp across
     # backends.
@@ -192,7 +200,7 @@ def test_sweep_with_each_scheme_matches_kalman(scheme):
     ys = _ys(7, 25)
     kf = apt.utils.kalman_filter(ys, A, 0.0, Q, 1.0, R, 0.0, SIGMA0)
     sampler = apt.SMC(2000, apt.ResampleWithESSThreshold(getattr(tres, f"resample_{scheme}")))
-    out = apt.sample(_port_key(jax.random.fold_in(key, 1)), apt.traced_ssm_from_numpy(PARAMS, ys),
+    out = cpu_sample(_port_key(jax.random.fold_in(key, 1)), cpu_traced_ssm(PARAMS, ys),
                      sampler)
     assert abs(float(out.log_evidence) - float(kf.log_likelihood)) < 0.5
     assert out.diagnostics["resampled"].any()
@@ -212,7 +220,7 @@ def test_sweep_matches_jax_until_the_first_boundary_flip(scheme):
     jr = aps.sweep(key, aps.SSMKernel(ssm=aps.TracedSSM(aps.models.stationary_lgssm(A, Q, R),
                                                         jnp.asarray(ys))),
                    n, jres.ResampleWithESSThreshold(resampler))
-    tr = apt.sweep(_port_key(key), apt.SSMKernel(apt.traced_ssm_from_numpy(PARAMS, ys)), n,
+    tr = cpu_sweep(_port_key(key), apt.SSMKernel(cpu_traced_ssm(PARAMS, ys)), n,
                    apt.ResampleWithESSThreshold(getattr(tres, f"resample_{scheme}")))
     j_anc, t_anc = np.asarray(jr.ancestors), tr.ancestors.numpy()
     flips = (j_anc != t_anc).sum(axis=1)

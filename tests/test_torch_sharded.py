@@ -10,6 +10,7 @@ a stratum boundary; the contract held is the JAX package's (ancestors > 0.99,
 logZ to 0.05).
 """
 
+import functools
 import math
 
 import numpy as np
@@ -39,6 +40,15 @@ from advancedps_tpu_torch.parallel import (  # noqa: E402
 )
 from advancedps_tpu_torch.parallel import mesh as pmesh  # noqa: E402
 
+# The port runs on the GPU unless the caller asks for the CPU: every call of an
+# entry point in this file names device="cpu", through these partials.
+cpu_sweep = functools.partial(apt.sweep, device="cpu")
+cpu_sample = functools.partial(apt.sample, device="cpu")
+cpu_sample_smc = functools.partial(apt.sample_smc, device="cpu")
+cpu_traced_ssm = functools.partial(apt.traced_ssm_from_numpy, device="cpu")
+cpu_sample_chains = functools.partial(sample_chains, device="cpu")
+cpu_smc_ensemble = functools.partial(smc_ensemble, device="cpu")
+
 N = 64
 T = 12
 A, Q = 0.9, 0.32
@@ -58,7 +68,7 @@ def _ys(r, steps=T, seed=0):
 def _kernel(ys, r):
     sigma0 = math.sqrt(Q * Q / (1 - A * A))
     params = dict(mu=0.0, sigma0=sigma0, a=A, b=0.0, q=Q, h=1.0, r=r)
-    return apt.SSMKernel(apt.traced_ssm_from_numpy(params, ys))
+    return apt.SSMKernel(cpu_traced_ssm(params, ys))
 
 
 @pytest.fixture(scope="module")
@@ -92,7 +102,7 @@ def _assert_identical(a, b):
 @pytest.mark.parametrize("resampler", SCHEMES)
 def test_sharded_matches_single_chip(setup, mesh, resampler):
     key = apt.rng.key(42)
-    single = apt.sweep(key, setup, N, _gated(resampler))
+    single = cpu_sweep(key, setup, N, _gated(resampler))
     _assert_equivalent(single, sharded_sweep(key, setup, N, _gated(resampler), mesh))
 
 
@@ -100,7 +110,7 @@ def test_vectorized_models_bit_exact(mesh):
     r = 0.5
     ys = _ys(r)
     kernel = _kernel(ys, r)
-    single = apt.sweep(apt.rng.key(2), kernel, 512, _gated())
+    single = cpu_sweep(apt.rng.key(2), kernel, 512, _gated())
     sharded = sharded_sweep(apt.rng.key(2), kernel, 512, _gated(), mesh)
     _assert_equivalent(single, sharded)
     assert torch.equal(single.ancestors, sharded.ancestors)
@@ -113,7 +123,7 @@ def test_vectorized_models_bit_exact(mesh):
 def test_sharded_longer_horizon(mesh):
     kernel = _kernel(_ys(1.0, 50), 1.0)
     key = apt.rng.key(1)
-    single = apt.sweep(key, kernel, 512, _gated())
+    single = cpu_sweep(key, kernel, 512, _gated())
     sharded = sharded_sweep(key, kernel, 512, _gated(), mesh)
     np.testing.assert_allclose(float(single.log_evidence), float(sharded.log_evidence), atol=0.1)
 
@@ -135,7 +145,7 @@ def test_sharded_conditional_sweep_with_ancestor_sampling(setup, mesh):
     key = apt.rng.key(3)
     ref = torch.linspace(-0.5, 0.5, T)
     always = _gated(threshold=1.0)
-    single = apt.sweep(key, setup, N, always, ref=ref, ancestor_sampling=True)
+    single = cpu_sweep(key, setup, N, always, ref=ref, ancestor_sampling=True)
     sharded = sharded_sweep(key, setup, N, always, mesh, ref=ref, ancestor_sampling=True)
     _assert_equivalent(single, sharded)
     # The reference slot reads the retained trajectory, on the last shard.
@@ -152,7 +162,7 @@ def test_sharded_conditional_sweep_with_ancestor_sampling(setup, mesh):
 def test_sharded_store_states_false(setup, mesh):
     res = sharded_sweep(apt.rng.key(1), setup, N, _gated(), mesh, store_states=False)
     assert res.states is None
-    single = apt.sweep(apt.rng.key(1), setup, N, _gated(), store_states=False)
+    single = cpu_sweep(apt.rng.key(1), setup, N, _gated(), store_states=False)
     np.testing.assert_allclose(float(single.log_evidence), float(res.log_evidence), atol=0.05)
 
 
@@ -171,7 +181,7 @@ class TestChainParticleMesh:
 
     def test_matches_vmap_chains_and_deterministic(self):
         kernel = self._setup()
-        cmesh = chain_particle_mesh(2, 4)
+        cmesh = chain_particle_mesh(2, 4, "cpu")
         sampler = apt.PGAS(16)
         key = apt.rng.key(7)
         trajs, lzs = sharded_chains_pg(key, kernel, sampler, cmesh, 4, 5)
@@ -181,12 +191,12 @@ class TestChainParticleMesh:
         assert torch.equal(trajs, trajs2)
         assert not np.allclose(trajs[0], trajs[1]) and not np.allclose(trajs[1], trajs[2])
         # The single-device chains draw the same randomness.
-        ref = sample_chains(key, kernel.ssm, sampler, 5, 4)
+        ref = cpu_sample_chains(key, kernel.ssm, sampler, 5, 4)
         np.testing.assert_allclose(trajs.numpy(), ref.trajectory.numpy(), atol=1e-4)
 
     def test_chain_counts_validated(self):
         kernel = self._setup()
-        cmesh = chain_particle_mesh(2, 4)
+        cmesh = chain_particle_mesh(2, 4, "cpu")
         assert cmesh.shape == {"c": 2, "p": 4}
         with pytest.raises(ValueError, match="n_chains"):
             sharded_chains_pg(apt.rng.key(0), kernel, apt.PG(16), cmesh, 3, 2)
@@ -213,7 +223,7 @@ class TestNeighborExchange:
 
     def test_matches_single_chip(self, setup, mesh):
         key = apt.rng.key(11)
-        _assert_equivalent(apt.sweep(key, setup, N, _gated()),
+        _assert_equivalent(cpu_sweep(key, setup, N, _gated()),
                            self._sweep(setup, key, mesh, exchange="auto"))
 
     def test_auto_falls_back_on_heavy_skew(self, mesh):
@@ -271,7 +281,7 @@ class TestNeighborExchange:
 
     def test_chains_driver_rejects_neighbor_exchange(self, setup):
         with pytest.raises(ValueError, match="allgather"):
-            sharded_chains_pg(apt.rng.key(0), setup, apt.PG(16), chain_particle_mesh(2, 4),
+            sharded_chains_pg(apt.rng.key(0), setup, apt.PG(16), chain_particle_mesh(2, 4, "cpu"),
                               2, 2, exchange="auto")
 
     def test_sharded_pg_replay_matches_dense(self, setup, mesh):
@@ -292,7 +302,7 @@ def test_sharded_sample_smc_matches_single_chip(mesh):
     ys = _ys(1.0)
     kernel = _kernel(ys, 1.0)
     key = apt.rng.key(4)
-    single = apt.sample_smc(key, kernel.ssm, apt.SMC(256))
+    single = cpu_sample_smc(key, kernel.ssm, apt.SMC(256))
     sharded = sharded_sample_smc(key, kernel, apt.SMC(256), mesh)
     close = np.isclose(single.trajectories.numpy(), sharded.trajectories.numpy(), atol=1e-5)
     assert close.mean() > 0.95
@@ -308,7 +318,7 @@ def test_sharded_sample_pg_matches_single_device(setup, mesh):
     # at this size the sharded chain is the single-device one.
     key = apt.rng.key(8)
     for storage in ("dense", "replay"):
-        single = apt.sample(key, setup.ssm, apt.PGAS(N), 4, trajectory_storage=storage)
+        single = cpu_sample(key, setup.ssm, apt.PGAS(N), 4, trajectory_storage=storage)
         sharded = sharded_sample_pg(key, setup, apt.PGAS(N), mesh, 4,
                                     trajectory_storage=storage)
         assert sharded.trajectory.shape == (4, T)
@@ -327,7 +337,7 @@ def test_engine_move_versions_bitwise_equal(setup, monkeypatch, conditional):
     runs = {}
     for version in (6, 1, 0):
         monkeypatch.setattr(ops, "MOVE_VERSION", version)
-        runs[version] = apt.sweep(apt.rng.key(13), setup, 512, _gated(threshold=0.9), ref=ref,
+        runs[version] = cpu_sweep(apt.rng.key(13), setup, 512, _gated(threshold=0.9), ref=ref,
                                   ancestor_sampling=conditional)
     assert bool(runs[6].resampled.any())
     _assert_identical(runs[6], runs[1])
@@ -363,7 +373,7 @@ def test_port_sharded_sweep_matches_jax():
                                               jnp.asarray(ys)))
     jres = jsharded_sweep(key, jkernel, n, aps.SMC(n).resampler, jparticle_mesh(8))
     tres = sharded_sweep(_port_key(key), _kernel(ys, r), n, apt.SMC(n).resampler,
-                         particle_mesh(8))
+                         particle_mesh(8, "cpu"))
     j_anc, t_anc = np.asarray(jres.ancestors), tres.ancestors.numpy()
     flips = (j_anc != t_anc).sum(axis=1)
     first = int(np.argmax(flips > 0)) if flips.any() else steps
@@ -400,7 +410,7 @@ def test_mesh_collectives_and_counts():
     with pytest.raises(ValueError, match="divisible"):
         shard_along(mesh, torch.zeros(6))
     with pytest.raises(ValueError):
-        particle_mesh(0)
+        particle_mesh(0, "cpu")
     two = particle_mesh(2, ["cpu", "cpu"])
     assert two.devices == (torch.device("cpu"),) * 2
 
@@ -408,13 +418,13 @@ def test_mesh_collectives_and_counts():
 def test_ensembles_are_independent_runs(setup):
     traced = setup.ssm
     key = apt.rng.key(9)
-    ens = smc_ensemble(key, traced, apt.SMC(128), 3)
+    ens = cpu_smc_ensemble(key, traced, apt.SMC(128), 3)
     assert ens.log_evidence.shape == (3,) and ens.trajectories.shape == (3, T, 128)
     assert ens.diagnostics["resampled"].shape == (3, T)
-    one = apt.sample_smc(apt.rng.fold_in(key, 1), traced, apt.SMC(128))
+    one = cpu_sample_smc(apt.rng.fold_in(key, 1), traced, apt.SMC(128))
     assert torch.equal(ens.log_evidence[1], one.log_evidence)
-    chains = sample_chains(key, traced, apt.PG(16), 3, 2, trajectory_storage="replay")
+    chains = cpu_sample_chains(key, traced, apt.PG(16), 3, 2, trajectory_storage="replay")
     assert chains.trajectory.shape == (2, 3, T) and chains.log_evidence.shape == (2, 3)
-    first = apt.sample(apt.rng.fold_in(key, 0), traced, apt.PG(16), 3,
+    first = cpu_sample(apt.rng.fold_in(key, 0), traced, apt.PG(16), 3,
                        trajectory_storage="replay")
     assert torch.equal(chains.trajectory[0], first.trajectory)

@@ -3,6 +3,7 @@
 Same key words, same JAX-simulated observations, small sizes.
 """
 
+import functools
 import math
 
 import numpy as np
@@ -18,6 +19,13 @@ from advancedps_tpu import rng as jrng  # noqa: E402
 from advancedps_tpu.engine import lineages as jlineages  # noqa: E402
 from advancedps_tpu.engine import reconstruct as jreconstruct  # noqa: E402
 import advancedps_tpu_torch as apt  # noqa: E402
+
+# The port runs on the GPU unless the caller asks for the CPU: every call of an
+# entry point in this file names device="cpu", through these partials.
+cpu_sweep = functools.partial(apt.sweep, device="cpu")
+cpu_sample = functools.partial(apt.sample, device="cpu")
+cpu_sample_smc = functools.partial(apt.sample_smc, device="cpu")
+cpu_traced_ssm = functools.partial(apt.traced_ssm_from_numpy, device="cpu")
 
 A, Q, R = 0.9, 0.32, 1.0
 SIGMA0 = math.sqrt(Q * Q / (1 - A * A))
@@ -57,7 +65,7 @@ def test_normal_log_prob_matches_jax():
 def test_ssm_kernel_init_and_steps_match_jax():
     ys = _ys(3)
     jkern = aps.SSMKernel(ssm=aps.TracedSSM(aps.models.stationary_lgssm(A, Q, R), jnp.asarray(ys)))
-    tkern = apt.SSMKernel(apt.traced_ssm_from_numpy(PARAMS, ys))
+    tkern = apt.SSMKernel(cpu_traced_ssm(PARAMS, ys))
     key = jax.random.key(17)
     gids = np.arange(N)
     j_rng = jrng.StepRng(key=jrng.step_key(key, jrng.INIT, 0), gids=jnp.asarray(gids))
@@ -96,7 +104,7 @@ def _both_sweeps(seed, n=N):
     jres = aps.sweep(key, aps.SSMKernel(ssm=aps.TracedSSM(aps.models.stationary_lgssm(A, Q, R),
                                                           jnp.asarray(ys))),
                      n, aps.SMC(n).resampler)
-    tres = apt.sweep(_port_key(key), apt.SSMKernel(apt.traced_ssm_from_numpy(PARAMS, ys)),
+    tres = cpu_sweep(_port_key(key), apt.SSMKernel(cpu_traced_ssm(PARAMS, ys)),
                      n, apt.SMC(n).resampler)
     return ys, jres, tres
 
@@ -127,7 +135,7 @@ def test_sample_smc_matches_jax(seed):
     key = jax.random.key(100 + seed)
     js = aps.sample_smc(key, aps.TracedSSM(aps.models.stationary_lgssm(A, Q, R), jnp.asarray(ys)),
                         aps.SMC(N), store_states=False)
-    ts = apt.sample_smc(_port_key(key), apt.traced_ssm_from_numpy(PARAMS, ys), apt.SMC(N),
+    ts = cpu_sample_smc(_port_key(key), cpu_traced_ssm(PARAMS, ys), apt.SMC(N),
                         store_states=False)
     # After the first boundary flip (see above) the clouds differ in the
     # flipped lineages, and all randomness being positional, the remaining
@@ -147,21 +155,21 @@ def test_sample_smc_matches_jax(seed):
 
 
 def test_sweep_same_key_is_bitwise_repeatable():
-    tr = apt.traced_ssm_from_numpy(PARAMS, _ys(4))
+    tr = cpu_traced_ssm(PARAMS, _ys(4))
     key = apt.rng.key(9)
-    a = apt.sweep(key, apt.SSMKernel(tr), 2048, apt.SMC(2048).resampler)
-    b = apt.sweep(key, apt.SSMKernel(tr), 2048, apt.SMC(2048).resampler)
+    a = cpu_sweep(key, apt.SSMKernel(tr), 2048, apt.SMC(2048).resampler)
+    b = cpu_sweep(key, apt.SSMKernel(tr), 2048, apt.SMC(2048).resampler)
     assert torch.equal(a.log_evidence, b.log_evidence)
     assert torch.equal(a.ancestors, b.ancestors) and torch.equal(a.states, b.states)
     assert a.ancestors.dtype == torch.int32 and a.ancestors.shape == (T, 2048)
     assert a.resampled.any()
-    c = apt.sweep(apt.rng.key(10), apt.SSMKernel(tr), 2048, apt.SMC(2048).resampler)
+    c = cpu_sweep(apt.rng.key(10), apt.SSMKernel(tr), 2048, apt.SMC(2048).resampler)
     assert not torch.equal(a.ancestors, c.ancestors)
 
 
 def test_always_resample_runs_every_step():
-    tr = apt.traced_ssm_from_numpy(PARAMS, _ys(6, 12))
-    res = apt.sweep(apt.rng.key(1), apt.SSMKernel(tr), 512,
+    tr = cpu_traced_ssm(PARAMS, _ys(6, 12))
+    res = cpu_sweep(apt.rng.key(1), apt.SSMKernel(tr), 512,
                     apt.SMC(512, apt.resample_systematic).resampler, store_states=False)
     assert res.resampled[1:].all() and not res.resampled[0]
     assert res.states is None and torch.isfinite(res.log_evidence)
@@ -199,7 +207,7 @@ def test_model_buffers_follow_to():
 
 
 def test_unported_paths_raise():
-    tr = apt.traced_ssm_from_numpy(PARAMS, _ys(7, 5))
+    tr = cpu_traced_ssm(PARAMS, _ys(7, 5))
     key = apt.rng.key(0)
     # Non-Markov dynamics and per-particle-key sampling belong to later slices.
     lg = apt.models
@@ -217,12 +225,12 @@ def test_unported_paths_raise():
                              lg.LinearGaussianObservation()), "not vectorized"),
     ]:
         with pytest.raises(NotImplementedError, match=match):
-            apt.sample(key, apt.TracedSSM(model, torch.zeros(5)), apt.SMC(16))
+            cpu_sample(key, apt.TracedSSM(model, torch.zeros(5)), apt.SMC(16))
     with pytest.raises(TypeError, match="unknown sampler"):
-        apt.sample(key, tr, object(), 10)
+        cpu_sample(key, tr, object(), 10)
     with pytest.raises(ValueError):
-        apt.sample(key, tr, apt.SMC(16), 10)
+        cpu_sample(key, tr, apt.SMC(16), 10)
     with pytest.raises(TypeError):
         apt.make_kernel(object())
     with pytest.raises(ValueError, match="missing"):
-        apt.traced_ssm_from_numpy({"a": 0.9}, np.zeros(3))
+        cpu_traced_ssm({"a": 0.9}, np.zeros(3))
