@@ -9,7 +9,8 @@
 //                (_make_extents_kernel).
 //   B2 decode    anc[k] = #{j : f_j <= start + k} = upper_bound(f, start + k)
 //                for the output window [start, start + n_out), with f[M-1]
-//                read as `guard`.  Replaces decode_ancestors_bs
+//                read as `guard`: a block per tile of slots counts the run
+//                ends of the tile's own owner rows in shared memory.  Replaces decode_ancestors_bs
 //                (_make_decode_bs_kernel).
 //   B3 move      out[k, :] = v[anc[k], :] bitwise, 0 where anc[k] == M.
 //                Replaces the v6 lookup move _resample_move_cols_v6
@@ -30,28 +31,30 @@
 //                tiles of the merged order, each block finding its own two
 //                splits.  Replaces count_le_sorted (_count_le_kernel).
 //
-// What bounds them on the card is memory traffic, not arithmetic.  At
-// M = n = 1M: B1 and B6 read their input twice (8 MB) and write 4 MB; B2
-// reads its sorted array through ~20 binary-search probes per output, but
-// that array (4 MB) stays in the 50 MB L2 and neighbouring outputs share their
-// probe paths; B3 reads anc and the source rows and writes the rows (12 MB at
-// D = 1); B7 and B8 read s and t once each into shared memory and write the
-// counts (12 MB; see "B7 tile search" and "B8 merge path");
-// B4 reads each tile's owner extents once (plus two searches) and the source
-// rows and writes anc and the rows, B3's traffic without B2's in between; B5
-// reads f once and makes two passes over anc (8 MB + 12 MB).
+// What bounds them on the card is memory traffic, not arithmetic, and below a
+// few megabytes the latency of one block's chain of dependent steps.  At
+// M = n = 1M: B1 and B6 read their input once (4 MB) and write 4 MB in one
+// launch (see "B1/B6 single pass"); B2 reads f once, a tile's owner rows at a
+// time, and writes anc (see "B2 tile decode"); B3 reads anc and the source
+// rows and writes the rows (12 MB at D = 1); B7 and B8 read s and t once each
+// into shared memory and write the counts (12 MB; see "B7 tile search" and
+// "B8 merge path"); B4 reads each tile's owner extents once (plus two
+// searches) and the source rows and writes anc and the rows, B3's traffic
+// without B2's in between; B5 reads f once and makes two passes over anc
+// (8 MB + 12 MB).
 // The design keeps every access either coalesced or L2-resident, and does no
-// per-row run-length scatter, so a single survivor that owns every slot costs
-// the same as uniform weights.
+// per-row run-length scatter to device memory, so a single survivor that owns
+// every slot costs no more than uniform weights.
 //
 // B1/B6 precision.  Near n*cdf = 1e6 one float32 ulp is 0.06, so two float32
 // prefix sums that differ by an ulp flip ~6% of the extents.  The prefix is
 // therefore accumulated in double (sequential within a thread, a warp-shuffle
-// scan across threads, a scan of the tile sums across tiles) and rounded to
-// float32 once; the plain versions do the same with a float64 cumsum.  Both
-// are then the correctly rounded prefix but for double rounding error, and the
-// float32 epilogue that follows is the same operations in the same order.
-// (The TPU kernels carry a Kahan-compensated float32 sum for the same reason.)
+// scan across threads, a fixed tree over the tile sums across tiles) and
+// rounded to float32 once; the plain versions do the same with a float64
+// cumsum.  Both are then the correctly rounded prefix but for double rounding
+// error, and the float32 epilogue that follows is the same operations in the
+// same order.  (The TPU kernels carry a Kahan-compensated float32 sum for the
+// same reason.)
 //
 // B1/B6 monotonicity.  Blocks run in no order, so the sequential carry of the
 // TPU kernels has no counterpart, and neighbouring double prefixes can still
@@ -60,11 +63,56 @@
 // float32 rounding boundary the output would dip, and B2/B7/B8 and the
 // stratified extents all need a nondecreasing input.  So the epilogue's values
 // go through an exact max-scan: inside a tile by the same thread/warp
-// structure, across tiles by an exclusive max-scan of the tile maxima and a
-// fix-up pass that touches only tiles whose first value lies below that carry.
-// Max is exact and associative, so the output is nondecreasing by
-// construction, whatever the summation order.  (The TPU kernels keep a running
-// max for the same reason.)
+// structure, across tiles by the largest value of the tiles before, which
+// every tile takes before it stores.  Max is exact and associative, so the
+// output is nondecreasing by construction, whatever the summation order.  (The
+// TPU kernels keep a running max for the same reason.)
+//
+// B1/B6 single pass.  The scan was five launches (tile sums, a one-block scan
+// of them, the prefixes and the epilogue, a one-block max-scan of the tile
+// maxima, a fix-up pass): the input read twice, exp taken twice, one SM at
+// work in two of the five while 131 idled, and every 4-byte store of a thread's
+// eight consecutive outputs 32 bytes from its neighbour's.  Now one launch:
+// a tile (256 threads, 8 consecutive elements each) is read once with 16-byte
+// loads, summed, and its double sum published; its base is the combination of
+// the sums of the tiles before it; the epilogue and the in-tile max-scan
+// follow; the tile's largest value is published and the largest of the tiles
+// before it taken the same way; the outputs leave as 16-byte stores.  The
+// base must not depend on timing (double addition is not associative, and a
+// sweep must repeat bitwise), so a tile never adds whatever happens to be
+// published: it reads the sums of the tiles before it in its group of 32 and
+// the totals of the groups before its own (and so on upward, 32 at a level),
+// and scans each level in one warp exactly as block_exclusive_scan does, the
+// last tile of a group publishing the group's total.  Up to 1024 tiles
+// (2,097,152 elements) that is, bit for bit, the tree of the one-block scan it
+// replaces; above, a third level takes the place of that scan's sequential
+// folds.  Nothing published waits for more than the sums (or maxima) of
+// earlier tiles, so no chain of waits runs along the tiles.  A value and the
+// epoch of its launch travel as one 16-byte word, so the scratch is never
+// reset: the wrapper hands each launch a larger epoch.  The launch is
+// cooperative and no larger than what the card holds at once, block b taking
+// tiles b, b + grid, ...: a waiting block can only wait for a running one.
+// What is left is latency, not bytes: a tile's two look-backs are four
+// dependent round trips to the L2 behind the slowest tile's load.
+//
+// B2 tile decode.  One thread per slot searching all of f is a chain of ~20
+// dependent loads, each a round trip to the L2, and neighbouring slots repeat
+// each other's first ~10 probes: B7's problem with thresholds that are the
+// consecutive integers start + k.  So a block takes kDecodeTile consecutive
+// slots; two warps find the counts of its first and last slot by the 32-way
+// search (4 rounds at 1M in place of 20); the rows between, the tile's owners,
+// are staged into shared memory with 16-byte cp.async copies, the guard put in
+// place of row M-1 there.  Then no search at all: each staged row that ends a
+// run of equal extents writes the rows counted up to it at the slot of its
+// extent (run ends have distinct extents, so no two writes meet), and a block
+// max-scan over the tile's slots fills the gaps, B5's counting done in shared
+// memory: O(run + tile) with 16-byte reads and stores.  (Searching the staged
+// run as B7 does was 1.4 us slower at 1M, 7.3 against 5.9, and 0.2 us faster
+// on a window of 250k; tiles of 2048 slots were slower in both forms.)  A run
+// longer than the staging buffer (many zero-offspring rows between two owners)
+// is searched in global memory between the same two bounds, as B4 and B7 do,
+// so the count is exact for every nondecreasing f.  A tile owned by one row
+// has an empty run and costs only the two searches.
 //
 // All float32 arithmetic of the epilogues uses explicit round-to-nearest
 // intrinsics so that nvcc does not contract n*cdf - u into an FMA: the plain
@@ -130,10 +178,11 @@
 // one row j (j = M-1, or f_j < f_{j+1}); writing j + 1 at f_j (when f_j <
 // n_out) leaves a sparse array whose inclusive running max is anc.  Run ends
 // have distinct extents, so no two threads write one entry and no atomics are
-// needed.  The running max reuses B1's max-scan and cross-tile carry.  Work is
-// O(M + n_out), with no search.
+// needed.  The running max is a max-scan of each tile and a cross-tile carry
+// in three more launches.  Work is O(M + n_out), with no search.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -143,7 +192,11 @@ constexpr int kThreads = 256;              // threads per tile block
 constexpr int kItems = 8;                  // consecutive elements per thread
 constexpr int kTile = kThreads * kItems;   // elements per tile
 constexpr int kScanThreads = 1024;         // single-block cross-tile scans
-constexpr int kMoveThreads = 256;          // B2, B3: one thread per output
+constexpr int kMoveThreads = 256;          // B3, B5: one thread per output
+constexpr int kDecodeThreads = 256;        // B2
+constexpr int kDecodeItems = 4;            // output slots per B2 thread
+constexpr int kDecodeTile = kDecodeThreads * kDecodeItems;
+constexpr int kDecodeStage = 4096;         // owner extents staged per B2 block (16 KB)
 constexpr int kCountThreads = 256;         // B7
 constexpr int kCountItems = 4;             // thresholds a thread searches together
 constexpr int kCountTile = kCountThreads * kCountItems;
@@ -198,17 +251,89 @@ __device__ T block_exclusive_scan(T v, T identity, Op op, T* smem, T* total) {
   return excl;
 }
 
-// ---- The shared prefix scan of B1 and B6 -----------------------------------
-//
-// Pass 1 sums each tile in double, pass 2 scans the tile sums, pass 3 forms
-// each element's double prefix, applies the epilogue and max-scans the tile,
-// pass 4 max-scans the tile maxima and pass 5 raises tiles below their carry.
+// ---- Pieces shared by the scan, B2, B7 and B8.
 
-// Element j of the summed sequence: exp(x_j - m) in float32, or x_j.
-template <bool kUseExp>
-__device__ __forceinline__ double summand(const float* __restrict__ x, int64_t j, float m) {
-  return kUseExp ? (double)expf(__fsub_rn(x[j], m)) : (double)x[j];
+constexpr unsigned kFullWarp = 0xffffffffu;
+
+__device__ __forceinline__ bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem));
 }
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Start the block's copy of src[lo, hi) into shared memory at dst (16-byte
+// aligned), so that src[lo] lands at dst[r] for the returned r in [0, 3]:
+// where src is 16-byte aligned the copy starts at the aligned entry at or
+// below lo and moves 16 bytes at a time, with a 4-byte ragged tail; otherwise
+// every entry moves on its own.  dst needs room for hi - lo + 3 entries.
+// Complete after cp_async_wait_all() and a barrier.
+template <typename T>
+__device__ int stage_run(T* dst, const T* __restrict__ src, int64_t lo, int64_t hi) {
+  static_assert(sizeof(T) == 4, "stage_run moves 4-byte entries");
+  const bool vec = aligned16(src);
+  const int64_t a0 = vec ? (lo & ~(int64_t)3) : lo;
+  const int64_t v_end = vec ? a0 + ((hi - a0) & ~(int64_t)3) : a0;
+  for (int64_t k = a0 + 4 * (int64_t)threadIdx.x; k < v_end; k += 4 * (int64_t)blockDim.x) {
+    cp_async16(dst + (k - a0), src + k);
+  }
+  for (int64_t k = v_end + threadIdx.x; k < hi; k += blockDim.x) {
+    cp_async4(dst + (k - a0), src + k);
+  }
+  return (int)(lo - a0);
+}
+
+// The first i in [lo, hi) at which pred(i) is false, or hi, for a predicate
+// that is true up to some point and false from there on; called by a whole
+// warp.  Each round the 32 lanes probe 32 evenly spaced entries and a ballot
+// keeps the one gap that holds the answer.
+template <typename Pred>
+__device__ int64_t warp_partition_point(int64_t lo, int64_t hi, Pred pred) {
+  const int lane = threadIdx.x & 31;
+  while (lo < hi) {
+    const int64_t step = (hi - lo + 31) >> 5;
+    const int64_t p = lo + (int64_t)(lane + 1) * step - 1;
+    const int c = __popc(__ballot_sync(kFullWarp, p < hi && pred(p)));
+    // Probes 0 .. c-1 hold, probe c (if there is one) does not.
+    const int64_t next_hi = lo + (int64_t)(c + 1) * step - 1;
+    if (c < 32 && next_hi < hi) hi = next_hi;
+    lo = lo + c * step < hi ? lo + c * step : hi;
+  }
+  return lo;
+}
+
+// cnt[i] = #{k < len : r_k <= t[i]} for nondecreasing r, len >= 1, with no
+// branch on the data: the trip count depends on len only, so the K searches
+// run interleaved and their loads overlap.  (!(r > t) and not r <= t: a NaN
+// threshold counts every entry, as searchsorted does.)  r and t are both
+// float (B7, B8) or both int (B2).
+template <int K, typename T, typename Load>
+__device__ __forceinline__ void upper_bound_uniform(Load r, int len, const T (&t)[K],
+                                                    int (&cnt)[K]) {
+#pragma unroll
+  for (int i = 0; i < K; ++i) cnt[i] = 0;
+  while (len > 1) {
+    const int half = len >> 1;
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+      cnt[i] = !(r(cnt[i] + half - 1) > t[i]) ? cnt[i] + half : cnt[i];
+    }
+    len -= half;
+  }
+#pragma unroll
+  for (int i = 0; i < K; ++i) cnt[i] += !(r(cnt[i]) > t[i]) ? 1 : 0;
+}
+
+// ---- The epilogues of B1 and B6, and the cross-tile max carry that B5 keeps
 
 // B1's epilogue: the systematic extent of a double prefix.
 struct ExtentsEpilogue {
@@ -243,28 +368,8 @@ struct ScaleEpilogue {
   }
 };
 
-// Pass 1: per-tile sums of the summands, in double.
-template <bool kUseExp>
-__global__ void prefix_tile_sums(const float* __restrict__ x, int64_t len,
-                                 const float* __restrict__ mx,
-                                 double* __restrict__ tile_sum) {
-  __shared__ double smem[32];
-  const float m = kUseExp ? *mx : 0.0f;
-  const int64_t first = (int64_t)blockIdx.x * kTile + (int64_t)threadIdx.x * kItems;
-  double acc = 0.0;
-#pragma unroll
-  for (int i = 0; i < kItems; ++i) {
-    const int64_t j = first + i;
-    if (j < len) acc += summand<kUseExp>(x, j, m);
-  }
-  double total;
-  block_exclusive_scan(acc, 0.0, Add(), smem, threadIdx.x == 0 ? &total : nullptr);
-  if (threadIdx.x == 0) tile_sum[blockIdx.x] = total;
-}
-
-// Passes 2 and 4: single-block exclusive scan over the per-tile values.  Each
-// thread folds a contiguous run of tiles sequentially, then one block scan
-// joins the runs.
+// B5: single-block exclusive scan over the per-tile values.  Each thread folds
+// a contiguous run of tiles sequentially, then one block scan joins the runs.
 template <typename T, typename Op>
 __global__ void tiles_exclusive_scan(const T* __restrict__ in, T* __restrict__ out,
                                      int ntiles, T identity, Op op) {
@@ -281,52 +386,7 @@ __global__ void tiles_exclusive_scan(const T* __restrict__ in, T* __restrict__ o
   }
 }
 
-// Pass 3: per-element double prefix, the epilogue, and an in-tile max-scan.
-// Writes the tile's largest value to tile_max.
-template <bool kUseExp, typename Epi>
-__global__ void prefix_tiles(const float* __restrict__ x, int64_t len,
-                             const float* __restrict__ mx, Epi epi,
-                             const double* __restrict__ tile_base,
-                             typename Epi::T* __restrict__ out,
-                             typename Epi::T* __restrict__ tile_max) {
-  using T = typename Epi::T;
-  __shared__ double dsmem[32];
-  __shared__ T tsmem[32];
-  epi.load();
-  const float m = kUseExp ? *mx : 0.0f;
-  const int64_t first = (int64_t)blockIdx.x * kTile + (int64_t)threadIdx.x * kItems;
-
-  double p[kItems];  // inclusive prefix within this thread's run
-  double acc = 0.0;
-#pragma unroll
-  for (int i = 0; i < kItems; ++i) {
-    const int64_t j = first + i;
-    if (j < len) acc += summand<kUseExp>(x, j, m);
-    p[i] = acc;
-  }
-  const double base = tile_base[blockIdx.x] +
-                      block_exclusive_scan(acc, 0.0, Add(), dsmem, (double*)nullptr);
-
-  T v[kItems];
-  T run = Epi::lowest();
-#pragma unroll
-  for (int i = 0; i < kItems; ++i) {
-    const T e = epi(base + p[i]);
-    if (first + i < len) run = e > run ? e : run;
-    v[i] = run;
-  }
-  T tmax;
-  const T carry = block_exclusive_scan(run, Epi::lowest(), Max(), tsmem,
-                                       threadIdx.x == 0 ? &tmax : nullptr);
-#pragma unroll
-  for (int i = 0; i < kItems; ++i) {
-    const int64_t j = first + i;
-    if (j < len) out[j] = v[i] > carry ? v[i] : carry;
-  }
-  if (threadIdx.x == 0) tile_max[blockIdx.x] = tmax;
-}
-
-// Pass 5: raise each tile to the largest value of the tiles before it.  A tile
+// B5: raise each tile to the largest value of the tiles before it.  A tile
 // is already max-scanned, so its first value is its smallest: when that is not
 // below the carry the tile is left alone.
 template <typename T>
@@ -347,26 +407,246 @@ __global__ void prefix_carry(T* __restrict__ out, int64_t len,
   }
 }
 
-// The five passes.  dscratch holds 2 * ntiles doubles, tscratch 2 * ntiles
-// values of the epilogue's type.
+// ---- The single-pass scan of B1 and B6 (see "B1/B6 single pass") -----------
+
+constexpr int kScanLevels = 4;  // 32^4 tiles: more than an int32 length holds
+
+// Published values of a scratch for `cap` tiles: one per tile, one per group
+// of 32 tiles, one per group of 32 groups, and so on.
+__host__ __device__ inline int64_t scan_slots(int64_t cap) {
+  int64_t n = 0;
+  for (int k = 0; k < kScanLevels; ++k) {
+    n += cap;
+    cap = (cap + 31) >> 5;
+  }
+  return n;
+}
+
+// A published value and the epoch of the launch that wrote it travel as one
+// aligned 16-byte word, stored and loaded whole, so a reader that sees the
+// epoch has the value (the card moves an aligned 16-byte access as one
+// transaction; no fence, no second round trip).
+__device__ __forceinline__ void scan_publish(ulonglong2* p, unsigned long long bits,
+                                             unsigned long long epoch) {
+  __stcg(p, make_ulonglong2(bits, epoch));
+}
+
+__device__ __forceinline__ ulonglong2 scan_peek(const ulonglong2* p) {
+  ulonglong2 v;
+  asm volatile("ld.volatile.global.v2.u64 {%0, %1}, [%2];\n"
+               : "=l"(v.x), "=l"(v.y)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ unsigned long long scan_bits(double v) {
+  return (unsigned long long)__double_as_longlong(v);
+}
+__device__ __forceinline__ unsigned long long scan_bits(float v) { return __float_as_uint(v); }
+__device__ __forceinline__ unsigned long long scan_bits(int v) { return (unsigned int)v; }
+__device__ __forceinline__ void scan_value(unsigned long long b, double& v) {
+  v = __longlong_as_double((long long)b);
+}
+__device__ __forceinline__ void scan_value(unsigned long long b, float& v) {
+  v = __uint_as_float((unsigned int)b);
+}
+__device__ __forceinline__ void scan_value(unsigned long long b, int& v) { v = (int)b; }
+
+// Polls allowed on one entry before the kernel traps: a fault in the protocol
+// then ends as an error, not as a hang.  A wait that is in order lasts
+// microseconds.
+constexpr unsigned int kScanSpinLimit = 1u << 24;
+
+// The combination, under `op`, of `own` over every tile before `tile`, as a
+// fixed function of the tiles' values; called by one whole warp after the
+// block has its tile's `own`.  Level 0 holds one value a tile, level k + 1 one
+// value for every 32 units of level k.  This tile publishes its own value,
+// reads those of the tiles before it in its group of 32 and scans them as
+// block_exclusive_scan scans a warp; where it is the last of its group the
+// same scan gives the group's value, which it publishes one level up; then
+// the same one level up, over the groups before its own in their group of 32.
+// No published value waits for anything but the `own` of earlier tiles, so no
+// chain of waits runs along the tiles, and the result does not depend on the
+// order in which blocks run.  `slot` holds scan_slots(cap) entries; one is
+// current when its epoch is this launch's.
+template <typename T, typename Op>
+__device__ T warp_lookback(ulonglong2* slot, int64_t cap, unsigned long long epoch, int tile,
+                           T own, T identity, Op op) {
+  const int lane = threadIdx.x & 31;
+  T excl[kScanLevels];
+#pragma unroll
+  for (int k = 0; k < kScanLevels; ++k) excl[k] = identity;
+  T total = own;     // this tile's unit at level k, valid where it is the unit's last tile
+  bool last = true;
+  int idx = tile;
+  int64_t off = 0, count = cap;
+#pragma unroll
+  for (int k = 0; k < kScanLevels; ++k) {
+    const int pos = idx & 31;
+    const int parent = idx >> 5;
+    if (last && lane == 0) scan_publish(slot + off + idx, scan_bits(total), epoch);
+    if (idx == 0) break;  // nothing before this unit, here or above
+    T v = identity;
+    if (lane < pos) {
+      const ulonglong2* at = slot + off + (int64_t)parent * 32 + lane;
+      ulonglong2 w = scan_peek(at);
+      for (unsigned int spins = 0; w.y != epoch; w = scan_peek(at)) {
+        if (++spins > kScanSpinLimit) __trap();
+      }
+      scan_value(w.x, v);
+    } else if (lane == pos) {
+      v = total;
+    }
+    __syncwarp();
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      T y = __shfl_up_sync(kFullWarp, v, d);
+      if (lane >= d) v = op(y, v);
+    }
+    const T before = __shfl_sync(kFullWarp, v, pos > 0 ? pos - 1 : 0);
+    excl[k] = pos > 0 ? before : identity;
+    total = __shfl_sync(kFullWarp, v, 31);
+    last = last && pos == 31;
+    idx = parent;
+    off += count;
+    count = (count + 31) >> 5;
+  }
+  T r = excl[kScanLevels - 1];
+#pragma unroll
+  for (int k = kScanLevels - 2; k >= 0; --k) r = op(r, excl[k]);
+  return r;
+}
+
+// Block b takes tiles b, b + gridDim.x, ...  The launch is cooperative, so
+// every block of the grid is resident: a block waits only for tiles below its
+// own, which blocks that are running hold, and those wait for lower tiles in
+// turn.  `epoch` is larger than that of any earlier launch on this scratch.
 template <bool kUseExp, typename Epi>
-int prefix_scan(const float* x, int64_t len, const float* mx, Epi epi, double* dscratch,
-                typename Epi::T* tscratch, typename Epi::T* out, cudaStream_t s) {
+__global__ void __launch_bounds__(kThreads, 4)  // four blocks an SM hold 1M in one wave
+prefix_scan_kernel(const float* __restrict__ x, int64_t len, const float* __restrict__ mx,
+                   Epi epi, ulonglong2* __restrict__ scratch, int64_t cap,
+                   unsigned long long epoch, int ntiles, typename Epi::T* __restrict__ out) {
   using T = typename Epi::T;
-  const int ntiles = (int)((len + kTile - 1) / kTile);
-  double* tile_sum = dscratch;
-  double* tile_base = dscratch + ntiles;
-  T* tile_max = tscratch;
-  T* tile_carry = tscratch + ntiles;
-  prefix_tile_sums<kUseExp><<<ntiles, kThreads, 0, s>>>(x, len, mx, tile_sum);
-  tiles_exclusive_scan<double, Add><<<1, kScanThreads, 0, s>>>(tile_sum, tile_base, ntiles,
-                                                               0.0, Add());
-  prefix_tiles<kUseExp, Epi><<<ntiles, kThreads, 0, s>>>(x, len, mx, epi, tile_base, out,
-                                                         tile_max);
-  tiles_exclusive_scan<T, Max><<<1, kScanThreads, 0, s>>>(tile_max, tile_carry, ntiles,
-                                                          Epi::lowest(), Max());
-  prefix_carry<T><<<ntiles, kThreads, 0, s>>>(out, len, tile_carry);
-  return (int)cudaGetLastError();
+  __shared__ double dsmem[32];
+  __shared__ T tsmem[32];
+  __shared__ double base_s;
+  __shared__ T carry_s;
+  ulonglong2* sum_slot = scratch;
+  ulonglong2* max_slot = scratch + scan_slots(cap);
+  epi.load();
+  const float m = kUseExp ? *mx : 0.0f;
+  const bool vec_in = aligned16(x), vec_out = aligned16(out);
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const int64_t first = (int64_t)tile * kTile + (int64_t)threadIdx.x * kItems;
+    const bool whole = first + kItems <= len;
+
+    // The thread's kItems consecutive elements: 16-byte loads where the run
+    // is whole and aligned.
+    float xv[kItems];
+    if (whole && vec_in) {
+      const float4* xp = reinterpret_cast<const float4*>(x + first);
+#pragma unroll
+      for (int q = 0; q < kItems / 4; ++q) {
+        const float4 w = __ldg(xp + q);
+        xv[4 * q] = w.x;
+        xv[4 * q + 1] = w.y;
+        xv[4 * q + 2] = w.z;
+        xv[4 * q + 3] = w.w;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < kItems; ++i) xv[i] = first + i < len ? __ldg(x + first + i) : 0.0f;
+    }
+
+    double p[kItems];  // inclusive prefix within this thread's run
+    double acc = 0.0;
+#pragma unroll
+    for (int i = 0; i < kItems; ++i) {
+      if (first + i < len) acc += kUseExp ? (double)expf(__fsub_rn(xv[i], m)) : (double)xv[i];
+      p[i] = acc;
+    }
+    double tile_sum = 0.0;
+    const double before = block_exclusive_scan(acc, 0.0, Add(), dsmem, &tile_sum);
+    if (threadIdx.x < 32) {
+      const double own = __shfl_sync(kFullWarp, tile_sum, 0);
+      const double b = warp_lookback(sum_slot, cap, epoch, tile, own, 0.0, Add());
+      if (threadIdx.x == 0) base_s = b;
+    }
+    __syncthreads();
+    const double base = base_s + before;
+
+    T v[kItems];
+    T run = Epi::lowest();
+#pragma unroll
+    for (int i = 0; i < kItems; ++i) {
+      const T e = epi(base + p[i]);
+      if (first + i < len) run = e > run ? e : run;
+      v[i] = run;
+    }
+    T tile_max = Epi::lowest();
+    T carry = block_exclusive_scan(run, Epi::lowest(), Max(), tsmem, &tile_max);
+    if (threadIdx.x < 32) {
+      const T own = __shfl_sync(kFullWarp, tile_max, 0);
+      const T c = warp_lookback(max_slot, cap, epoch, tile, own, Epi::lowest(), Max());
+      if (threadIdx.x == 0) carry_s = c;
+    }
+    __syncthreads();
+    carry = carry_s > carry ? carry_s : carry;
+#pragma unroll
+    for (int i = 0; i < kItems; ++i) v[i] = v[i] > carry ? v[i] : carry;
+    if (whole && vec_out) {
+      uint4* dst = reinterpret_cast<uint4*>(out + first);
+#pragma unroll
+      for (int q = 0; q < kItems / 4; ++q) {
+        dst[q] = make_uint4((unsigned)scan_bits(v[4 * q]), (unsigned)scan_bits(v[4 * q + 1]),
+                            (unsigned)scan_bits(v[4 * q + 2]), (unsigned)scan_bits(v[4 * q + 3]));
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < kItems; ++i) {
+        if (first + i < len) out[first + i] = v[i];
+      }
+    }
+  }
+}
+
+// Blocks of `kernel` that one device holds at once: the largest cooperative
+// grid.  Asked once per device.
+inline int resident_blocks(const void* kernel, int (&cache)[64]) {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (cache[dev] == 0) {
+    int per_sm = 0, sms = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0) !=
+            cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
+      return 0;
+    }
+    cache[dev] = per_sm * sms;
+  }
+  return cache[dev];
+}
+
+// scratch: aps_scan_scratch_words(cap) 8-byte words, 16-byte aligned, zero
+// when allocated and then written by these launches alone, each with a larger
+// epoch (> 0) than the one before; cap >= ntiles.
+template <bool kUseExp, typename Epi>
+int prefix_scan(const float* x, int64_t len, const float* mx, Epi epi, void* scratch,
+                int64_t cap, unsigned long long epoch, typename Epi::T* out, cudaStream_t s) {
+  static int resident[64] = {};
+  const int64_t tiles = (len + kTile - 1) / kTile;
+  if (tiles > cap || tiles >= (int64_t)1 << 31 || epoch == 0) return (int)cudaErrorInvalidValue;
+  const void* kernel = (const void*)prefix_scan_kernel<kUseExp, Epi>;
+  const int room = resident_blocks(kernel, resident);
+  if (room <= 0) return (int)cudaErrorLaunchOutOfResources;
+  int ntiles = (int)tiles;
+  ulonglong2* slots = (ulonglong2*)scratch;
+  typename Epi::T* out_arg = out;
+  void* args[] = {&x, &len, &mx, &epi, &slots, &cap, &epoch, &ntiles, &out_arg};
+  const unsigned grid = (unsigned)(tiles < room ? tiles : room);
+  const cudaError_t err = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(kThreads), args, 0, s);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
 // Extent j with f[m-1] read as `guard`.
@@ -386,15 +666,109 @@ __device__ int64_t upper_bound_rows(const int* __restrict__ f, int64_t lo, int64
   return lo;
 }
 
-// ---- B2: one thread per output slot of the window, a binary search over the
-// whole f for the first extent above the slot.  Searching all of f replaces
-// the TPU kernel's aligned seed row and gives the same counts.
-__global__ void decode_ancestors_kernel(const int* __restrict__ f, int64_t m, int guard,
-                                        int64_t start, int64_t n_out,
-                                        int* __restrict__ anc) {
-  const int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= n_out) return;
-  anc[k] = (int)upper_bound_rows(f, 0, m, m, guard, start + k);
+// ---- B2: one block per kDecodeTile consecutive output slots (see "B2 tile
+// decode").
+__global__ void __launch_bounds__(kDecodeThreads)
+decode_tile_kernel(const int* __restrict__ f, int64_t m, int guard, int64_t start,
+                   int64_t n_out, int* __restrict__ anc) {
+  __shared__ __align__(16) int run_f[kDecodeStage + 4];
+  __shared__ __align__(16) int slot_cnt[kDecodeTile];
+  __shared__ int smem[32];
+  __shared__ int64_t owner[2];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t k0 = (int64_t)blockIdx.x * kDecodeTile;
+  const int nk = (int)(n_out - k0 < kDecodeTile ? n_out - k0 : kDecodeTile);
+  const int64_t s0 = start + k0;  // the tile's first slot
+#pragma unroll
+  for (int q = 0; q < kDecodeItems / 4; ++q) {
+    reinterpret_cast<int4*>(slot_cnt)[q * kDecodeThreads + threadIdx.x] = make_int4(0, 0, 0, 0);
+  }
+  if (warp < 2) {
+    // Warp 0 counts the rows whose extent is <= the first slot, warp 1 those
+    // <= the last.  The comparison is in 64 bits: a slot may pass any int.
+    const int64_t s = warp == 0 ? s0 : s0 + nk - 1;
+    const int64_t c = warp_partition_point(
+        0, m, [&](int64_t j) { return (int64_t)extent_at(f, j, m, guard) <= s; });
+    if (lane == 0) owner[warp] = c;
+  }
+  __syncthreads();
+  // Rows below j0 have f <= the first slot, rows from j1 on f > the last:
+  // each slot's count is j0 plus its count within [j0, j1), whose extents lie
+  // in (s0, s0 + nk - 1].
+  const int64_t j0 = owner[0], j1 = owner[1];
+  const int j0i = (int)j0;
+  const int run = (int)(j1 - j0);
+  int* tile_anc = anc + k0;
+
+  if (run > kDecodeStage) {
+    // A skewed tile: search the run where it lies.  Item i of thread x is
+    // slot i * kDecodeThreads + x, so a warp's lanes hold neighbouring slots.
+    // An extent is an int, so it is <= a slot exactly when it is <= the slot
+    // cut to the largest int.
+    int tv[kDecodeItems];
+    int cnt[kDecodeItems];
+#pragma unroll
+    for (int i = 0; i < kDecodeItems; ++i) {
+      const int k = i * kDecodeThreads + threadIdx.x;
+      const int64_t s = s0 + (k < nk ? k : 0);
+      tv[i] = (int)(s < (int64_t)INT_MAX ? s : (int64_t)INT_MAX);
+    }
+    upper_bound_uniform([&](int q) { return extent_at(f, j0 + q, m, guard); }, run, tv, cnt);
+#pragma unroll
+    for (int i = 0; i < kDecodeItems; ++i) {
+      const int k = i * kDecodeThreads + threadIdx.x;
+      if (k < nk) tile_anc[k] = j0i + cnt[i];
+    }
+    return;
+  }
+
+  if (run > 0) {
+    // Row m - 1 is in the run exactly when j1 == m: the guard takes its place
+    // in the staged copy.
+    const int64_t hi = j1 == m ? m - 1 : j1;
+    const int off = stage_run(run_f, f, j0, hi);
+    if (j1 == m && threadIdx.x == 0) run_f[off + (int)(m - 1 - j0)] = guard;
+    cp_async_wait_all();
+    __syncthreads();
+    const int* r = run_f + off;
+    // The last row of each run of equal extents marks the slot of its extent
+    // with the rows counted up to it; the extents of run ends are distinct.
+    for (int q = threadIdx.x; q < run; q += kDecodeThreads) {
+      const int fq = r[q];
+      if (q + 1 == run || r[q + 1] > fq) slot_cnt[(int)((int64_t)fq - s0)] = q + 1;
+    }
+    __syncthreads();
+  }
+  // The running max of the marks is each slot's count within the run (all 0
+  // for an empty run).  Thread x holds slots kDecodeItems * x and on: one
+  // 16-byte read of shared memory and one 16-byte store for every four.
+  int c[kDecodeItems];
+  int top = 0;
+#pragma unroll
+  for (int q = 0; q < kDecodeItems / 4; ++q) {
+    const int4 w =
+        reinterpret_cast<const int4*>(slot_cnt)[threadIdx.x * (kDecodeItems / 4) + q];
+    top = max(top, w.x); c[4 * q] = top;
+    top = max(top, w.y); c[4 * q + 1] = top;
+    top = max(top, w.z); c[4 * q + 2] = top;
+    top = max(top, w.w); c[4 * q + 3] = top;
+  }
+  const int before = block_exclusive_scan(top, 0, Max(), smem, (int*)nullptr);
+  const int kx = threadIdx.x * kDecodeItems;
+  if (kx + kDecodeItems <= nk && aligned16(tile_anc)) {
+#pragma unroll
+    for (int q = 0; q < kDecodeItems / 4; ++q) {
+      reinterpret_cast<int4*>(tile_anc + kx)[q] =
+          make_int4(j0i + max(before, c[4 * q]), j0i + max(before, c[4 * q + 1]),
+                    j0i + max(before, c[4 * q + 2]), j0i + max(before, c[4 * q + 3]));
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kDecodeItems; ++i) {
+      if (kx + i < nk) tile_anc[kx + i] = j0i + max(before, c[i]);
+    }
+  }
 }
 
 // ---- B4: one block per kDecodeMoveSlots output slots (see "B4 owner ranges").
@@ -461,8 +835,7 @@ __global__ void dense_run_ends(const int* __restrict__ f, int64_t m, int guard, 
   if (run_end && fj >= 0 && (int64_t)fj < n_out) buf[fj] = (int)(j + 1);
 }
 
-// ---- B5 pass 2: in-place inclusive max-scan of each tile, as B1's pass 3
-// does for its epilogue values.  Writes the tile's largest value to tile_max.
+// ---- B5 pass 2: in-place inclusive max-scan of each tile.  Writes the tile's largest value to tile_max.
 __global__ void max_scan_tiles(int* __restrict__ x, int64_t len, int* __restrict__ tile_max) {
   __shared__ int smem[32];
   const int64_t first = (int64_t)blockIdx.x * kTile + (int64_t)threadIdx.x * kItems;
@@ -498,85 +871,6 @@ __global__ void move_rows_kernel(const int* __restrict__ anc, int64_t n_out, int
   const bool inside = a >= 0 && (int64_t)a < m;
   out[e] = inside ? __ldg(v + (int64_t)a * d + c) : 0u;
   if (c == 0) anc_clipped[k] = (int64_t)a < m ? a : (int)(m - 1);
-}
-
-// ---- Pieces shared by B7 and B8.
-
-constexpr unsigned kFullWarp = 0xffffffffu;
-
-__device__ __forceinline__ bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
-  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// Start the block's copy of src[lo, hi) into shared memory at dst (16-byte
-// aligned), so that src[lo] lands at dst[r] for the returned r in [0, 3]:
-// where src is 16-byte aligned the copy starts at the aligned entry at or
-// below lo and moves 16 bytes at a time, with a 4-byte ragged tail; otherwise
-// every entry moves on its own.  dst needs room for hi - lo + 3 entries.
-// Complete after cp_async_wait_all() and a barrier.
-__device__ int stage_run(float* dst, const float* __restrict__ src, int64_t lo, int64_t hi) {
-  const bool vec = aligned16(src);
-  const int64_t a0 = vec ? (lo & ~(int64_t)3) : lo;
-  const int64_t v_end = vec ? a0 + ((hi - a0) & ~(int64_t)3) : a0;
-  for (int64_t k = a0 + 4 * (int64_t)threadIdx.x; k < v_end; k += 4 * (int64_t)blockDim.x) {
-    cp_async16(dst + (k - a0), src + k);
-  }
-  for (int64_t k = v_end + threadIdx.x; k < hi; k += blockDim.x) {
-    cp_async4(dst + (k - a0), src + k);
-  }
-  return (int)(lo - a0);
-}
-
-// The first i in [lo, hi) at which pred(i) is false, or hi, for a predicate
-// that is true up to some point and false from there on; called by a whole
-// warp.  Each round the 32 lanes probe 32 evenly spaced entries and a ballot
-// keeps the one gap that holds the answer.
-template <typename Pred>
-__device__ int64_t warp_partition_point(int64_t lo, int64_t hi, Pred pred) {
-  const int lane = threadIdx.x & 31;
-  while (lo < hi) {
-    const int64_t step = (hi - lo + 31) >> 5;
-    const int64_t p = lo + (int64_t)(lane + 1) * step - 1;
-    const int c = __popc(__ballot_sync(kFullWarp, p < hi && pred(p)));
-    // Probes 0 .. c-1 hold, probe c (if there is one) does not.
-    const int64_t next_hi = lo + (int64_t)(c + 1) * step - 1;
-    if (c < 32 && next_hi < hi) hi = next_hi;
-    lo = lo + c * step < hi ? lo + c * step : hi;
-  }
-  return lo;
-}
-
-// cnt[i] = #{k < len : r_k <= t[i]} for nondecreasing r, len >= 1, with no
-// branch on the data: the trip count depends on len only, so the K searches
-// run interleaved and their loads overlap.  (!(r > t) and not r <= t: a NaN
-// threshold counts every entry, as searchsorted does.)
-template <int K, typename Load>
-__device__ __forceinline__ void upper_bound_uniform(Load r, int len, const float (&t)[K],
-                                                    int (&cnt)[K]) {
-#pragma unroll
-  for (int i = 0; i < K; ++i) cnt[i] = 0;
-  while (len > 1) {
-    const int half = len >> 1;
-#pragma unroll
-    for (int i = 0; i < K; ++i) {
-      cnt[i] = !(r(cnt[i] + half - 1) > t[i]) ? cnt[i] + half : cnt[i];
-    }
-    len -= half;
-  }
-#pragma unroll
-  for (int i = 0; i < K; ++i) cnt[i] += !(r(cnt[i]) > t[i]) ? 1 : 0;
 }
 
 // ---- B7: one block per kCountTile consecutive thresholds (see "B7 tile
@@ -725,34 +1019,43 @@ int aps_prefix_tile_size() { return kTile; }
 
 const char* aps_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
+// 8-byte words of the scan scratch of B1 and B6 for up to `cap` tiles.
+int aps_scan_scratch_words(int64_t cap) { return (int)(4 * scan_slots(cap)); }
+
 // B1.  logw float32[len]; mx, s1 float32 scalars on the device; f int32[len].
-// dscratch float64[2 * ntiles], iscratch int32[2 * ntiles],
-// ntiles = ceil(len / aps_prefix_tile_size()).
+// scratch: aps_scan_scratch_words(cap) 8-byte words, zero when allocated and
+// from then on written only by B1 and B6 launches of one stream;
+// cap >= ceil(len / aps_prefix_tile_size()).
 int aps_extents_from_logw(const float* logw, int64_t len, const float* mx,
-                          const float* s1, float u, int n, double* dscratch,
-                          int* iscratch, int* f, void* stream) {
+                          const float* s1, float u, int n, void* scratch, int64_t cap,
+                          uint64_t epoch, int* f, void* stream) {
   ExtentsEpilogue epi{s1, u, n, 0.0f, 0.0f};
-  return prefix_scan<true>(logw, len, mx, epi, dscratch, iscratch, f, (cudaStream_t)stream);
+  return prefix_scan<true>(logw, len, mx, epi, scratch, cap, epoch, f, (cudaStream_t)stream);
 }
 
 // B6.  x float32[len]; with use_exp the summands are exp(x - *mx), else x;
 // scale a float32 scalar on the device, or null for 1; out float32[len].
-// dscratch float64[2 * ntiles], fscratch float32[2 * ntiles].
+// scratch and cap as for B1.
 int aps_scaled_prefix(const float* x, int64_t len, int use_exp, const float* mx,
-                      const float* scale, double* dscratch, float* fscratch, float* out,
-                      void* stream) {
+                      const float* scale, void* scratch, int64_t cap, uint64_t epoch,
+                      float* out, void* stream) {
   ScaleEpilogue epi{scale, 1.0f};
   cudaStream_t s = (cudaStream_t)stream;
-  return use_exp ? prefix_scan<true>(x, len, mx, epi, dscratch, fscratch, out, s)
-                 : prefix_scan<false>(x, len, mx, epi, dscratch, fscratch, out, s);
+  return use_exp ? prefix_scan<true>(x, len, mx, epi, scratch, cap, epoch, out, s)
+                 : prefix_scan<false>(x, len, mx, epi, scratch, cap, epoch, out, s);
 }
 
-// B2.  f int32[m] nondecreasing (f[m-1] read as guard); anc int32[n_out] in
-// [0, m], the counts of slots start .. start + n_out - 1.
+// The geometry of B2: 0 kDecodeTile, 1 kDecodeStage.
+int aps_decode_geometry(int which) {
+  return which == 0 ? kDecodeTile : which == 1 ? kDecodeStage : -1;
+}
+
+// B2.  f int32[m] nondecreasing (f[m-1] read as guard), m < 2^31; anc
+// int32[n_out] in [0, m], the counts of slots start .. start + n_out - 1.
 int aps_decode_ancestors(const int* f, int64_t m, int guard, int64_t start, int64_t n_out,
                          int* anc, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  decode_ancestors_kernel<<<blocks_for(n_out, kMoveThreads), kMoveThreads, 0, s>>>(
+  decode_tile_kernel<<<blocks_for(n_out, kDecodeTile), kDecodeThreads, 0, s>>>(
       f, m, guard, start, n_out, anc);
   return (int)cudaGetLastError();
 }

@@ -29,11 +29,14 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _I32 = ctypes.c_int
+_U64 = ctypes.c_uint64
 #: C signatures of the entry points in csrc/resample.cu.
 _SIGNATURES = {
     "aps_prefix_tile_size": (),
-    "aps_extents_from_logw": (_P, _I64, _P, _P, ctypes.c_float, _I32, _P, _P, _P, _P),
-    "aps_scaled_prefix": (_P, _I64, _I32, _P, _P, _P, _P, _P, _P),
+    "aps_scan_scratch_words": (_I64,),
+    "aps_extents_from_logw": (_P, _I64, _P, _P, ctypes.c_float, _I32, _P, _I64, _U64, _P, _P),
+    "aps_scaled_prefix": (_P, _I64, _I32, _P, _P, _P, _I64, _U64, _P, _P),
+    "aps_decode_geometry": (_I32,),
     "aps_decode_ancestors": (_P, _I64, _I32, _I64, _I64, _P, _P),
     "aps_move_rows": (_P, _I64, _I64, _P, _I64, _P, _P, _P),
     "aps_decode_move": (_P, _I64, _I32, _I64, _I64, _P, _I64, _P, _P, _P),

@@ -70,6 +70,10 @@ __all__ = [
     "COUNT_TILE",
     "COUNT_STAGE",
     "MERGE_TILE",
+    "DECODE_TILE",
+    "DECODE_STAGE",
+    "PREFIX_TILE",
+    "PREFIX_GROUP",
     "resample_move_f",
     "resample_move",
     "resample_move_window",
@@ -97,6 +101,18 @@ COUNT_LE_SORTED = "bs"
 COUNT_TILE = 1024
 COUNT_STAGE = 4096
 MERGE_TILE = 4096
+
+#: The geometry of B2: output slots per block, and owner extents a block
+#: stages in shared memory (a longer owner run is searched in global memory).
+#: ``aps_decode_geometry`` reads the kernel's own values back.
+DECODE_TILE = 1024
+DECODE_STAGE = 4096
+
+#: The geometry of the scan of B1 and B6: elements per tile
+#: (``aps_prefix_tile_size``), and tiles per group of the cross-tile
+#: combination (a group's total stands one level up, for 32 groups in turn).
+PREFIX_TILE = 2048
+PREFIX_GROUP = 32
 
 #: Which decode + move :func:`resample_move_f` runs: ``6`` (B2 then B3, the
 #: default, as in the JAX package), ``1`` (B4) or ``0`` (B5, then a gather).
@@ -214,6 +230,8 @@ def _check_extents(f, start: int):
     _check(f, "f", torch.int32)
     if f.numel() == 0:
         raise ValueError("f must not be empty")
+    if f.numel() >= 1 << 31:
+        raise ValueError(f"f must hold fewer than 2**31 extents, got {f.numel()}")
     if start < 0:
         raise ValueError(f"start must be >= 0, got {start}")
 
@@ -246,6 +264,30 @@ def _raise_on(rc: int, what: str):
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
 
 
+#: The scan scratch of B1 and B6 by (device index, stream): [tiles it serves,
+#: int64 words, launches so far].  Zero when allocated; from then on only the
+#: scan's launches on that stream write it, each under its own epoch.
+_SCAN_SCRATCH: dict = {}
+
+
+def _scan_scratch(device: torch.device, length: int):
+    """``(scratch, cap, epoch)`` for one scan of ``length`` elements on the
+    current stream of ``device``: the scratch is grown (and zeroed anew) when
+    ``length`` needs more tiles than it serves, and ``epoch`` is one more than
+    that of the launch before.  Call with ``device`` current."""
+    lib = _build.library()
+    ntiles = -(-length // lib.aps_prefix_tile_size())
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    entry = _SCAN_SCRATCH.get(key)
+    if entry is None or entry[0] < ntiles:
+        cap = max(1024, 1 << (ntiles - 1).bit_length())
+        words = lib.aps_scan_scratch_words(cap)
+        entry = [cap, torch.zeros(words, dtype=torch.int64, device=device), 0]
+        _SCAN_SCRATCH[key] = entry
+    entry[2] += 1
+    return entry[1], entry[0], entry[2]
+
+
 def extents_from_logw(logw, m, s1, u: float, n: int) -> torch.Tensor:
     """B1: systematic extents straight from unnormalised log-weights.
 
@@ -254,7 +296,10 @@ def extents_from_logw(logw, m, s1, u: float, n: int) -> torch.Tensor:
     stratum offset and ``n`` the number of positions drawn.  Returns int32
     ``[M]``, nondecreasing bitwise.  The prefix is summed in double and rounded
     to float32 once, as in the plain version; the two may still differ by ±1
-    where double rounding straddles a float32 rounding boundary.
+    where double rounding straddles a float32 rounding boundary.  One launch:
+    each tile of :data:`PREFIX_TILE` elements is read once and takes its base
+    from the sums of the tiles before it, combined in a fixed order, so two
+    calls give the same bits.
     """
     _check(logw, "logw", torch.float32)
     for name, s in (("m", m), ("s1", s1)):
@@ -267,13 +312,11 @@ def extents_from_logw(logw, m, s1, u: float, n: int) -> torch.Tensor:
     if logw.numel() == 0:
         return f
     lib = _build.library()
-    ntiles = -(-logw.numel() // lib.aps_prefix_tile_size())
-    dscratch = torch.empty(2 * ntiles, dtype=torch.float64, device=logw.device)
-    iscratch = torch.empty(2 * ntiles, dtype=torch.int32, device=logw.device)
     with torch.cuda.device(logw.device):
+        scratch, cap, epoch = _scan_scratch(logw.device, logw.numel())
         rc = lib.aps_extents_from_logw(
             _ptr(logw), logw.numel(), _ptr(m), _ptr(s1), float(u), int(n),
-            _ptr(dscratch), _ptr(iscratch), _ptr(f), _stream(logw.device),
+            _ptr(scratch), cap, epoch, _ptr(f), _stream(logw.device),
         )
     _raise_on(rc, "extents_from_logw")
     extents_from_logw.launches += 1
@@ -289,7 +332,10 @@ def decode_ancestors(f, n_out: int, guard: Optional[int] = None, start: int = 0)
     the last slot, leaves the slots from ``guard`` on past the drawn
     population (``anc == M``).  The guard is the number of positions drawn:
     ``n_out`` if not given for the whole population (``start == 0``); a
-    window (``start > 0``) must pass it.
+    window (``start > 0``) must pass it.  Each block takes
+    :data:`DECODE_TILE` consecutive slots and only the rows that own them
+    (staged on chip up to :data:`DECODE_STAGE` rows); exact for every
+    nondecreasing ``f``, whatever its skew.
     """
     _check_extents(f, start)
     g = _guard_of(n_out, guard, start)
@@ -409,14 +455,12 @@ def _scaled_prefix(wrapper, x, m, scale, use_exp: bool) -> torch.Tensor:
     if x.numel() == 0:
         return out
     lib = _build.library()
-    ntiles = -(-x.numel() // lib.aps_prefix_tile_size())
-    dscratch = torch.empty(2 * ntiles, dtype=torch.float64, device=x.device)
-    fscratch = torch.empty(2 * ntiles, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
+        scratch, cap, epoch = _scan_scratch(x.device, x.numel())
         rc = lib.aps_scaled_prefix(
             _ptr(x), x.numel(), int(use_exp), _ptr(m) if use_exp else None,
             _ptr(scale) if scale is not None else None,
-            _ptr(dscratch), _ptr(fscratch), _ptr(out), _stream(x.device),
+            _ptr(scratch), cap, epoch, _ptr(out), _stream(x.device),
         )
     _raise_on(rc, wrapper.__name__)
     wrapper.launches += 1

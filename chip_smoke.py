@@ -19,7 +19,14 @@ final line:
    the edges of their own geometry, read back from the built library: sizes
    one short of, equal to and one past a tile, a tile whose run of s is one
    short of, exactly and one past the staging buffer from an unaligned start,
-   a merge tile that holds entries of s alone or thresholds alone;
+   a merge tile that holds entries of s alone or thresholds alone; B2 at the
+   edges of its geometry (slot counts around a tile, an owner run around the
+   staging buffer from an aligned and an unaligned ``f``, one row owning every
+   slot, every row owning one, all extents 0 but the guard, many rows of one
+   extent, the guard case; each also as a window whose start is no multiple
+   of the tile; exact); and the scan of B1 and B6 at lengths around a tile, a
+   group of 32 tiles and 32 groups, at 1M and at 16M (within the plain
+   versions' tolerances, nondecreasing, two calls bitwise equal);
 4. the SMC flagship (stationary LGSSM a=0.9, q=0.32, r=1.0, T=100,
    N=1,000,000, resampling at ESS ≤ N/2) through ``sample`` with each fused
    scheme — systematic, stratified, multinomial, and multinomial with the
@@ -49,7 +56,9 @@ final line:
    time per firing, PGAS iterations/s (single-device and sharded), and
    profiled sweeps for the device busy share.  For each kernel at 1M: its
    device time (the profiler's device-side rows over a window of REPS calls,
-   every launch of the call summed), the same for its plain version and, where
+   every launch of the call summed) and the device-side launches a call makes
+   (1 for B1, B2 and B6, or the phase fails), the same time for its plain
+   version and, where
    one PyTorch call computes the same function, for that call; the time per
    call by CUDA events, wrapper and host included (plain, kernel, kernel,
    plain); the bytes it must move and the least time they take at the card's
@@ -123,6 +132,9 @@ REPLACES = {
 #: six decimals printed, and the two logZ of the 2-iteration PGAS chain.
 EARLIER_MULTINOMIAL_ERR = "0.000238"
 EARLIER_MULTINOMIAL_PGAS_LOGZ = [-161.53640747070312, -161.53016662597656]
+#: Wrappers whose call is one device-side launch by design: the single-pass
+#: scan (no reset pass, no memset) and the tile decode.
+SINGLE_LAUNCH = ("extents_from_logw", "scaled_prefix_from_logw", "prefix_sum", "decode_ancestors")
 #: Kernel launches per resampling firing of each fused scheme.
 PER_FIRING = {
     "systematic": {"extents_from_logw": 1, "decode_ancestors": 1, "move_rows": 1},
@@ -225,13 +237,19 @@ def device_rows(fn, reps: int):
     return rows
 
 
-def device_ms(fn) -> float:
-    """Device time of one call: the device-side rows of a window of REPS
-    calls, every launch of the call summed, over REPS."""
+def device_ms_and_launches(fn):
+    """Device time of one call and its device-side launches (kernels and
+    memsets): the device-side rows of a window of REPS calls, every launch of
+    the call summed, over REPS."""
     fn()
     torch.cuda.synchronize()
     rows = device_rows(fn, REPS)
-    return sum(e.self_device_time_total for e in rows) / REPS / 1e3
+    return (sum(e.self_device_time_total for e in rows) / REPS / 1e3,
+            sum(e.count for e in rows) // REPS)
+
+
+def device_ms(fn) -> float:
+    return device_ms_and_launches(fn)[0]
 
 
 def nbytes(*tensors) -> int:
@@ -293,6 +311,63 @@ def geometry_cases(tile: int, stage: int, merge: int, gen: torch.Generator):
                   2 * merge + ar(merge), ar(merge)))
     cases.append(("every threshold below all of s", merge + ar(5), ar(merge)))
     return cases
+
+
+def decode_geometry_cases(tile: int, stage: int, gen: torch.Generator):
+    """Decode inputs ``(label, f, n_out, guard, start)`` on the card at the
+    edges of B2's geometry (output slots per block, owner rows a block
+    stages): each case for the whole population and as a window whose start
+    is no multiple of the tile."""
+    def extents(m, n):
+        """Nondecreasing extents of m rows for n positions, ending at n."""
+        w = torch.rand(m, generator=gen, device="cuda") ** 4
+        f = torch.ceil(torch.cumsum(w, 0) / w.sum() * n).clamp(0, n).to(torch.int32)
+        f[-1] = n
+        return f
+
+    def i32(*parts):
+        return torch.cat([torch.as_tensor(p_, dtype=torch.int32, device="cuda").reshape(-1)
+                          for p_ in parts])
+
+    cases = []
+    for n in (tile - 1, tile, tile + 1, 3 * tile + 17):
+        cases.append((f"{n} rows and slots", extents(n, n), n, n))
+    n = 3 * tile + 17
+    cases.append((f"the guard case, {n - 1} of {n} positions drawn", extents(n, n - 1), n, n - 1))
+    # The first tile's owners are rows [3, 3 + run): one short of, exactly and
+    # one past the staging buffer, with f itself 16-byte aligned or not.
+    for run in (stage - 1, stage, stage + 1):
+        inside = torch.randint(1, tile, (run,), generator=gen, device="cuda").sort().values
+        n = 2 * tile + 5
+        rest = tile + torch.arange(tile + 6, device="cuda")
+        whole = i32([0, 0, 0, 0], inside, rest, [n])
+        for off in (0, 1):
+            cases.append((f"an owner run of {run} rows from row 3, f offset {off}",
+                          whole[off:] if off else whole[1:].clone(), n, n))
+    m, n = 2 * tile + 9, 2 * tile + 9
+    cases.append(("one row owns every slot", i32(torch.zeros(tile + 3), torch.full((m - tile - 3,), n)),
+                  n, n))
+    cases.append(("every row owns one slot", torch.arange(1, n + 1, dtype=torch.int32, device="cuda"),
+                  n, n))
+    cases.append(("all extents 0 but the guard", torch.zeros(m, dtype=torch.int32, device="cuda"),
+                  n, n))
+    cases.append((f"{3 * stage} rows of one extent inside a tile",
+                  i32([0, 0], torch.full((3 * stage,), 5), torch.arange(6, n + 1)), n, n))
+    cases.append(("no row owns a slot of the last tile", i32(torch.arange(1, tile + 1), [n] * 9),
+                  n, n))
+    out = []
+    for label, f, n_out, guard in cases:
+        out.append((label, f, n_out, guard, 0))
+        start = 333 if n_out > 400 else 1
+        out.append((label + f", window from slot {start}", f, n_out - start - 2, guard, start))
+    return out
+
+
+def scan_lengths(tile: int, group: int):
+    """Lengths at the edges of the scan's geometry: a tile, a group of tiles,
+    and a group of groups plus one element (the level above)."""
+    return [tile - 1, tile, tile + 1, group * tile - 1, group * tile, group * tile + 1,
+            group * group * tile + 1]
 
 
 def extents_of(anc: torch.Tensor) -> torch.Tensor:
@@ -403,6 +478,11 @@ def main():
     # The CPU tests build their cases around the wrappers' constants.
     check(geometry == [ops.COUNT_TILE, ops.COUNT_STAGE, ops.MERGE_TILE],
           f"B7/B8 geometry {geometry} differs from the wrappers' constants")
+    decode_geometry = [lib.aps_decode_geometry(i) for i in range(2)]
+    check(decode_geometry == [ops.DECODE_TILE, ops.DECODE_STAGE],
+          f"B2 geometry {decode_geometry} differs from the wrappers' constants")
+    check(lib.aps_prefix_tile_size() == ops.PREFIX_TILE,
+          f"scan tile {lib.aps_prefix_tile_size()} differs from the wrappers' constant")
 
     # ---- 3. kernels vs plain versions on the card, M = N = 1M
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -418,6 +498,50 @@ def main():
     print(f"B7 and B8 at the edges of their geometry (tile {geometry[0]}, stage {geometry[1]}, "
           f"merge tile {geometry[2]}): {len(edge_cases)} cases exact, B7 also on each case's "
           f"thresholds in reverse", flush=True)
+    decode_cases = decode_geometry_cases(*decode_geometry, gen)
+    for what, f_, n_out, guard, start in decode_cases:
+        got = ops.decode_ancestors(f_, n_out, guard=guard, start=start)
+        want = ops.decode_ancestors_ref(f_, n_out, guard=guard, start=start)
+        err["decode_ancestors"] = max(err["decode_ancestors"], max_abs(got, want))
+        check(torch.equal(got, want), f"{what}: decode_ancestors differs from its plain version")
+    print(f"B2 at the edges of its geometry (tile {decode_geometry[0]}, stage "
+          f"{decode_geometry[1]}): {len(decode_cases)} cases exact", flush=True)
+
+    # The scan of B1 and B6 at the edges of its geometry, and at 1M and 16M:
+    # against the plain versions, nondecreasing, and two calls bitwise equal.
+    for length in scan_lengths(ops.PREFIX_TILE, ops.PREFIX_GROUP) + [N, 16 * N]:
+        lw = torch.randn(length, generator=gen, device="cuda") * 2.0
+        m = torch.max(lw)
+        s1 = torch.sum(torch.exp(lw - m))
+        n = min(length, N)
+        e = torch.exp(lw - m)
+        forms = (("extents_from_logw", lambda: ops.extents_from_logw(lw, m, s1, 0.37, n),
+                  lambda: ops.extents_from_logw_ref(lw, m, s1, 0.37, n)),
+                 ("scaled_prefix_from_logw", lambda: ops.scaled_prefix_from_logw(lw, m, n / s1),
+                  lambda: ops.scaled_prefix_ref(lw, m, n / s1, True)),
+                 ("prefix_sum", lambda: ops.prefix_sum(e),
+                  lambda: ops.scaled_prefix_ref(e, None, None, False)))
+        for name, kernel_fn, plain in forms:
+            got, again, want = kernel_fn(), kernel_fn(), plain()
+            check(torch.equal(bits(got), bits(again)), f"{name} at {length}: two calls differ")
+            check(nondecreasing(got), f"{name} at {length}: not nondecreasing")
+            if name == "extents_from_logw":
+                diff = (got.long() - want.long()).abs()
+                check(int(diff.max()) <= 1 and int((diff > 0).sum()) <= max(2, 1e-3 * length),
+                      f"{name} at {length}: differs by {int(diff.max())} in {int((diff > 0).sum())}")
+            else:
+                check(max_ulps(got, want) <= 1, f"{name} at {length}: {max_ulps(got, want)} ulps")
+            err[name] = max(err[name], max_abs(got, want))
+        del lw, e
+    # A prefix that falls is held at its running max, across tiles too.
+    x_neg = torch.randn(5 * ops.PREFIX_TILE + 3, generator=gen, device="cuda")
+    check(torch.equal(ops.prefix_sum(x_neg), ops.scaled_prefix_ref(x_neg, None, None, False)),
+          "prefix_sum of inputs with negative entries differs from its plain version")
+    print(f"B1 and B6 at the edges of the scan's geometry (tile {ops.PREFIX_TILE}, groups of "
+          f"{ops.PREFIX_GROUP}; lengths {scan_lengths(ops.PREFIX_TILE, ops.PREFIX_GROUP)}, 1M and "
+          f"16M): extents within 1, prefixes within 1 ulp, nondecreasing, two calls bitwise "
+          f"equal; a falling prefix held at its running max", flush=True)
+
     for i, profile in enumerate(["lognormal", "uniform", "single", "survivors20"]):
         logw = profile_logw(profile, gen)
         m = torch.max(logw)
@@ -944,8 +1068,9 @@ def main():
         # by the time a copy comes round again the 50 MB L2 has lost it.
         copies = [tuple(a.clone() for a in inputs) for _ in range(-(-COLD_BYTES // moved))]
         turn = iter(range(10 ** 9))
+        warm_ms, launches_per_call = device_ms_and_launches(lambda: kernel_fn(*inputs))
         row = {
-            "device_ms": device_ms(lambda: kernel_fn(*inputs)),
+            "device_ms": warm_ms, "launches_per_call": launches_per_call,
             "cold_device_ms": device_ms(lambda: kernel_fn(*copies[next(turn) % len(copies)])),
             "plain_ms": device_ms(lambda: plain(*inputs)),
             "library_ms": device_ms(library) if library is not None else None,
@@ -958,7 +1083,8 @@ def main():
         row["l2_bound_ms"] = moved / L2_BYTES_PER_S * 1e3
         timing[name] = row
         lib_txt = "no single call" if library is None else f"{row['library_ms']:.5f} ms"
-        print(f"kernel {name} at 1M: device {row['device_ms']:.5f} ms L2-warm, "
+        print(f"kernel {name} at 1M: {launches_per_call} launch(es) a call, device "
+              f"{row['device_ms']:.5f} ms L2-warm, "
               f"{row['cold_device_ms']:.5f} ms L2-cold, plain {row['plain_ms']:.5f} ms, library "
               f"{lib_txt}; bound {row['bound_ms']:.5f} ms ({moved} bytes at 3.35 TB/s), share "
               f"{row['bound_share']:.4f} warm, {row['cold_bound_share']:.4f} cold; per call by "
@@ -970,6 +1096,9 @@ def main():
               f"{row['cold_device_ms']} ms below its bound {row['bound_ms']} ms")
         check(row["device_ms"] >= row["l2_bound_ms"], f"{name}: L2-warm device time "
               f"{row['device_ms']} ms below the L2's ceiling {row['l2_bound_ms']} ms")
+        if name in SINGLE_LAUNCH:
+            check(launches_per_call == 1, f"{name}: {launches_per_call} device-side launches a "
+                  f"call, the single-pass design has 1")
         if row["bound_share"] > 1.0:
             print(f"  note: {name} L2-warm is faster than the device memory allows "
                   f"(share {row['bound_share']:.4f}): its tensors never left the L2", flush=True)
