@@ -31,6 +31,9 @@
 //                tiles of the merged order, each block finding its own two
 //                splits.  Replaces count_le_sorted (_count_le_kernel).
 //
+// Every time in these notes is device time at M = n = 1M on an NVIDIA H100
+// 80GB HBM3 at a 700 W power limit, read by chip_smoke.py.
+//
 // What bounds them on the card is memory traffic, not arithmetic, and below a
 // few megabytes the latency of one block's chain of dependent steps.  At
 // M = n = 1M: B1 and B6 read their input once (4 MB) and write 4 MB in one
@@ -38,10 +41,12 @@
 // time, and writes anc (see "B2 tile decode"); B3 reads anc and the source
 // rows and writes the rows (12 MB at D = 1); B7 and B8 read s and t once each
 // into shared memory and write the counts (12 MB; see "B7 tile search" and
-// "B8 merge path"); B4 reads each tile's owner extents once (plus two
-// searches) and the source rows and writes anc and the rows, B3's traffic
-// without B2's in between; B5 reads f once and makes two passes over anc
-// (8 MB + 12 MB).
+// "B8 merge path"); B4 reads each tile's owner extents once, as B2 does, and
+// the source rows, and writes the clipped anc and the rows (16 MB at D = 1),
+// B3's traffic without B2's unclipped anc written and read in between (see
+// "B4 decode, then move"); B5 reads f once, marks the run ends in a scratch,
+// and makes one pass that reads the marks, clears them and writes anc (8 MB
+// in and out, 8 MB more to and from the scratch; see "B5 counting").
 // The design keeps every access either coalesced or L2-resident, and does no
 // per-row run-length scatter to device memory, so a single survivor that owns
 // every slot costs no more than uniform weights.
@@ -110,7 +115,7 @@
 // run as B7 does was 1.4 us slower at 1M, 7.3 against 5.9, and 0.2 us faster
 // on a window of 250k; tiles of 2048 slots were slower in both forms.)  A run
 // longer than the staging buffer (many zero-offspring rows between two owners)
-// is searched in global memory between the same two bounds, as B4 and B7 do,
+// is searched in global memory between the same two bounds, as B7 does,
 // so the count is exact for every nondecreasing f.  A tile owned by one row
 // has an empty run and costs only the two searches.
 //
@@ -138,7 +143,7 @@
 // move as coalesced 128-byte rows.  A run longer than the staging
 // buffer (a tile whose thresholds jump over many s: one particle holding most
 // of the weight) is searched in global memory between the same two bounds, as
-// B4 does.  Thresholds that are all equal, or all inside one gap of s, have an
+// B2 does.  Thresholds that are all equal, or all inside one gap of s, have an
 // empty or one-entry run and cost less than the uniform case.
 //
 // B8 merge path.  The merge path (Green, McColl, Bader 2012) cuts the merged
@@ -164,22 +169,56 @@
 // would add nothing at 2M merged entries, where every tile is resident at
 // once.
 //
-// B4 owner ranges.  The owners of a tile of consecutive output slots are a
-// contiguous run of rows [j0, j1], j0 and j1 the owners of the tile's first and
-// last slot (two binary searches over the whole f).  When that run fits in
-// shared memory its extents are staged there and every slot searches only the
-// run; a skewed tile whose run is longer (many zero-offspring rows between two
-// owners) searches the run in global memory instead.  Either way the count is
-// exact and the rows move as 32-bit words.  The TPU staircase's compare masks,
-// which stood in for the missing per-lane gather, are not carried over.
+// B4 decode, then move.  A block decodes its tile of kDecodeMoveTile slots by
+// the very function B2's kernel calls (decode_tile: the two owners by the
+// 32-way search, the owner run staged with 16-byte cp.async copies and the
+// guard put in place of row M-1, run ends marked at the slot of their extent,
+// a block max-scan; a run longer than the stage searched in global memory), so
+// a slot's owner is the same instructions in both and B4 is B2 + B3 bit for
+// bit.  The counts stay in registers, four consecutive slots a thread.  For
+// one column the thread gathers its four rows and stores them and the clipped
+// owners as two 16-byte words; nothing goes through shared memory again.  For
+// D columns the tile's rows are contiguous in out, so the counts go back into
+// the tile's shared array and consecutive threads write consecutive words (16
+// bytes each where D is a multiple of four and v is aligned), slot and column
+// of a word found with 32-bit arithmetic inside the tile.  The earlier kernel
+// found its owners with two serial binary searches by two threads, staged up
+// to 8192 rows with 4-byte loads, searched the staged run once per slot and
+// divided a 64-bit index for every word; it took 1.7 times as long as B2 + B3 in
+// two launches though it moved 8 MB less.  1024 slots a block at 32 registers a
+// thread keep all 977 blocks of 1M resident at once (8 an SM), so one block's
+// gather hides behind the others' decode chains; at 40 registers (6 an SM) a
+// second short wave cost a third more time.  Blocks of 2048 slots were a third
+// slower for one column and up to a tenth faster for three or four.  The TPU
+// staircase's compare masks, which stood in for the missing per-lane gather,
+// are not carried over.
 //
 // B5 counting.  anc[k] = #{j : f_j <= k} is, for nondecreasing f, one more
 // than the last row whose extent is <= k.  Each run of equal extents ends at
 // one row j (j = M-1, or f_j < f_{j+1}); writing j + 1 at f_j (when f_j <
-// n_out) leaves a sparse array whose inclusive running max is anc.  Run ends
-// have distinct extents, so no two threads write one entry and no atomics are
-// needed.  The running max is a max-scan of each tile and a cross-tile carry
-// in three more launches.  Work is O(M + n_out), with no search.
+// n_out) leaves a sparse array of marks whose inclusive running max is anc.
+// Run ends have distinct extents, so no two threads write one entry and no
+// atomics are needed.  Work is O(M + n_out), with no search.  Two launches:
+// the scatter (one thread a row; four rows a thread from a 16-byte load were
+// a tenth slower, each thread then issuing four scattered stores in turn),
+// and one single-pass max-scan on the machinery of B1 and B6: a tile of
+// kDenseTile slots loads its marks with 16-byte loads, scans them in
+// registers and across the block, publishes its largest mark under the
+// launch's epoch, takes the largest of the tiles before it by warp_lookback
+// and stores anc with 16-byte stores.  Every mark lies between the two
+// launches, so the kernel boundary is the barrier the counting needs.  (One
+// cooperative launch with a grid barrier in its place, every block publishing
+// the epoch and polling every other's, took 22 us of device time against 12,
+// though 10 us less of the host's.)  The marks live in a scratch the wrapper
+// keeps per device and stream, zero between calls: the scan clears each word
+// it has read, which takes the place of a memset of anc before every call
+// (and of the scan reading anc back).  The earlier form was that memset and
+// four launches (scatter, a max-scan of each tile in place with 4-byte
+// accesses, a one-block scan of the tile maxima, a carry pass).  The scan
+// shares B1's and B6's look-back scratch: a launch reads only what was
+// published under its own epoch, so launches in turn on one stream never see
+// each other's values.  The launch is cooperative and no larger than the card
+// holds, for the same reason as B1's.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -191,21 +230,20 @@ namespace {
 constexpr int kThreads = 256;              // threads per tile block
 constexpr int kItems = 8;                  // consecutive elements per thread
 constexpr int kTile = kThreads * kItems;   // elements per tile
-constexpr int kScanThreads = 1024;         // single-block cross-tile scans
-constexpr int kMoveThreads = 256;          // B3, B5: one thread per output
+constexpr int kMoveThreads = 256;          // B3, and B5's scatter
 constexpr int kDecodeThreads = 256;        // B2
 constexpr int kDecodeItems = 4;            // output slots per B2 thread
 constexpr int kDecodeTile = kDecodeThreads * kDecodeItems;
-constexpr int kDecodeStage = 4096;         // owner extents staged per B2 block (16 KB)
+constexpr int kDecodeStage = 4096;         // owner extents staged per B2 or B4 block (16 KB)
 constexpr int kCountThreads = 256;         // B7
 constexpr int kCountItems = 4;             // thresholds a thread searches together
 constexpr int kCountTile = kCountThreads * kCountItems;
 constexpr int kCountStage = 4096;          // entries of s staged per B7 block (16 KB)
 constexpr int kMergeThreads = 256;         // B8
 constexpr int kMergeTile = 4096;           // merged entries per B8 block (16 KB of s at most)
-constexpr int kDecodeMoveThreads = 256;    // B4
-constexpr int kDecodeMoveSlots = 1024;     // output slots per B4 block
-constexpr int kDecodeMoveRows = 8192;      // owner extents staged per B4 block (32 KB)
+constexpr int kDecodeMoveTile = kDecodeTile;  // output slots per B4 block: B2's tile
+constexpr int kDecodeMoveBlocks = 8;       // B4 blocks an SM: 32 registers a thread
+constexpr int kDenseTile = kTile;          // slots per tile of B5's scan
 
 struct Add {
   template <typename T>
@@ -251,7 +289,7 @@ __device__ T block_exclusive_scan(T v, T identity, Op op, T* smem, T* total) {
   return excl;
 }
 
-// ---- Pieces shared by the scan, B2, B7 and B8.
+// ---- Pieces shared by the scans, B2, B4, B7 and B8.
 
 constexpr unsigned kFullWarp = 0xffffffffu;
 
@@ -333,7 +371,7 @@ __device__ __forceinline__ void upper_bound_uniform(Load r, int len, const T (&t
   for (int i = 0; i < K; ++i) cnt[i] += !(r(cnt[i]) > t[i]) ? 1 : 0;
 }
 
-// ---- The epilogues of B1 and B6, and the cross-tile max carry that B5 keeps
+// ---- The epilogues of B1 and B6
 
 // B1's epilogue: the systematic extent of a double prefix.
 struct ExtentsEpilogue {
@@ -368,46 +406,8 @@ struct ScaleEpilogue {
   }
 };
 
-// B5: single-block exclusive scan over the per-tile values.  Each thread folds
-// a contiguous run of tiles sequentially, then one block scan joins the runs.
-template <typename T, typename Op>
-__global__ void tiles_exclusive_scan(const T* __restrict__ in, T* __restrict__ out,
-                                     int ntiles, T identity, Op op) {
-  __shared__ T smem[32];
-  const int per = (ntiles + blockDim.x - 1) / blockDim.x;
-  const int lo = threadIdx.x * per;
-  const int hi = min(lo + per, ntiles);
-  T local = identity;
-  for (int i = lo; i < hi; ++i) local = op(local, in[i]);
-  T run = block_exclusive_scan(local, identity, op, smem, (T*)nullptr);
-  for (int i = lo; i < hi; ++i) {
-    out[i] = run;
-    run = op(run, in[i]);
-  }
-}
-
-// B5: raise each tile to the largest value of the tiles before it.  A tile
-// is already max-scanned, so its first value is its smallest: when that is not
-// below the carry the tile is left alone.
-template <typename T>
-__global__ void prefix_carry(T* __restrict__ out, int64_t len,
-                             const T* __restrict__ tile_carry) {
-  __shared__ bool below;
-  const T carry = tile_carry[blockIdx.x];
-  const int64_t first_of_tile = (int64_t)blockIdx.x * kTile;
-  // Read the tile's first value before any thread raises it.
-  if (threadIdx.x == 0) below = out[first_of_tile] < carry;
-  __syncthreads();
-  if (!below) return;
-  const int64_t first = first_of_tile + (int64_t)threadIdx.x * kItems;
-#pragma unroll
-  for (int i = 0; i < kItems; ++i) {
-    const int64_t j = first + i;
-    if (j < len && out[j] < carry) out[j] = carry;
-  }
-}
-
-// ---- The single-pass scan of B1 and B6 (see "B1/B6 single pass") -----------
+// ---- The single-pass scan of B1 and B6 (see "B1/B6 single pass"), whose
+// look-back B5 shares -------------------------------------------------------
 
 constexpr int kScanLevels = 4;  // 32^4 tiles: more than an int32 length holds
 
@@ -628,6 +628,20 @@ inline int resident_blocks(const void* kernel, int (&cache)[64]) {
   return cache[dev];
 }
 
+// Launch `kernel` (a scan over `tiles` tiles that looks back through a scratch
+// for `cap` tiles) cooperatively, on no more blocks than the device holds at
+// once; `resident` is the kernel's own cache for resident_blocks().
+inline int launch_scan(const void* kernel, int (&resident)[64], int64_t tiles, int64_t cap,
+                       unsigned long long epoch, void** args, cudaStream_t s) {
+  if (tiles > cap || tiles >= (int64_t)1 << 31 || epoch == 0) return (int)cudaErrorInvalidValue;
+  const int room = resident_blocks(kernel, resident);
+  if (room <= 0) return (int)cudaErrorLaunchOutOfResources;
+  const unsigned grid = (unsigned)(tiles < room ? tiles : room);
+  const cudaError_t err =
+      cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(kThreads), args, 0, s);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+
 // scratch: aps_scan_scratch_words(cap) 8-byte words, 16-byte aligned, zero
 // when allocated and then written by these launches alone, each with a larger
 // epoch (> 0) than the one before; cap >= ntiles.
@@ -636,17 +650,12 @@ int prefix_scan(const float* x, int64_t len, const float* mx, Epi epi, void* scr
                 int64_t cap, unsigned long long epoch, typename Epi::T* out, cudaStream_t s) {
   static int resident[64] = {};
   const int64_t tiles = (len + kTile - 1) / kTile;
-  if (tiles > cap || tiles >= (int64_t)1 << 31 || epoch == 0) return (int)cudaErrorInvalidValue;
-  const void* kernel = (const void*)prefix_scan_kernel<kUseExp, Epi>;
-  const int room = resident_blocks(kernel, resident);
-  if (room <= 0) return (int)cudaErrorLaunchOutOfResources;
   int ntiles = (int)tiles;
   ulonglong2* slots = (ulonglong2*)scratch;
   typename Epi::T* out_arg = out;
   void* args[] = {&x, &len, &mx, &epi, &slots, &cap, &epoch, &ntiles, &out_arg};
-  const unsigned grid = (unsigned)(tiles < room ? tiles : room);
-  const cudaError_t err = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(kThreads), args, 0, s);
-  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+  return launch_scan((const void*)prefix_scan_kernel<kUseExp, Epi>, resident, tiles, cap, epoch,
+                     args, s);
 }
 
 // Extent j with f[m-1] read as `guard`.
@@ -655,34 +664,30 @@ __device__ __forceinline__ int extent_at(const int* __restrict__ f, int64_t j, i
   return j == m - 1 ? guard : __ldg(f + j);
 }
 
-// First row j in [lo, hi) whose extent exceeds slot s, or hi: for
-// nondecreasing f, #{j < hi : f_j <= s} when every row below lo has f_j <= s.
-__device__ int64_t upper_bound_rows(const int* __restrict__ f, int64_t lo, int64_t hi,
-                                    int64_t m, int guard, int64_t s) {
-  while (lo < hi) {
-    const int64_t mid = (lo + hi) >> 1;
-    if ((int64_t)extent_at(f, mid, m, guard) > s) hi = mid; else lo = mid + 1;
-  }
-  return lo;
-}
+// ---- The tile decode of B2 and B4 (see "B2 tile decode").
 
-// ---- B2: one block per kDecodeTile consecutive output slots (see "B2 tile
-// decode").
-__global__ void __launch_bounds__(kDecodeThreads)
-decode_tile_kernel(const int* __restrict__ f, int64_t m, int guard, int64_t start,
-                   int64_t n_out, int* __restrict__ anc) {
-  __shared__ __align__(16) int run_f[kDecodeStage + 4];
-  __shared__ __align__(16) int slot_cnt[kDecodeTile];
-  __shared__ int smem[32];
-  __shared__ int64_t owner[2];
+// Shared memory of one block's decode of kDecodeTile slots.
+struct DecodeTile {
+  __align__(16) int run_f[kDecodeStage + 4];
+  __align__(16) int slot_cnt[kDecodeTile];
+  int scan[32];
+  int64_t owner[2];
+};
+
+// The counts of the tile's slots s0 .. s0 + nk - 1 (1 <= nk <= kDecodeTile):
+// on return cnt[i] = #{j : f_j <= s0 + k} for slot k = kDecodeItems *
+// threadIdx.x + i of the tile, f[m-1] read as `guard` (for k >= nk a count of
+// no meaning, in [0, m]).  Called by the whole block (kDecodeThreads threads);
+// ends with a barrier, after which `sh` is free.
+__device__ __forceinline__ void decode_tile(const int* __restrict__ f, int64_t m, int guard,
+                                            int64_t s0, int nk, DecodeTile& sh,
+                                            int (&cnt)[kDecodeItems]) {
+  static_assert(kDecodeItems % 4 == 0, "a thread's slots move as 16-byte words");
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int64_t k0 = (int64_t)blockIdx.x * kDecodeTile;
-  const int nk = (int)(n_out - k0 < kDecodeTile ? n_out - k0 : kDecodeTile);
-  const int64_t s0 = start + k0;  // the tile's first slot
 #pragma unroll
   for (int q = 0; q < kDecodeItems / 4; ++q) {
-    reinterpret_cast<int4*>(slot_cnt)[q * kDecodeThreads + threadIdx.x] = make_int4(0, 0, 0, 0);
+    reinterpret_cast<int4*>(sh.slot_cnt)[q * kDecodeThreads + threadIdx.x] = make_int4(0, 0, 0, 0);
   }
   if (warp < 2) {
     // Warp 0 counts the rows whose extent is <= the first slot, warp 1 those
@@ -690,171 +695,236 @@ decode_tile_kernel(const int* __restrict__ f, int64_t m, int guard, int64_t star
     const int64_t s = warp == 0 ? s0 : s0 + nk - 1;
     const int64_t c = warp_partition_point(
         0, m, [&](int64_t j) { return (int64_t)extent_at(f, j, m, guard) <= s; });
-    if (lane == 0) owner[warp] = c;
+    if (lane == 0) sh.owner[warp] = c;
   }
   __syncthreads();
   // Rows below j0 have f <= the first slot, rows from j1 on f > the last:
   // each slot's count is j0 plus its count within [j0, j1), whose extents lie
   // in (s0, s0 + nk - 1].
-  const int64_t j0 = owner[0], j1 = owner[1];
+  const int64_t j0 = sh.owner[0], j1 = sh.owner[1];
   const int j0i = (int)j0;
   const int run = (int)(j1 - j0);
-  int* tile_anc = anc + k0;
 
   if (run > kDecodeStage) {
     // A skewed tile: search the run where it lies.  Item i of thread x is
     // slot i * kDecodeThreads + x, so a warp's lanes hold neighbouring slots.
     // An extent is an int, so it is <= a slot exactly when it is <= the slot
-    // cut to the largest int.
+    // cut to the largest int.  The counts go where the marks would: they are
+    // nondecreasing, so the running max below leaves them as they are.
     int tv[kDecodeItems];
-    int cnt[kDecodeItems];
+    int found[kDecodeItems];
 #pragma unroll
     for (int i = 0; i < kDecodeItems; ++i) {
       const int k = i * kDecodeThreads + threadIdx.x;
       const int64_t s = s0 + (k < nk ? k : 0);
       tv[i] = (int)(s < (int64_t)INT_MAX ? s : (int64_t)INT_MAX);
     }
-    upper_bound_uniform([&](int q) { return extent_at(f, j0 + q, m, guard); }, run, tv, cnt);
+    upper_bound_uniform([&](int q) { return extent_at(f, j0 + q, m, guard); }, run, tv, found);
 #pragma unroll
     for (int i = 0; i < kDecodeItems; ++i) {
       const int k = i * kDecodeThreads + threadIdx.x;
-      if (k < nk) tile_anc[k] = j0i + cnt[i];
+      if (k < nk) sh.slot_cnt[k] = found[i];
     }
-    return;
-  }
-
-  if (run > 0) {
+    __syncthreads();
+  } else if (run > 0) {
     // Row m - 1 is in the run exactly when j1 == m: the guard takes its place
     // in the staged copy.
     const int64_t hi = j1 == m ? m - 1 : j1;
-    const int off = stage_run(run_f, f, j0, hi);
-    if (j1 == m && threadIdx.x == 0) run_f[off + (int)(m - 1 - j0)] = guard;
+    const int off = stage_run(sh.run_f, f, j0, hi);
+    if (j1 == m && threadIdx.x == 0) sh.run_f[off + (int)(m - 1 - j0)] = guard;
     cp_async_wait_all();
     __syncthreads();
-    const int* r = run_f + off;
+    const int* r = sh.run_f + off;
     // The last row of each run of equal extents marks the slot of its extent
     // with the rows counted up to it; the extents of run ends are distinct.
     for (int q = threadIdx.x; q < run; q += kDecodeThreads) {
       const int fq = r[q];
-      if (q + 1 == run || r[q + 1] > fq) slot_cnt[(int)((int64_t)fq - s0)] = q + 1;
+      if (q + 1 == run || r[q + 1] > fq) sh.slot_cnt[(int)((int64_t)fq - s0)] = q + 1;
     }
     __syncthreads();
   }
   // The running max of the marks is each slot's count within the run (all 0
   // for an empty run).  Thread x holds slots kDecodeItems * x and on: one
-  // 16-byte read of shared memory and one 16-byte store for every four.
-  int c[kDecodeItems];
+  // 16-byte read of shared memory for every four.
   int top = 0;
 #pragma unroll
   for (int q = 0; q < kDecodeItems / 4; ++q) {
     const int4 w =
-        reinterpret_cast<const int4*>(slot_cnt)[threadIdx.x * (kDecodeItems / 4) + q];
-    top = max(top, w.x); c[4 * q] = top;
-    top = max(top, w.y); c[4 * q + 1] = top;
-    top = max(top, w.z); c[4 * q + 2] = top;
-    top = max(top, w.w); c[4 * q + 3] = top;
+        reinterpret_cast<const int4*>(sh.slot_cnt)[threadIdx.x * (kDecodeItems / 4) + q];
+    top = max(top, w.x); cnt[4 * q] = top;
+    top = max(top, w.y); cnt[4 * q + 1] = top;
+    top = max(top, w.z); cnt[4 * q + 2] = top;
+    top = max(top, w.w); cnt[4 * q + 3] = top;
   }
-  const int before = block_exclusive_scan(top, 0, Max(), smem, (int*)nullptr);
-  const int kx = threadIdx.x * kDecodeItems;
-  if (kx + kDecodeItems <= nk && aligned16(tile_anc)) {
+  const int before = block_exclusive_scan(top, 0, Max(), sh.scan, (int*)nullptr);
+#pragma unroll
+  for (int i = 0; i < kDecodeItems; ++i) cnt[i] = j0i + max(before, cnt[i]);
+}
+
+// Store a thread's kDecodeItems consecutive 32-bit words at dst[kx ..], those
+// below nk: as 16-byte words where all are and dst is 16-byte aligned.
+template <typename T>
+__device__ __forceinline__ void store_slots(T* __restrict__ dst, int kx, int nk,
+                                            const T (&w)[kDecodeItems]) {
+  static_assert(sizeof(T) == 4, "store_slots moves 4-byte entries");
+  if (kx + kDecodeItems <= nk && aligned16(dst)) {
 #pragma unroll
     for (int q = 0; q < kDecodeItems / 4; ++q) {
-      reinterpret_cast<int4*>(tile_anc + kx)[q] =
-          make_int4(j0i + max(before, c[4 * q]), j0i + max(before, c[4 * q + 1]),
-                    j0i + max(before, c[4 * q + 2]), j0i + max(before, c[4 * q + 3]));
+      reinterpret_cast<uint4*>(dst + kx)[q] =
+          make_uint4((unsigned)w[4 * q], (unsigned)w[4 * q + 1], (unsigned)w[4 * q + 2],
+                     (unsigned)w[4 * q + 3]);
     }
   } else {
 #pragma unroll
     for (int i = 0; i < kDecodeItems; ++i) {
-      if (kx + i < nk) tile_anc[kx + i] = j0i + max(before, c[i]);
+      if (kx + i < nk) dst[kx + i] = w[i];
     }
   }
 }
 
-// ---- B4: one block per kDecodeMoveSlots output slots (see "B4 owner ranges").
-__global__ void decode_move_kernel(const int* __restrict__ f, int64_t m, int guard,
-                                   int64_t start, int64_t n_out,
-                                   const uint32_t* __restrict__ v, int64_t d,
-                                   uint32_t* __restrict__ out, int* __restrict__ anc_clipped) {
-  __shared__ int rows_f[kDecodeMoveRows];
-  __shared__ int slot_anc[kDecodeMoveSlots];
-  __shared__ int64_t owner[2];
-  const int64_t k0 = (int64_t)blockIdx.x * kDecodeMoveSlots;
-  const int nk = (int)(n_out - k0 < kDecodeMoveSlots ? n_out - k0 : kDecodeMoveSlots);
-  if (threadIdx.x < 2) {
-    const int64_t s = start + k0 + (threadIdx.x == 0 ? 0 : nk - 1);
-    owner[threadIdx.x] = upper_bound_rows(f, 0, m, m, guard, s);
-  }
-  __syncthreads();
-  // Rows below j0 have f <= the first slot, rows from j1 on f > the last
-  // slot, so each slot's count is j0 plus its count within [j0, j1).
-  const int64_t j0 = owner[0], j1 = owner[1];
-  const int64_t run = j1 - j0;
-  const bool staged = run <= kDecodeMoveRows;
-  if (staged) {
-    for (int i = threadIdx.x; i < run; i += blockDim.x) {
-      rows_f[i] = extent_at(f, j0 + i, m, guard);
-    }
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < nk; i += blockDim.x) {
-    const int64_t s = start + k0 + i;
-    int64_t a;
-    if (staged) {
-      int lo = 0, hi = (int)run;
-      while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        if ((int64_t)rows_f[mid] > s) hi = mid; else lo = mid + 1;
-      }
-      a = j0 + lo;
-    } else {
-      a = upper_bound_rows(f, j0, j1, m, guard, s);
-    }
-    slot_anc[i] = (int)a;
-    anc_clipped[k0 + i] = a < m ? (int)a : (int)(m - 1);
-  }
-  __syncthreads();
-  // The tile's rows are contiguous in out: consecutive threads write
-  // consecutive words.
+// ---- B2: one block per kDecodeTile consecutive output slots.
+__global__ void __launch_bounds__(kDecodeThreads)
+decode_tile_kernel(const int* __restrict__ f, int64_t m, int guard, int64_t start,
+                   int64_t n_out, int* __restrict__ anc) {
+  __shared__ DecodeTile sh;
+  const int64_t k0 = (int64_t)blockIdx.x * kDecodeTile;
+  const int nk = (int)(n_out - k0 < kDecodeTile ? n_out - k0 : kDecodeTile);
+  int cnt[kDecodeItems];
+  decode_tile(f, m, guard, start + k0, nk, sh, cnt);
+  store_slots(anc + k0, threadIdx.x * kDecodeItems, nk, cnt);
+}
+
+// ---- B4: one block per kDecodeMoveTile consecutive output slots, B2's tile
+// (see "B4 decode, then move").
+__global__ void __launch_bounds__(kDecodeThreads, kDecodeMoveBlocks)
+decode_move_kernel(const int* __restrict__ f, int64_t m, int guard, int64_t start,
+                   int64_t n_out, const uint32_t* __restrict__ v, int d,
+                   uint32_t* __restrict__ out, int* __restrict__ anc_clipped) {
+  static_assert(kDecodeMoveTile == kDecodeTile, "B4 decodes its tile as B2 does");
+  __shared__ DecodeTile sh;
+  const int64_t k0 = (int64_t)blockIdx.x * kDecodeMoveTile;
+  const int nk = (int)(n_out - k0 < kDecodeMoveTile ? n_out - k0 : kDecodeMoveTile);
+  int a[kDecodeItems];
+  decode_tile(f, m, guard, start + k0, nk, sh, a);
+  const int kx = threadIdx.x * kDecodeItems;
+  const int rows = (int)m;  // m < 2^31
   uint32_t* tile_out = out + k0 * d;
-  for (int64_t e = threadIdx.x; e < (int64_t)nk * d; e += blockDim.x) {
-    const int64_t i = e / d;
-    const int a = slot_anc[i];
-    tile_out[e] = (int64_t)a < m ? __ldg(v + (int64_t)a * d + (e - i * d)) : 0u;
+  if (d == 1) {
+    // The rows of a thread's own slots, straight from its registers.
+    uint32_t w[kDecodeItems];
+#pragma unroll
+    for (int i = 0; i < kDecodeItems; ++i) {
+      w[i] = kx + i < nk && a[i] < rows ? __ldg(v + a[i]) : 0u;
+    }
+    store_slots(tile_out, kx, nk, w);
+  } else {
+    // The tile's rows are contiguous in out, nk * d < 2^31 words:
+    // consecutive threads write consecutive words (16 bytes each where d and
+    // the alignment allow), the owner of a word's slot read from shared
+    // memory.
+#pragma unroll
+    for (int q = 0; q < kDecodeItems / 4; ++q) {
+      reinterpret_cast<int4*>(sh.slot_cnt)[threadIdx.x * (kDecodeItems / 4) + q] =
+          make_int4(a[4 * q], a[4 * q + 1], a[4 * q + 2], a[4 * q + 3]);
+    }
+    __syncthreads();
+    if ((d & 3) == 0 && aligned16(v) && aligned16(tile_out)) {
+      const int d4 = d >> 2;
+      const uint4* v4 = reinterpret_cast<const uint4*>(v);
+      uint4* out4 = reinterpret_cast<uint4*>(tile_out);
+      for (int e = threadIdx.x; e < nk * d4; e += kDecodeThreads) {
+        const int i = e / d4;
+        const int owner = sh.slot_cnt[i];
+        out4[e] = owner < rows ? __ldg(v4 + (int64_t)owner * d4 + (e - i * d4))
+                               : make_uint4(0u, 0u, 0u, 0u);
+      }
+    } else {
+      for (int e = threadIdx.x; e < nk * d; e += kDecodeThreads) {
+        const int i = e / d;
+        const int owner = sh.slot_cnt[i];
+        tile_out[e] = owner < rows ? __ldg(v + (int64_t)owner * d + (e - i * d)) : 0u;
+      }
+    }
   }
+#pragma unroll
+  for (int i = 0; i < kDecodeItems; ++i) a[i] = min(a[i], rows - 1);
+  store_slots(anc_clipped + k0, kx, nk, a);
 }
 
 // ---- B5 pass 1: run ends write one more than their row at their extent
-// (see "B5 counting").  buf is zero on entry.
-__global__ void dense_run_ends(const int* __restrict__ f, int64_t m, int guard, int64_t n_out,
-                               int* __restrict__ buf) {
-  const int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+// (see "B5 counting").  marks is zero on entry.
+__global__ void __launch_bounds__(kMoveThreads)
+dense_run_ends_kernel(const int* __restrict__ f, int64_t m, int guard, int64_t n_out,
+                      int* __restrict__ marks) {
+  const int64_t j = (int64_t)blockIdx.x * kMoveThreads + threadIdx.x;
   if (j >= m) return;
   const int fj = extent_at(f, j, m, guard);
   const bool run_end = j == m - 1 || fj < extent_at(f, j + 1, m, guard);
-  if (run_end && fj >= 0 && (int64_t)fj < n_out) buf[fj] = (int)(j + 1);
+  if (run_end && fj >= 0 && (int64_t)fj < n_out) marks[fj] = (int)(j + 1);
 }
 
-// ---- B5 pass 2: in-place inclusive max-scan of each tile.  Writes the tile's largest value to tile_max.
-__global__ void max_scan_tiles(int* __restrict__ x, int64_t len, int* __restrict__ tile_max) {
+// ---- B5 pass 2: anc = the inclusive running max of marks over n_out slots, in
+// one pass (see "B5 counting"); marks (16-byte aligned) is left zero again.
+// Block b takes tiles b, b + gridDim.x, ... of a cooperative launch, as
+// prefix_scan_kernel does; `slots` and `epoch` as there.
+__global__ void __launch_bounds__(kThreads, 4)
+dense_scan_kernel(int* __restrict__ marks, int64_t n_out, ulonglong2* __restrict__ slots,
+                  int64_t cap, unsigned long long epoch, int ntiles, int* __restrict__ anc) {
   __shared__ int smem[32];
-  const int64_t first = (int64_t)blockIdx.x * kTile + (int64_t)threadIdx.x * kItems;
-  int v[kItems];
-  int run = 0;  // the values are >= 0
+  __shared__ int carry_s;
+  const bool vec_out = aligned16(anc);
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const int64_t first = (int64_t)tile * kDenseTile + (int64_t)threadIdx.x * kItems;
+    const bool whole = first + kItems <= n_out;
+    int v[kItems];
+    if (whole) {
+      int4* mp = reinterpret_cast<int4*>(marks + first);
 #pragma unroll
-  for (int i = 0; i < kItems; ++i) {
-    const int64_t j = first + i;
-    if (j < len) run = x[j] > run ? x[j] : run;
-    v[i] = run;
-  }
-  int tmax;
-  const int carry = block_exclusive_scan(run, 0, Max(), smem, threadIdx.x == 0 ? &tmax : nullptr);
+      for (int q = 0; q < kItems / 4; ++q) {
+        const int4 w = mp[q];
+        mp[q] = make_int4(0, 0, 0, 0);
+        v[4 * q] = w.x; v[4 * q + 1] = w.y; v[4 * q + 2] = w.z; v[4 * q + 3] = w.w;
+      }
+    } else {
 #pragma unroll
-  for (int i = 0; i < kItems; ++i) {
-    const int64_t j = first + i;
-    if (j < len) x[j] = v[i] > carry ? v[i] : carry;
+      for (int i = 0; i < kItems; ++i) {
+        v[i] = 0;
+        if (first + i < n_out) {
+          v[i] = marks[first + i];
+          marks[first + i] = 0;
+        }
+      }
+    }
+    int run = 0;  // a mark is one more than a row: > 0
+#pragma unroll
+    for (int i = 0; i < kItems; ++i) {
+      run = max(run, v[i]);
+      v[i] = run;
+    }
+    int tile_max = 0;
+    int carry = block_exclusive_scan(run, 0, Max(), smem, &tile_max);
+    if (threadIdx.x < 32) {
+      const int own = __shfl_sync(kFullWarp, tile_max, 0);
+      const int c = warp_lookback(slots, cap, epoch, tile, own, 0, Max());
+      if (threadIdx.x == 0) carry_s = c;
+    }
+    __syncthreads();
+    carry = max(carry, carry_s);
+#pragma unroll
+    for (int i = 0; i < kItems; ++i) v[i] = max(v[i], carry);
+    if (whole && vec_out) {
+      int4* dst = reinterpret_cast<int4*>(anc + first);
+#pragma unroll
+      for (int q = 0; q < kItems / 4; ++q) {
+        dst[q] = make_int4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < kItems; ++i) {
+        if (first + i < n_out) anc[first + i] = v[i];
+      }
+    }
   }
-  if (threadIdx.x == 0) tile_max[blockIdx.x] = tmax;
 }
 
 // ---- B3: one thread per output element (slot k, column c).  Values move as
@@ -1045,9 +1115,14 @@ int aps_scaled_prefix(const float* x, int64_t len, int use_exp, const float* mx,
                  : prefix_scan<false>(x, len, mx, epi, scratch, cap, epoch, out, s);
 }
 
-// The geometry of B2: 0 kDecodeTile, 1 kDecodeStage.
+// The geometry of the decodes: 0 kDecodeTile and 1 kDecodeStage (B2; B4 stages
+// as many), 2 kDecodeMoveTile (B4), 3 kDenseTile (B5's scan).
 int aps_decode_geometry(int which) {
-  return which == 0 ? kDecodeTile : which == 1 ? kDecodeStage : -1;
+  return which == 0   ? kDecodeTile
+         : which == 1 ? kDecodeStage
+         : which == 2 ? kDecodeMoveTile
+         : which == 3 ? kDenseTile
+                      : -1;
 }
 
 // B2.  f int32[m] nondecreasing (f[m-1] read as guard), m < 2^31; anc
@@ -1060,33 +1135,40 @@ int aps_decode_ancestors(const int* f, int64_t m, int guard, int64_t start, int6
   return (int)cudaGetLastError();
 }
 
-// B4.  f as for B2; v 32-bit words [m, d]; out [n_out, d] (0 past the
-// population); anc_clipped int32[n_out], the counts clipped to m - 1.
+// B4.  f as for B2; v 32-bit words [m, d], 1 <= d <= 2^19 (a tile's words
+// are counted in an int); out [n_out, d] (0 past the population); anc_clipped
+// int32[n_out], the counts clipped to m - 1.
 int aps_decode_move(const int* f, int64_t m, int guard, int64_t start, int64_t n_out,
                     const void* v, int64_t d, void* out, int* anc_clipped, void* stream) {
+  if (d < 1 || d > (1 << 19)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  decode_move_kernel<<<blocks_for(n_out, kDecodeMoveSlots), kDecodeMoveThreads, 0, s>>>(
-      f, m, guard, start, n_out, (const uint32_t*)v, d, (uint32_t*)out, anc_clipped);
+  decode_move_kernel<<<blocks_for(n_out, kDecodeMoveTile), kDecodeThreads, 0, s>>>(
+      f, m, guard, start, n_out, (const uint32_t*)v, (int)d, (uint32_t*)out, anc_clipped);
   return (int)cudaGetLastError();
 }
 
 // B5.  f int32[m] >= 0, nondecreasing (f[m-1] read as guard); anc
-// int32[n_out], n_out >= 1; iscratch int32[2 * ntiles],
-// ntiles = ceil(n_out / aps_prefix_tile_size()).
-int aps_decode_ancestors_dense(const int* f, int64_t m, int guard, int64_t n_out,
-                               int* iscratch, int* anc, void* stream) {
+// int32[n_out], n_out >= 1; marks int32[>= n_out], 16-byte aligned, zero on
+// entry and zero again when the launches have run; scratch, cap and epoch as
+// for B1, cap >= ceil(n_out / aps_decode_geometry(3)).
+int aps_decode_ancestors_dense(const int* f, int64_t m, int guard, int64_t n_out, int* marks,
+                               void* scratch, int64_t cap, uint64_t epoch, int* anc,
+                               void* stream) {
+  static int resident[64] = {};
   cudaStream_t s = (cudaStream_t)stream;
-  const int ntiles = (int)((n_out + kTile - 1) / kTile);
-  int* tile_max = iscratch;
-  int* tile_carry = iscratch + ntiles;
-  cudaError_t err = cudaMemsetAsync(anc, 0, (size_t)n_out * sizeof(int), s);
+  const int64_t tiles = (n_out + kDenseTile - 1) / kDenseTile;
+  // Refused before anything is marked: a scatter with no scan behind it would
+  // leave the marks set.
+  if (tiles > cap || epoch == 0) return (int)cudaErrorInvalidValue;
+  dense_run_ends_kernel<<<blocks_for(m, kMoveThreads), kMoveThreads, 0, s>>>(
+      f, m, guard, n_out, marks);
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  dense_run_ends<<<blocks_for(m, kMoveThreads), kMoveThreads, 0, s>>>(f, m, guard, n_out, anc);
-  max_scan_tiles<<<ntiles, kThreads, 0, s>>>(anc, n_out, tile_max);
-  tiles_exclusive_scan<int, Max><<<1, kScanThreads, 0, s>>>(tile_max, tile_carry, ntiles, 0,
-                                                            Max());
-  prefix_carry<int><<<ntiles, kThreads, 0, s>>>(anc, n_out, tile_carry);
-  return (int)cudaGetLastError();
+  int ntiles = (int)tiles;
+  ulonglong2* slots = (ulonglong2*)scratch;
+  unsigned long long ep = epoch;
+  void* args[] = {&marks, &n_out, &slots, &cap, &ep, &ntiles, &anc};
+  return launch_scan((const void*)dense_scan_kernel, resident, tiles, cap, ep, args, s);
 }
 
 // B3.  anc int32[n_out] in [0, m]; v 32-bit words [m, d]; out [n_out, d];

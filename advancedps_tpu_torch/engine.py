@@ -19,7 +19,7 @@ through the kernels of :mod:`advancedps_tpu_torch.ops.resample`:
   B6 thresholds ``cdf·S_n``, B7 (or B8) merge-count;
 
 then the decode and move of :func:`~advancedps_tpu_torch.ops.resample.resample_move_f`
-(B2 + B3, B4, or B5 + a gather, by ``ops.resample.MOVE_VERSION``).  Any other
+(B4, B2 + B3, or B5 + a gather, by ``ops.resample.MOVE_VERSION``).  Any other
 resampler (residual, or a user's) returns its ancestors and the state is
 gathered by them.
 

@@ -1,6 +1,6 @@
 """Resampling kernels: the counterpart of ``advancedps_tpu/ops/pallas_resample.py``.
 
-Systematic resampling runs three kernels per firing:
+Systematic resampling is three functions per firing:
 
 * B1 :func:`extents_from_logw` — log-weights to nondecreasing int32 extents
   ``f_j = clip(ceil(n·cumsum(exp(logw − m))/s1 − u), 0, n)``;
@@ -11,9 +11,11 @@ Systematic resampling runs three kernels per firing:
 
 Two more kernels compute the same decode in other forms:
 
-* B4 :func:`decode_move` — B2 and B3 fused into one pass over an output
-  window;
-* B5 :func:`decode_ancestors_dense` — B2 by counting, with no search.
+* B4 :func:`decode_move` — B2 and B3 in one launch over an output window,
+  each block decoding its slots as B2's does and moving their rows from
+  registers; what the sweep runs after B1;
+* B5 :func:`decode_ancestors_dense` — B2 by counting, with no search: a
+  scatter of the run ends and one single-pass max-scan.
 
 Stratified and multinomial resampling reach the decode through extents built
 from two more primitives:
@@ -27,8 +29,8 @@ from two more primitives:
   (:data:`COUNT_LE_SORTED`).
 
 :func:`resample_move_f` is the decode + move the sweep runs on a firing;
-:data:`MOVE_VERSION` picks B2 + B3 (6), B4 (1) or B5 + a gather (0), as the
-JAX package's ``APS_MOVE_VERSION`` does.  :func:`resample_move_window_fext`
+:data:`MOVE_VERSION` picks B4 (1, the default), B2 + B3 (6) or B5 + a gather
+(0), as the JAX package's ``APS_MOVE_VERSION`` does.  :func:`resample_move_window_fext`
 and :func:`resample_move_window` decode and move one output window, as the
 sharded exchange does.
 
@@ -72,6 +74,8 @@ __all__ = [
     "MERGE_TILE",
     "DECODE_TILE",
     "DECODE_STAGE",
+    "DECODE_MOVE_TILE",
+    "DENSE_TILE",
     "PREFIX_TILE",
     "PREFIX_GROUP",
     "resample_move_f",
@@ -81,12 +85,16 @@ __all__ = [
     "systematic_decode",
     "COUNT_LE_SORTED",
     "MOVE_VERSION",
+    "MAX_DECODE_MOVE_D",
     "KERNEL_WRAPPERS",
     "reset_launch_counts",
 ]
 
 #: Extents are computed in float32; larger counts are not exact there.
 MAX_N = 1 << 24
+
+#: B4 counts the words of one block's rows in an int32.
+MAX_DECODE_MOVE_D = 1 << 19
 
 #: Which merge-count :func:`count_le_sorted_auto` runs: ``"bs"`` (B7, the
 #: search; the default, as in the JAX package) or ``"merge"`` (B8, merge
@@ -108,17 +116,27 @@ MERGE_TILE = 4096
 DECODE_TILE = 1024
 DECODE_STAGE = 4096
 
+#: The geometry of B4 and B5: output slots per B4 block (it stages
+#: :data:`DECODE_STAGE` owner extents, as B2 does) and slots per tile of B5's
+#: scan (``aps_decode_geometry`` 2 and 3).
+DECODE_MOVE_TILE = 1024
+DENSE_TILE = 2048
+
 #: The geometry of the scan of B1 and B6: elements per tile
 #: (``aps_prefix_tile_size``), and tiles per group of the cross-tile
 #: combination (a group's total stands one level up, for 32 groups in turn).
 PREFIX_TILE = 2048
 PREFIX_GROUP = 32
 
-#: Which decode + move :func:`resample_move_f` runs: ``6`` (B2 then B3, the
-#: default, as in the JAX package), ``1`` (B4) or ``0`` (B5, then a gather).
+#: Which decode + move :func:`resample_move_f` runs: ``1`` (B4, one launch;
+#: the default), ``6`` (B2 then B3, the JAX package's default) or ``0`` (B5,
+#: then a gather).  All three give the same sweep bit for bit; on an NVIDIA
+#: H100 80GB HBM3 at a 700 W power limit one firing's decode + move at 1M takes
+#: 6.8 us of device time under 1, 11.1 under 6 and 20-22 under 0
+#: (``chip_smoke.py`` phase 7 reads the three in turns).
 #: The JAX package chooses by the ``APS_MOVE_VERSION`` environment variable;
 #: here it is set in code.  Windowed calls run version 1 for version 0.
-MOVE_VERSION = 6
+MOVE_VERSION = 1
 _MOVE_VERSIONS = (0, 1, 6)
 
 
@@ -264,10 +282,17 @@ def _raise_on(rc: int, what: str):
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
 
 
-#: The scan scratch of B1 and B6 by (device index, stream): [tiles it serves,
-#: int64 words, launches so far].  Zero when allocated; from then on only the
-#: scan's launches on that stream write it, each under its own epoch.
+#: The scan scratch of B1, B6 and B5 by (device index, stream): [tiles it
+#: serves, int64 words, launches so far].  Zero when allocated; from then on
+#: only the scans' launches on that stream write it, each under its own epoch:
+#: a launch reads a published value only under its own epoch, so B1, B5 and B6
+#: in turn on one stream never read each other's, and two streams have a
+#: scratch each.
 _SCAN_SCRATCH: dict = {}
+
+#: B5's marks by (device index, stream): int32, zero when allocated and zero
+#: again after every call (the scan clears each mark it reads).
+_DENSE_MARKS: dict = {}
 
 
 def _scan_scratch(device: torch.device, length: int):
@@ -286,6 +311,18 @@ def _scan_scratch(device: torch.device, length: int):
         _SCAN_SCRATCH[key] = entry
     entry[2] += 1
     return entry[1], entry[0], entry[2]
+
+
+def _dense_marks(device: torch.device, n_out: int) -> torch.Tensor:
+    """B5's zeroed marks for ``n_out`` slots on the current stream of
+    ``device``, grown (and zeroed anew) when too short."""
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    marks = _DENSE_MARKS.get(key)
+    if marks is None or marks.numel() < n_out:
+        marks = torch.zeros(max(1 << 20, 1 << (n_out - 1).bit_length()), dtype=torch.int32,
+                            device=device)
+        _DENSE_MARKS[key] = marks
+    return marks
 
 
 def extents_from_logw(logw, m, s1, u: float, n: int) -> torch.Tensor:
@@ -358,7 +395,14 @@ def decode_ancestors_dense(f, n_out: int, guard: Optional[int] = None) -> torch.
     """B5: the same counts as :func:`decode_ancestors` for the whole
     population, by counting instead of searching: each run of equal extents
     marks its end, and a running max fills the slots between.  ``f`` must be
-    nonnegative (extents are)."""
+    nonnegative (extents are).
+
+    Two launches: the run ends are scattered into a zeroed scratch kept per
+    device and stream, then one single-pass max-scan over tiles of
+    :data:`DENSE_TILE` slots reads the marks, clears them behind itself and
+    writes the counts, each tile taking the largest mark of the tiles before
+    it through the scan scratch that B1 and B6 use, under this launch's epoch.
+    """
     _check_extents(f, 0)
     g = _guard_of(n_out, guard, 0)
     if _on_cpu(f):
@@ -367,12 +411,15 @@ def decode_ancestors_dense(f, n_out: int, guard: Optional[int] = None) -> torch.
     if n_out == 0:
         return anc
     lib = _build.library()
-    ntiles = -(-n_out // lib.aps_prefix_tile_size())
-    iscratch = torch.empty(2 * ntiles, dtype=torch.int32, device=f.device)
     with torch.cuda.device(f.device):
+        marks = _dense_marks(f.device, n_out)
+        scratch, cap, epoch = _scan_scratch(f.device, n_out)
         rc = lib.aps_decode_ancestors_dense(
-            _ptr(f), f.numel(), g, int(n_out), _ptr(iscratch), _ptr(anc), _stream(f.device),
+            _ptr(f), f.numel(), g, int(n_out), _ptr(marks), _ptr(scratch), cap, epoch,
+            _ptr(anc), _stream(f.device),
         )
+        if rc != 0:  # the marks may be left set: the next call takes new ones
+            _DENSE_MARKS.clear()
     _raise_on(rc, "decode_ancestors_dense")
     decode_ancestors_dense.launches += 1
     return anc
@@ -416,16 +463,22 @@ def move_rows(anc, v):
 
 
 def decode_move(f, v, n_out: int, guard: Optional[int] = None, start: int = 0):
-    """B4: :func:`decode_ancestors` and :func:`move_rows` in one pass.
+    """B4: :func:`decode_ancestors` and :func:`move_rows` in one launch.
 
     ``f`` int32 ``[M]`` extents, ``v`` float32 ``[M]`` or ``[M, D]`` rows;
     decodes the output slots ``[start, start + n_out)`` with ``f[M−1]`` read
     as ``guard`` (as :func:`decode_ancestors`) and returns ``(anc clipped to
     M−1, moved)``, ``moved`` a bitwise copy of the owner rows with 0 past the
-    drawn population.
+    drawn population.  Each block decodes :data:`DECODE_MOVE_TILE` slots by
+    the function B2's block runs, so the result is that of B2 then B3 bit
+    for bit, and moves the rows of its slots without writing the unclipped
+    owners in between.
     """
     _check_extents(f, start)
     _check_rows(v, f.numel())
+    d = 1 if v.dim() == 1 else v.shape[1]
+    if not 1 <= d <= MAX_DECODE_MOVE_D:
+        raise ValueError(f"v must have 1 to {MAX_DECODE_MOVE_D} columns, got {d}")
     g = _guard_of(n_out, guard, start)
     if _on_cpu(f, v):
         return decode_move_ref(f, v, n_out, g, start)
@@ -433,7 +486,6 @@ def decode_move(f, v, n_out: int, guard: Optional[int] = None, start: int = 0):
     anc_clipped = torch.empty(n_out, dtype=torch.int32, device=v.device)
     if n_out == 0:
         return anc_clipped, out
-    d = 1 if v.dim() == 1 else v.shape[1]
     lib = _build.library()
     with torch.cuda.device(v.device):
         rc = lib.aps_decode_move(

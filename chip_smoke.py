@@ -19,12 +19,16 @@ final line:
    the edges of their own geometry, read back from the built library: sizes
    one short of, equal to and one past a tile, a tile whose run of s is one
    short of, exactly and one past the staging buffer from an unaligned start,
-   a merge tile that holds entries of s alone or thresholds alone; B2 at the
-   edges of its geometry (slot counts around a tile, an owner run around the
-   staging buffer from an aligned and an unaligned ``f``, one row owning every
-   slot, every row owning one, all extents 0 but the guard, many rows of one
-   extent, the guard case; each also as a window whose start is no multiple
-   of the tile; exact); and the scan of B1 and B6 at lengths around a tile, a
+   a merge tile that holds entries of s alone or thresholds alone; B2, B4 and
+   B5 at the edges of each one's geometry (slot counts around a tile, an owner
+   run around the staging buffer from an aligned and an unaligned ``f``, one
+   row owning every slot, every row owning one, all extents 0 but the guard,
+   many rows of one extent, the guard case; for B2 and B4 each also as a
+   window whose start is no multiple of the tile; B4 on one, three and four
+   columns and on rows and outputs that are no 16-byte aligned slices, bitwise
+   its plain version and B2 + B3; exact); B5 twice, in turn with B1 and B6 on
+   one stream and beside B1 on a second stream, with slots fewer and more
+   than rows, and at 16M; and the scan of B1 and B6 at lengths around a tile, a
    group of 32 tiles and 32 groups, at 1M and at 16M (within the plain
    versions' tolerances, nondecreasing, two calls bitwise equal);
 4. the SMC flagship (stationary LGSSM a=0.9, q=0.32, r=1.0, T=100,
@@ -35,18 +39,18 @@ final line:
    firings, and a bitwise repeat (systematic through the default device, no
    ``device`` named); the multinomial sweeps on B7 and on B8 bitwise equal to
    each other and at the |logZ − Kalman| recorded for the kernels they
-   replaced; then the systematic flagship under each move version (6: B2 + B3,
-   1: B4, 0: B5 + a gather), bitwise equal;
+   replaced; then the systematic flagship under each move version (1: B4,
+   the default; 6: B2 + B3; 0: B5 + a gather), bitwise equal;
 5. the sharded flagship on K = 4 logical shards of the card
    (``parallel.sharded_sweep``) with each exchange, against Kalman and the
    single-device sweep (equal until the first firing whose Σe, summed in
    another order, moves an extent; there every differing ancestor is off by
-   one), ``auto`` against ``neighbor`` and move version 1 against 6,
-   bitwise;
+   one), ``auto`` against ``neighbor`` and move version 6 against the
+   default 1, bitwise;
 6. PGAS at N=1M, T=100 with replay storage (``bench_pgas.py``'s
    configuration): the pooled chain means against the RTS smoother (RMS
    z-score < 3 over 6 chains of 8 iterations, 4 dropped), the final
-   iteration's logZ against Kalman, 99 launches of B1-B3 per iteration; short
+   iteration's logZ against Kalman, 99 launches of B1 and B4 per iteration; short
    PGAS chains with multinomial (logZ bitwise what the chain on the earlier
    B7 gave) and stratified; replay against dense storage;
    then sharded PGAS (K = 4, replay, ``auto``) and sharded chains on a 2 × 2
@@ -57,18 +61,20 @@ final line:
    profiled sweeps for the device busy share.  For each kernel at 1M: its
    device time (the profiler's device-side rows over a window of REPS calls,
    every launch of the call summed) and the device-side launches a call makes
-   (1 for B1, B2 and B6, or the phase fails), the same time for its plain
-   version and, where
-   one PyTorch call computes the same function, for that call; the time per
-   call by CUDA events, wrapper and host included (plain, kernel, kernel,
-   plain); the bytes it must move and the least time they take at the card's
-   memory rate.  The inputs are the same tensors on every call, as in the
-   sweep, where each was written by the step before: they sit in the 50 MB L2,
-   so the readings are L2-warm.  A second window takes each kernel L2-cold, on
-   128 MB of copies of its inputs in turn.  The bound is the device memory's:
-   a cold time below it fails the phase.  A warm time may pass it, the L2
-   being faster than the memory behind it, and is held to the L2's ceiling
-   instead (``L2_BYTES_PER_S``); a warm share above 1 is printed.
+   (1 for B1, B2, B4 and B6, at most 2 for B5, or the phase fails), the same
+   time for its plain version and, where one PyTorch call computes the same
+   function, for that call; the time per call by CUDA events, wrapper and host
+   included (plain, kernel, kernel, plain); the bytes it must move and the
+   least time they take at the card's memory rate.  The inputs are the same
+   tensors on every call, as in the sweep, where each was written by the step
+   before: they sit in the 50 MB L2, so the readings are L2-warm.  A second
+   window takes each kernel L2-cold, on 128 MB of copies of its inputs in
+   turn.  The bound is the device memory's: a cold time below it fails the
+   phase.  A warm time may pass it, the L2 being faster than the memory behind
+   it, and is held to the L2's ceiling instead (``L2_BYTES_PER_S``); a warm
+   share above 1 is printed.  Then the move versions in turns (6, 1, 0, 0, 1,
+   6): the device time of one firing's decode + move on one and on three
+   columns, and the median of 5 systematic sweeps under each.
 
 Each launch count is read from the run of its own path, the counts set to 0
 just before it.  The last lines are the kernels' JSON record (launches summed
@@ -133,24 +139,38 @@ REPLACES = {
 EARLIER_MULTINOMIAL_ERR = "0.000238"
 EARLIER_MULTINOMIAL_PGAS_LOGZ = [-161.53640747070312, -161.53016662597656]
 #: Wrappers whose call is one device-side launch by design: the single-pass
-#: scan (no reset pass, no memset) and the tile decode.
-SINGLE_LAUNCH = ("extents_from_logw", "scaled_prefix_from_logw", "prefix_sum", "decode_ancestors")
+#: scan (no reset pass, no memset), the tile decode, and the decode + move on it.
+SINGLE_LAUNCH = ("extents_from_logw", "scaled_prefix_from_logw", "prefix_sum", "decode_ancestors",
+                 "decode_move")
+#: Device-side launches a call may make at most, where that is not 1: B5 is a
+#: scatter and a single-pass scan, with no memset.
+MOST_LAUNCHES = {"decode_ancestors_dense": 2}
+#: The decode + move kernels of each move version, per firing.
+DECODE_MOVE = {
+    6: {"decode_ancestors": 1, "move_rows": 1},
+    1: {"decode_move": 1},
+    0: {"decode_ancestors_dense": 1},
+}
+#: ``ops.MOVE_VERSION`` as the package sets it (checked in phase 2), the
+#: version a windowed call runs under it (0 has no windowed form and runs 1),
+#: and another windowed version to hold it against.
+DEFAULT_MOVE = 1
+WINDOWED_MOVE = 1 if DEFAULT_MOVE == 0 else DEFAULT_MOVE
+OTHER_WINDOWED_MOVE = 6 if WINDOWED_MOVE == 1 else 1
 #: Kernel launches per resampling firing of each fused scheme.
 PER_FIRING = {
-    "systematic": {"extents_from_logw": 1, "decode_ancestors": 1, "move_rows": 1},
-    "stratified": {"scaled_prefix_from_logw": 1, "decode_ancestors": 1, "move_rows": 1},
-    "multinomial": {"prefix_sum": 1, "scaled_prefix_from_logw": 1, "count_le_sorted_bs": 1,
-                    "decode_ancestors": 1, "move_rows": 1},
-    "multinomial, merge path": {"prefix_sum": 1, "scaled_prefix_from_logw": 1,
-                                "count_le_sorted": 1, "decode_ancestors": 1,
-                                "move_rows": 1},
+    scheme: {**extents, **DECODE_MOVE[DEFAULT_MOVE]} for scheme, extents in {
+        "systematic": {"extents_from_logw": 1},
+        "stratified": {"scaled_prefix_from_logw": 1},
+        "multinomial": {"prefix_sum": 1, "scaled_prefix_from_logw": 1, "count_le_sorted_bs": 1},
+        "multinomial, merge path": {"prefix_sum": 1, "scaled_prefix_from_logw": 1,
+                                    "count_le_sorted": 1},
+    }.items()
 }
-#: The decode + move of each move version, per firing (systematic).
-PER_VERSION = {
-    6: {"extents_from_logw": 1, "decode_ancestors": 1, "move_rows": 1},
-    1: {"extents_from_logw": 1, "decode_move": 1},
-    0: {"extents_from_logw": 1, "decode_ancestors_dense": 1},
-}
+#: The systematic firing under each move version.
+PER_VERSION = {ver: {"extents_from_logw": 1, **move} for ver, move in DECODE_MOVE.items()}
+#: Turns of the move versions' A/B in phase 7.
+VERSION_TURNS = (6, 1, 0, 0, 1, 6)
 
 
 def fail(msg: str):
@@ -478,9 +498,12 @@ def main():
     # The CPU tests build their cases around the wrappers' constants.
     check(geometry == [ops.COUNT_TILE, ops.COUNT_STAGE, ops.MERGE_TILE],
           f"B7/B8 geometry {geometry} differs from the wrappers' constants")
-    decode_geometry = [lib.aps_decode_geometry(i) for i in range(2)]
-    check(decode_geometry == [ops.DECODE_TILE, ops.DECODE_STAGE],
-          f"B2 geometry {decode_geometry} differs from the wrappers' constants")
+    decode_geometry = [lib.aps_decode_geometry(i) for i in range(4)]
+    check(decode_geometry == [ops.DECODE_TILE, ops.DECODE_STAGE, ops.DECODE_MOVE_TILE,
+                              ops.DENSE_TILE],
+          f"B2, B4 and B5 geometry {decode_geometry} differs from the wrappers' constants")
+    check(ops.MOVE_VERSION == DEFAULT_MOVE,
+          f"ops.MOVE_VERSION is {ops.MOVE_VERSION}, the launch tables here are for {DEFAULT_MOVE}")
     check(lib.aps_prefix_tile_size() == ops.PREFIX_TILE,
           f"scan tile {lib.aps_prefix_tile_size()} differs from the wrappers' constant")
 
@@ -498,14 +521,102 @@ def main():
     print(f"B7 and B8 at the edges of their geometry (tile {geometry[0]}, stage {geometry[1]}, "
           f"merge tile {geometry[2]}): {len(edge_cases)} cases exact, B7 also on each case's "
           f"thresholds in reverse", flush=True)
-    decode_cases = decode_geometry_cases(*decode_geometry, gen)
-    for what, f_, n_out, guard, start in decode_cases:
-        got = ops.decode_ancestors(f_, n_out, guard=guard, start=start)
-        want = ops.decode_ancestors_ref(f_, n_out, guard=guard, start=start)
-        err["decode_ancestors"] = max(err["decode_ancestors"], max_abs(got, want))
-        check(torch.equal(got, want), f"{what}: decode_ancestors differs from its plain version")
-    print(f"B2 at the edges of its geometry (tile {decode_geometry[0]}, stage "
-          f"{decode_geometry[1]}): {len(decode_cases)} cases exact", flush=True)
+    # B2, B4 and B5 at the edges of each one's own tile (B2 and B4 stage the
+    # same number of owner rows): B2 and B4 (one, three and four columns; a v
+    # that is no 16-byte aligned slice) whole and as a window, B5 whole.
+    tiles = sorted({decode_geometry[0], decode_geometry[2], decode_geometry[3]})
+    n_decode_cases = 0
+    for tile in tiles:
+        for what, f_, n_out, guard, start in decode_geometry_cases(tile, decode_geometry[1], gen):
+            what = f"{what} (tile {tile})"
+            n_decode_cases += 1
+            got = ops.decode_ancestors(f_, n_out, guard=guard, start=start)
+            want = ops.decode_ancestors_ref(f_, n_out, guard=guard, start=start)
+            err["decode_ancestors"] = max(err["decode_ancestors"], max_abs(got, want))
+            check(torch.equal(got, want), f"{what}: decode_ancestors differs from its plain version")
+            m_rows = f_.numel()
+            flat = torch.randn(4 * m_rows + 1, generator=gen, device="cuda")
+            for v in (flat[:m_rows], flat[:3 * m_rows].view(m_rows, 3),
+                      flat[:4 * m_rows].view(m_rows, 4), flat[1:m_rows + 1],
+                      flat[1:].view(m_rows, 4)):
+                a4, mv4 = ops.decode_move(f_, v, n_out, guard=guard, start=start)
+                r4 = ops.decode_move_ref(f_, v, n_out, guard=guard, start=start)
+                err["decode_move"] = max(err["decode_move"], max_abs(a4, r4[0]),
+                                         max_abs(mv4, r4[1]))
+                check(torch.equal(a4, r4[0]) and torch.equal(bits(mv4), bits(r4[1])),
+                      f"{what}, v {tuple(v.shape)}: decode_move differs from its plain version")
+                b3 = ops.move_rows(got, v)
+                check(torch.equal(a4, b3[0]) and torch.equal(bits(mv4), bits(b3[1])),
+                      f"{what}, v {tuple(v.shape)}: decode_move differs from B2 + B3")
+            if start == 0:
+                a5 = ops.decode_ancestors_dense(f_, n_out, guard=guard)
+                r5 = ops.decode_ancestors_dense_ref(f_, n_out, guard=guard)
+                err["decode_ancestors_dense"] = max(err["decode_ancestors_dense"], max_abs(a5, r5))
+                check(torch.equal(a5, r5), f"{what}: decode_ancestors_dense differs from its plain "
+                      f"version")
+                check(torch.equal(a5, got), f"{what}: decode_ancestors_dense differs from B2")
+    print(f"B2, B4 and B5 at the edges of their geometry (tiles {tiles}, stage "
+          f"{decode_geometry[1]}): {n_decode_cases} cases exact; B4 bitwise its plain version and "
+          f"B2 + B3 on 1, 3 and 4 columns and on unaligned rows, whole and windowed", flush=True)
+
+    # B4 straight through the C entry on outputs that are no 16-byte aligned
+    # slices (the wrapper's own are always aligned): the scalar stores.
+    n_u = 3 * decode_geometry[2] + 17
+    w_u = torch.rand(n_u, generator=gen, device="cuda") ** 4
+    f_u = torch.ceil(torch.cumsum(w_u, 0) / w_u.sum() * n_u).clamp(0, n_u).to(torch.int32)
+    v_u = torch.randn(n_u, generator=gen, device="cuda")
+    out_u = torch.empty(n_u + 1, device="cuda")
+    anc_u = torch.empty(n_u + 1, dtype=torch.int32, device="cuda")
+    rc = lib.aps_decode_move(ops._ptr(f_u), n_u, n_u, 0, n_u, ops._ptr(v_u), 1, ops._ptr(out_u[1:]),
+                             ops._ptr(anc_u[1:]), ops._stream(f_u.device))
+    check(rc == 0, f"decode_move on unaligned outputs: CUDA error {rc}")
+    r_u = ops.decode_move_ref(f_u, v_u, n_u)
+    check(torch.equal(anc_u[1:], r_u[0]) and torch.equal(bits(out_u[1:]), bits(r_u[1])),
+          "decode_move on unaligned outputs differs from its plain version")
+
+    # B5 shares the look-back scratch with B1 and B6 and keeps its marks zero
+    # between calls: two calls bitwise equal, B1, B5, B1 and B6, B5, B6 in turn
+    # on one stream each equal to the call alone, a second stream with a scratch
+    # of its own, slots fewer and more than rows, and 16M rows and slots.
+    lw = torch.randn(N, generator=gen, device="cuda") * 2.0
+    m = torch.max(lw)
+    s1 = torch.sum(torch.exp(lw - m))
+    f_alone = ops.extents_from_logw(lw, m, s1, 0.37, N)
+    c_alone = ops.scaled_prefix_from_logw(lw, m, N / s1)
+    a_alone = ops.decode_ancestors_dense(f_alone, N)
+    check(torch.equal(a_alone, ops.decode_ancestors(f_alone, N)), "B5 at 1M differs from B2")
+    f_1 = ops.extents_from_logw(lw, m, s1, 0.37, N)
+    a_1 = ops.decode_ancestors_dense(f_alone, N)
+    f_2 = ops.extents_from_logw(lw, m, s1, 0.37, N)
+    c_1 = ops.scaled_prefix_from_logw(lw, m, N / s1)
+    a_2 = ops.decode_ancestors_dense(f_alone, N)
+    c_2 = ops.scaled_prefix_from_logw(lw, m, N / s1)
+    check(torch.equal(f_1, f_alone) and torch.equal(f_2, f_alone) and torch.equal(a_1, a_alone)
+          and torch.equal(a_2, a_alone) and torch.equal(bits(c_1), bits(c_alone))
+          and torch.equal(bits(c_2), bits(c_alone)),
+          "B1, B5, B1, B6, B5, B6 in turn on one stream differ from each alone")
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        a_side = [ops.decode_ancestors_dense(f_alone, N) for _ in range(3)]
+        f_side = ops.extents_from_logw(lw, m, s1, 0.37, N)
+    a_main = [ops.decode_ancestors_dense(f_alone, N) for _ in range(3)]
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, a_alone) for a in a_side + a_main) and torch.equal(f_side, f_alone),
+          "B5 and B1 on two streams at once differ from each alone")
+    for n_slots in (N // 3 + 5, 2 * N + 7):
+        check(torch.equal(ops.decode_ancestors_dense(f_alone, n_slots, guard=N),
+                          ops.decode_ancestors_ref(f_alone, n_slots, guard=N)),
+              f"B5 with {n_slots} slots of {N} rows differs from the plain decode")
+    f_16m = torch.arange(1, 16 * N + 1, dtype=torch.int32, device="cuda") // 3 * 3
+    a_16m = ops.decode_ancestors_dense(f_16m, 16 * N)
+    check(torch.equal(a_16m, ops.decode_ancestors_dense(f_16m, 16 * N))
+          and torch.equal(a_16m, ops.decode_ancestors(f_16m, 16 * N)),
+          "B5 at 16M differs from B2 or from itself")
+    del lw, f_16m, a_16m, a_side, a_main
+    print("B5: two calls bitwise equal; B1, B5, B1 and B6, B5, B6 in turn on one stream and B5 "
+          "beside B1 on a second stream equal to each alone; slots fewer and more than rows; 16M "
+          "rows and slots equal to B2", flush=True)
 
     # The scan of B1 and B6 at the edges of its geometry, and at 1M and 16M:
     # against the plain versions, nondecreasing, and two calls bitwise equal.
@@ -718,12 +829,12 @@ def main():
         check(launches == expected(PER_VERSION[ver], fires),
               f"move version {ver}: launches {launches} != {expected(PER_VERSION[ver], fires)}")
         by_version[ver] = res
-    ops.MOVE_VERSION = 6
-    single = by_version[6]
-    for ver in (1, 0):
+    ops.MOVE_VERSION = DEFAULT_MOVE
+    single = by_version[DEFAULT_MOVE]
+    for ver in (6, 1, 0):
         check(torch.equal(by_version[ver].log_evidence, single.log_evidence)
               and torch.equal(by_version[ver].ancestors, single.ancestors),
-              f"move version {ver}: sweep differs from version 6")
+              f"move version {ver}: sweep differs from version {DEFAULT_MOVE}")
     print("move versions 6, 1, 0: bitwise equal logZ and ancestors", flush=True)
 
     # ---- 5. the sharded flagship on K logical shards of the card
@@ -731,6 +842,7 @@ def main():
     from advancedps_tpu_torch.parallel import sharded as sharded_mod
 
     mesh = parallel.particle_mesh(K)  # no device named: K shards on the card
+    per_shard_move = {name: K * c for name, c in DECODE_MOVE[WINDOWED_MOVE].items()}
     check(all(d.type == "cuda" for d in mesh.devices), "particle_mesh(K) is not on the card")
     sharded = {}
     for ex in ("allgather", "neighbor", "auto"):
@@ -770,7 +882,7 @@ def main():
         n_ag = branches.get("allgather", 0)
         fires_ex = int(res.resampled.sum())
         check(sum(branches.values()) == fires_ex, f"sharded {ex}: branches {branches}")
-        want = expected({"decode_ancestors": K, "move_rows": K}, fires_ex)
+        want = expected(per_shard_move, fires_ex)
         want["extents_from_logw"] = K * n_ag
         check(launches == want, f"sharded {ex}: launches {launches} != {want}")
         sharded[ex] = (res, branches)
@@ -783,20 +895,22 @@ def main():
         check(torch.equal(auto.log_evidence, sharded["neighbor"][0].log_evidence)
               and torch.equal(auto.ancestors, sharded["neighbor"][0].ancestors),
               "sharded: auto differs from neighbor though every firing took the neighbour branch")
-    ops.MOVE_VERSION = 1
+    ops.MOVE_VERSION = OTHER_WINDOWED_MOVE
     mesh.reset_counts()
     res, launches = drive(lambda: parallel.sharded_sweep(key, kernel, N, systematic, mesh,
                                                          store_states=False))
-    ops.MOVE_VERSION = 6
+    ops.MOVE_VERSION = DEFAULT_MOVE
     check(torch.equal(res.log_evidence, auto.log_evidence)
           and torch.equal(res.ancestors, auto.ancestors),
-          "sharded: move version 1 differs from version 6")
-    check(launches["decode_move"] == K * int(auto.resampled.sum())
-          and launches["decode_ancestors"] == 0,
-          f"sharded, move version 1: launches {launches}")
+          f"sharded: move version {OTHER_WINDOWED_MOVE} differs from version {WINDOWED_MOVE}")
+    want = expected({name: K * c for name, c in DECODE_MOVE[OTHER_WINDOWED_MOVE].items()},
+                    int(auto.resampled.sum()))
+    want["extents_from_logw"] = launches["extents_from_logw"]  # by the exchange's branch
+    check(launches == want, f"sharded, move version {OTHER_WINDOWED_MOVE}: launches {launches}")
     print(f"sharded flagship: auto bitwise equal to neighbor "
           f"({'checked' if auto_branches.get('allgather', 0) == 0 else 'not checked: a firing fell back'}); "
-          f"move version 1 (B4, {launches['decode_move']} launches) bitwise equal to 6", flush=True)
+          f"move version {OTHER_WINDOWED_MOVE} ({launches}) bitwise equal to {WINDOWED_MOVE}",
+          flush=True)
 
     # ---- 6. PGAS at 1M, replay storage (bench_pgas.py), single-device and sharded
     sm = apt.utils.kalman_smoother(ys, A, 0.0, Q, 1.0, R, 0.0, SIGMA0)
@@ -829,7 +943,8 @@ def main():
     check(zrms < 3.0, f"PGAS: RMS z-score vs RTS smoother {zrms} >= 3")
     check(lz_err < 1.0, f"PGAS: final |logZ - kalman| = {lz_err} >= 1")
     check(launches == expected(PER_FIRING["systematic"], iters * (T - 1)),
-          f"PGAS: launches {launches}, expected {T - 1} of B1-B3 per iteration")
+          f"PGAS: launches {launches}, expected {T - 1} of B1 and the decode + move per "
+          f"iteration")
     per_pgas_iteration["systematic"] = {k: v // iters for k, v in launches.items() if v}
 
     for label in ("multinomial", "stratified"):
@@ -879,7 +994,7 @@ def main():
     check(bool(torch.isfinite(chain.trajectory).all()), "sharded PGAS trajectory not finite")
     check(lz_err < 1.0, f"sharded PGAS: final |logZ - kalman| = {lz_err}")
     firings = SHARDED_PGAS_ITERS * (T - 1)
-    want = expected({"decode_ancestors": K, "move_rows": K}, firings)
+    want = expected(per_shard_move, firings)
     want["extents_from_logw"] = K * branches.get("allgather", 0)
     check(sum(branches.values()) == firings and launches == want,
           f"sharded PGAS: launches {launches} != {want}")
@@ -908,8 +1023,8 @@ def main():
     check(bool(torch.isfinite(lzs).all()), "sharded chains: logZ not finite")
     check(torch.equal(trajs, trajs2) and torch.equal(lzs, lzs2), "sharded chains: not repeatable")
     firings = 2 * CHAIN_ITERS * (T - 1) * 2  # chains × iterations × steps × shards
-    check(launches == expected({"extents_from_logw": 1, "decode_ancestors": 1, "move_rows": 1},
-                               firings), f"sharded chains: launches {launches}")
+    check(launches == expected({"extents_from_logw": 1, **DECODE_MOVE[WINDOWED_MOVE]}, firings),
+          f"sharded chains: launches {launches}")
 
     # ---- 7. timings
     base = apt.ResampleWithESSThreshold(apt.resample_systematic, 0.0)  # never fires
@@ -1009,6 +1124,8 @@ def main():
     f = ops.extents_from_logw(logw, m, s1, u, N)
     anc = ops.decode_ancestors(f, N)
     x = torch.randn(N, generator=gen, device="cuda")
+    xd = torch.randn(N, 3, generator=gen, device="cuda")
+    f_16m = torch.arange(1, 16 * N + 1, dtype=torch.int32, device="cuda") // 3 * 3
     scale = N / s1
     g = apt.multinomial_spacings(apt.rng.key(8), N, device="cuda")
     S = ops.prefix_sum(g)
@@ -1099,6 +1216,9 @@ def main():
         if name in SINGLE_LAUNCH:
             check(launches_per_call == 1, f"{name}: {launches_per_call} device-side launches a "
                   f"call, the single-pass design has 1")
+        if name in MOST_LAUNCHES:
+            check(launches_per_call <= MOST_LAUNCHES[name], f"{name}: {launches_per_call} "
+                  f"device-side launches a call, memsets counted, over {MOST_LAUNCHES[name]}")
         if row["bound_share"] > 1.0:
             print(f"  note: {name} L2-warm is faster than the device memory allows "
                   f"(share {row['bound_share']:.4f}): its tensors never left the L2", flush=True)
@@ -1108,11 +1228,51 @@ def main():
              lambda: ops.decode_ancestors(f, L, guard=N, start=2 * L)),
             (f"decode_move at 1M, window of L={L}",
              lambda: ops.decode_move_ref(f, x, L, guard=N, start=2 * L),
-             lambda: ops.decode_move(f, x, L, guard=N, start=2 * L))):
+             lambda: ops.decode_move(f, x, L, guard=N, start=2 * L)),
+            ("decode_move at 1M, D = 3",
+             lambda: ops.decode_move_ref(f, xd, N), lambda: ops.decode_move(f, xd, N)),
+            ("decode_ancestors_dense at 16M rows and slots",
+             lambda: ops.decode_ancestors_dense_ref(f_16m, 16 * N),
+             lambda: ops.decode_ancestors_dense(f_16m, 16 * N))):
         k_ms, p_ms, readings = plain_vs_kernel(plain, kernel_fn)
         print(f"kernel {what}: device {device_ms(kernel_fn):.5f} ms, plain "
               f"{device_ms(plain):.5f} ms; per call by events {k_ms:.4f} ms, plain {p_ms:.4f} ms "
               f"({turns(readings)}) {tag}", flush=True)
+    del f_16m
+    # The move versions in one call and in turns: the device time of one
+    # firing's decode + move (version 0's clamp and gather included) on one and
+    # on three columns, and the median of SWEEPS systematic flagship sweeps.
+    # All three give the same sweep (phase 4), so this alone picks the default.
+    version_ms = {ver: [] for ver in DECODE_MOVE}
+    for ver in VERSION_TURNS:
+        ms_one = device_ms(lambda: ops.resample_move_f(f, x, N, version=ver))
+        ms_three = device_ms(lambda: ops.resample_move_f(f, xd, N, version=ver))
+        ops.MOVE_VERSION = ver
+        times = []
+        for i in range(SWEEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = apt.sweep(apt.rng.key(10 + i), kernel, N, systematic, store_states=False,
+                            device="cuda")
+            float(res.log_evidence)
+            times.append(time.perf_counter() - t0)
+        ops.MOVE_VERSION = DEFAULT_MOVE
+        med_ms = statistics.median(times) * 1e3
+        version_ms[ver].append((ms_one, ms_three, med_ms))
+        print(f"move version {ver}: decode + move of one firing at 1M, device {ms_one:.5f} ms "
+              f"(D = 1), {ms_three:.5f} ms (D = 3); systematic sweep median {med_ms:.3f} ms of "
+              f"{SWEEPS} ({', '.join(f'{t * 1e3:.3f}' for t in times)}) {tag}", flush=True)
+    # A version should take the default's place if its device time is lower by
+    # more than the 6% that runs differ by, in every turn: then the phase fails
+    # until the default follows.
+    for ver, turns_ in version_ms.items():
+        if ver == DEFAULT_MOVE:
+            continue
+        ratios = [t[0] / d[0] for t, d in zip(turns_, version_ms[DEFAULT_MOVE])]
+        print(f"move version {ver} against the default {DEFAULT_MOVE}, device time at D = 1: "
+              f"ratios {', '.join(f'{r:.3f}' for r in ratios)}", flush=True)
+        check(max(ratios) >= 0.94, f"move version {ver} is faster than the default "
+              f"{DEFAULT_MOVE} by more than 6% in every turn: make it the default")
     # B7 and B8 beside the library call, device time in one window each: the
     # sweep's thresholds, every threshold one value, and (B7 only) the
     # thresholds in random order.

@@ -1,5 +1,5 @@
-"""The decode and prefix contracts at the geometry of the CUDA kernels B2 and
-B1/B6.
+"""The decode and prefix contracts at the geometry of the CUDA kernels B2, B4,
+B5 and B1/B6.
 
 B2: ``anc[k] = #{j : f_j ≤ start + k}`` with ``f[M−1]`` read as the guard,
 equal to ``searchsorted(f, start + arange(n_out), right=True)``.  The cases
@@ -9,6 +9,11 @@ rows is one short of, exactly and one past what a block stages, one row owning
 every slot, every row owning one slot, all extents 0 but the guard, many rows
 of one extent inside a tile, a tile no row owns, the guard case, and each as a
 window whose start is no multiple of the tile.
+
+B4 (decode + move, whose block decodes its tile as B2's does) takes the same
+cases with one and with three columns, whole and windowed; B5 (the decode by
+counting) takes them whole, and sizes around a tile of its own scan and a
+group of such tiles.
 
 B1/B6: lengths one short of, at and one past a tile of the scan and a group
 of tiles, and a group of groups plus one element.
@@ -32,6 +37,7 @@ from advancedps_tpu.ops import pallas_resample as pr  # noqa: E402
 from advancedps_tpu_torch.ops import resample as ops  # noqa: E402
 
 TILE, STAGE = ops.DECODE_TILE, ops.DECODE_STAGE
+MOVE_TILE, DENSE_TILE = ops.DECODE_MOVE_TILE, ops.DENSE_TILE
 SCAN_TILE, GROUP = ops.PREFIX_TILE, ops.PREFIX_GROUP
 
 _SOURCE = Path(ops.__file__).resolve().parent.parent / "csrc" / "resample.cu"
@@ -49,12 +55,25 @@ def _source_constants():
 MIRRORED = {
     "COUNT_TILE": "kCountTile", "COUNT_STAGE": "kCountStage", "MERGE_TILE": "kMergeTile",
     "DECODE_TILE": "kDecodeTile", "DECODE_STAGE": "kDecodeStage", "PREFIX_TILE": "kTile",
+    "DECODE_MOVE_TILE": "kDecodeMoveTile", "DENSE_TILE": "kDenseTile",
 }
 
 
 @pytest.mark.parametrize("name", sorted(MIRRORED))
 def test_wrapper_constants_mirror_the_cuda_source(name):
     assert getattr(ops, name) == _source_constants()[MIRRORED[name]]
+
+
+def test_decode_geometry_is_read_back_in_the_order_of_the_constants():
+    # chip_smoke.py holds aps_decode_geometry(0..3) against these four, in turn.
+    body = re.search(r"int aps_decode_geometry\(int which\) \{(.*?)\n\}", _SOURCE.read_text(),
+                     re.S).group(1)
+    assert re.findall(r"\? (k\w+)", body) == ["kDecodeTile", "kDecodeStage", "kDecodeMoveTile",
+                                                "kDenseTile"]
+    # B4's cases are B2's: both decode a tile of the same size by one function.
+    assert MOVE_TILE == TILE
+    source = _SOURCE.read_text()
+    assert source.count("decode_tile(f, m, guard, start + k0, nk, sh,") == 2
 
 
 def test_scan_groups_are_warps():
@@ -142,6 +161,10 @@ def _as_given(f, guard):
     return g
 
 
+def _bits(x):
+    return np.asarray(x, np.float32).view(np.int32).astype(np.int64)
+
+
 @pytest.mark.parametrize("windowed", [False, True], ids=["whole", "window"])
 @pytest.mark.parametrize("case", sorted(DECODE_CASES))
 def test_decode_contract_cases(case, windowed):
@@ -175,6 +198,115 @@ def test_decode_of_an_unaligned_slice_is_the_decode_of_its_copy():
     assert torch.equal(ops.decode_ancestors(view, n), ops.decode_ancestors(view.clone(), n))
 
 
+# --- B4 -------------------------------------------------------------------------
+
+
+def _rows(m, columns, seed):
+    shape = (m,) if columns == 1 else (m, columns)
+    return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+
+
+def _moved(given, v, slots):
+    """numpy's decode + move: the clipped owners and their rows, 0 past the
+    population."""
+    m = given.shape[0]
+    counts = np.searchsorted(given, slots, side="right")
+    moved = v[np.minimum(counts, m - 1)].copy()
+    moved[counts >= m] = 0
+    return np.minimum(counts, m - 1).astype(np.int32), moved
+
+
+@pytest.mark.parametrize("columns", [1, 3])
+@pytest.mark.parametrize("windowed", [False, True], ids=["whole", "window"])
+@pytest.mark.parametrize("case", sorted(DECODE_CASES))
+def test_decode_move_contract_cases(case, windowed, columns):
+    f, n_out, guard = DECODE_CASES[case]()
+    start = 0
+    if windowed:
+        start = 333 if n_out > 400 else 1
+        n_out = n_out - start - 2
+    v = _rows(f.shape[0], columns, 11)
+    anc, moved = ops.decode_move(torch.as_tensor(f), torch.as_tensor(v), n_out, guard=guard,
+                                 start=start)
+    assert anc.dtype == torch.int32 and tuple(anc.shape) == (n_out,)
+    assert tuple(moved.shape) == (n_out,) + v.shape[1:]
+    want_anc, want_moved = _moved(_as_given(f, guard), v, start + np.arange(n_out))
+    np.testing.assert_array_equal(anc.numpy(), want_anc)
+    np.testing.assert_array_equal(_bits(moved.numpy()), _bits(want_moved))
+    # The v1 staircase of the JAX package, which B4 replaces.
+    if windowed:
+        anc_j, moved_j = pr.resample_move_window_fext(jnp.asarray(f), jnp.asarray(v), guard, start,
+                                                      n_out, interpret=True, version=1)
+    else:
+        anc_j, moved_j = pr.resample_move_f(jnp.asarray(f), jnp.asarray(v), n_out, interpret=True,
+                                            version=1, guard_n=guard)
+    np.testing.assert_array_equal(anc.numpy(), np.asarray(anc_j))
+    np.testing.assert_array_equal(_bits(moved.numpy()), _bits(moved_j))
+    # B4 is B2 then B3.
+    b2 = ops.decode_ancestors(torch.as_tensor(f), n_out, guard=guard, start=start)
+    b3 = ops.move_rows(b2, torch.as_tensor(v))
+    assert torch.equal(anc, b3[0]) and torch.equal(moved.view(torch.int32), b3[1].view(torch.int32))
+
+
+@pytest.mark.parametrize("columns", [1, 4])
+def test_decode_move_of_unaligned_slices_is_the_decode_move_of_their_copies(columns):
+    m = 2 * MOVE_TILE + 3
+    f = torch.as_tensor(_i32([0], _extents(m, m, 9)))[1:]
+    v = torch.as_tensor(_rows(m * columns + 1, 1, 10))[1:]
+    v = v if columns == 1 else v.view(m, columns)
+    assert f.data_ptr() % 16 != 0 and v.data_ptr() % 16 != 0
+    for start, n_out in ((0, m), (333, m - 335)):
+        got = ops.decode_move(f, v, n_out, guard=m, start=start)
+        want = ops.decode_move(f.clone(), v.clone(), n_out, guard=m, start=start)
+        assert torch.equal(got[0], want[0])
+        assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))
+
+
+# --- B5 -------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("case", sorted(DECODE_CASES))
+def test_dense_decode_contract_cases(case):
+    f, n_out, guard = DECODE_CASES[case]()
+    got = ops.decode_ancestors_dense(torch.as_tensor(f), n_out, guard=guard)
+    assert got.dtype == torch.int32 and tuple(got.shape) == (n_out,)
+    given = _as_given(f, guard)
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.searchsorted(given, np.arange(n_out), side="right"))
+    want = pr.decode_ancestors(jnp.asarray(given), n_out, interpret=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+DENSE_SIZES = [DENSE_TILE - 1, DENSE_TILE, DENSE_TILE + 1, 3 * DENSE_TILE + 17,
+               GROUP * DENSE_TILE - 1, GROUP * DENSE_TILE + 1]
+
+
+@pytest.mark.parametrize("n", DENSE_SIZES)
+def test_dense_decode_at_the_geometry_of_its_scan(n):
+    # Rows and slots around a tile of B5's scan and a group of its tiles, the
+    # guard case (one position short) beside the whole draw.
+    for drawn in (n, n - 1):
+        f = _extents(n, drawn, n)
+        got = ops.decode_ancestors_dense(torch.as_tensor(f), n, guard=drawn).numpy()
+        given = _as_given(f, drawn)
+        np.testing.assert_array_equal(got, np.searchsorted(given, np.arange(n), side="right"))
+        want = pr.decode_ancestors(jnp.asarray(given), n, interpret=True)
+        np.testing.assert_array_equal(got, np.asarray(want))
+
+
+@pytest.mark.parametrize("slots", ["fewer than rows", "more than rows"])
+def test_dense_decode_with_slots_unlike_rows(slots):
+    # Extents at or past n_out mark nothing; slots from the guard on lie past
+    # the population.
+    m = 2 * DENSE_TILE + 9
+    f = _extents(m, m, 3)
+    n_out = m // 3 + 5 if slots == "fewer than rows" else 2 * m + 7
+    got = ops.decode_ancestors_dense(torch.as_tensor(f), n_out, guard=m).numpy()
+    np.testing.assert_array_equal(got, np.searchsorted(f, np.arange(n_out), side="right"))
+    np.testing.assert_array_equal(
+        got, ops.decode_ancestors(torch.as_tensor(f), n_out, guard=m).numpy())
+
+
 # --- B1 / B6 ----------------------------------------------------------------------
 
 SCAN_LENGTHS = [SCAN_TILE - 1, SCAN_TILE, SCAN_TILE + 1,
@@ -187,10 +319,6 @@ LEVEL_ABOVE = GROUP * GROUP * SCAN_TILE + 1
 # in float32 (log-step within a block, a Kahan carry across blocks) and is up
 # to 4 ulps from it (tests/test_torch_ops.py).
 B6_ULPS = 4
-
-
-def _bits(x):
-    return np.asarray(x, np.float32).view(np.int32).astype(np.int64)
 
 
 def _logw(length):

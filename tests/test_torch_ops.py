@@ -493,6 +493,26 @@ def test_resample_move_f_versions_match_pallas(profile, guarded, version):
         assert _bits(moved[-1:].numpy())[0] == _bits(x[-1:] if version == 0 else np.zeros(1))[0]
 
 
+@pytest.mark.parametrize("guarded", [False, True])
+@pytest.mark.parametrize("profile", WINDOW_PROFILES)
+def test_default_move_version_is_the_fused_decode_move(profile, guarded):
+    # The sweep's decode + move is B4 (one launch); B2 then B3, the JAX
+    # package's default, gives the same bits.
+    assert ops.MOVE_VERSION == 1
+    m = WINDOW_M
+    f, n, x = _case(profile, m, guarded)
+    tf, tx = torch.as_tensor(f), torch.as_tensor(x)
+    anc, moved = ops.resample_move_f(tf, tx, m, guard_n=n)
+    for other in (ops.decode_move(tf, tx, m, guard=n),
+                  ops.resample_move_f(tf, tx, m, version=6, guard_n=n)):
+        assert torch.equal(anc, other[0])
+        np.testing.assert_array_equal(_bits(moved.numpy()), _bits(other[1].numpy()))
+    anc_j, moved_j = pr.resample_move_f(jnp.asarray(f), jnp.asarray(x), m, interpret=True,
+                                        guard_n=n)
+    np.testing.assert_array_equal(anc.numpy(), np.asarray(anc_j))
+    np.testing.assert_array_equal(_bits(moved.numpy()), _bits(moved_j))
+
+
 def _dyadic_weights(profile, m, seed):
     """Normalised weights ``c_i / 2^p`` with integer ``c_i`` summing to
     ``2^p``: every float32 prefix sum is exact, so both packages' float32
@@ -586,6 +606,10 @@ def test_decode_wrappers_check_inputs_and_never_fall_back():
         ops.decode_ancestors(f, 2, guard=4, start=-1)
     with pytest.raises(ValueError, match="rows"):
         ops.decode_move(f, torch.zeros(5), 4)
+    with pytest.raises(ValueError, match="columns"):
+        ops.decode_move(f[:1], torch.zeros(1, ops.MAX_DECODE_MOVE_D + 1), 1)
+    with pytest.raises(ValueError, match="columns"):
+        ops.decode_move(f, torch.zeros(4, 0), 4)
     with pytest.raises(ValueError, match="empty"):
         ops.decode_ancestors_dense(torch.zeros(0, dtype=torch.int32), 4)
     with pytest.raises(ValueError, match="move version"):

@@ -12,6 +12,7 @@ import math
 
 import numpy as np
 import pytest
+import scipy.stats
 
 torch = pytest.importorskip("torch")
 
@@ -279,3 +280,23 @@ def test_pgas_posterior_mean_matches_rts(scheme):
                        sm.variances.sqrt() / math.sqrt(chains * (iters - warm)))
     zrms = float((((cm.mean(0) - sm.means) / se) ** 2).mean().sqrt())
     assert zrms < 3.0
+
+
+@pytest.mark.parametrize("sampler_cls", [apt.PGAS, apt.PG])
+def test_ks_vs_kalman(sampler_cls):
+    # The reference's gold test (tests/test_linear_gaussian.py::test_ks_vs_kalman):
+    # a 1-D LGSSM with T = 3, 100 particles, 200 MCMC samples; the final
+    # state's draws against the exact filtering marginal, KS p > 0.05.  Both
+    # packages get the observations the JAX package simulates.
+    a, b, q, h, r, x0, p0 = 0.5, 0.2, 0.1, 1.0, 0.1, 0.0, 1.0
+    model = aps.models.LinearGaussianSSM(x0, p0, a, b, q, h, r)
+    _, ys = aps.simulate(jax.random.key(1234), model, 3)
+    ys = np.array(ys)
+    traced = cpu_traced_ssm(dict(mu=x0, sigma0=p0, a=a, b=b, q=q, h=h, r=r), ys)
+    kf = apt.utils.kalman_filter(ys, a, b, q, h, r, x0, p0)
+    chain = cpu_sample(apt.rng.key(4321), traced, sampler_cls(100), 200)
+    final = chain.trajectory[:, -1].numpy()
+    assert final.shape == (200,)
+    mean, std = float(kf.means[-1]), math.sqrt(float(kf.variances[-1]))
+    p = scipy.stats.kstest(final, "norm", args=(mean, std)).pvalue
+    assert p > 0.05, f"{sampler_cls.__name__}: KS p={p}"

@@ -74,6 +74,20 @@ def test_resamplers_match_jax(scheme, m):
         assert (np.diff(got) >= 0).all()
 
 
+@pytest.mark.parametrize("scheme,tol", [("systematic", 1e-3), ("stratified", 1e-3),
+                                        ("multinomial", 1e-2), ("residual", 1e-2)])
+def test_resampling_frequencies(scheme, tol):
+    # Weights [0.3, 0.4, 0.3], 10^6 draws: index 1 comes up with frequency 0.4,
+    # within 1e-3 for the low-variance schemes and 1e-2 for the others
+    # (BASELINE.md; tests/test_resampling.py::test_frequency_oracle).
+    w = torch.tensor([0.3, 0.4, 0.3])
+    n = 1_000_000
+    idx = getattr(tres, f"resample_{scheme}")(apt.rng.key(42), w, n)
+    assert idx.dtype == torch.int32 and tuple(idx.shape) == (n,)
+    assert int(idx.min()) >= 0 and int(idx.max()) <= 2
+    assert abs(float((idx == 1).double().mean()) - 0.4) < tol
+
+
 def test_residual_deterministic_copies_are_exact():
     # n·w integral for every particle: all slots are deterministic copies.
     w = np.asarray([0.25, 0.5, 0.0, 0.25], np.float32)
