@@ -1,10 +1,13 @@
 """advancedps_tpu_torch — the PyTorch and CUDA port of ``advancedps_tpu``.
 
 It carries bootstrap SMC, PG and PGAS over the state-space-model DSL: the
-positional counter-based RNG, the ``Normal`` distribution, the linear-Gaussian
-models, the systematic, stratified, multinomial and residual schemes under the
-ESS gate, the sweep engine with reference trajectories and ancestor sampling,
-and the SMC and PG entry points.  Resampling runs through hand-written CUDA
+positional counter-based RNG and the key-based samplers of ``jax.random``
+(:mod:`~advancedps_tpu_torch.random`), the twelve distributions, the
+linear-Gaussian, stochastic-volatility, Lévy and GP-SSM models (components
+vectorized or per particle, Markov or with a history), the systematic,
+stratified, multinomial and residual schemes under the ESS gate, the sweep
+engine with tree-shaped particle states, reference trajectories and ancestor
+sampling, and the SMC and PG entry points.  Resampling runs through hand-written CUDA
 kernels (:mod:`advancedps_tpu_torch.ops.resample`) on CUDA tensors and
 through their plain PyTorch versions on CPU tensors.  Every entry point runs
 on the GPU unless the caller passes ``device="cpu"``; without a CUDA device a
@@ -24,9 +27,23 @@ Quick start::
     cpu = apt.sample(apt.rng.key(1), traced, apt.SMC(4096), device="cpu")
 """
 
-from . import convert, distributions, models, ops, rng, utils
-from .convert import key_from_words, traced_ssm_from_numpy
-from .distributions import Normal
+from . import convert, distributions, models, ops, random, rng, utils
+from .convert import key_from_words, model_from_numpy, traced_ssm_from_numpy
+from .distributions import (
+    Bernoulli,
+    Beta,
+    Categorical,
+    Dirac,
+    Distribution,
+    Exponential,
+    Gamma,
+    LogNormal,
+    MvNormal,
+    Normal,
+    Poisson,
+    StudentT,
+    Uniform,
+)
 from .engine import (
     SweepKernel,
     SweepResult,
@@ -44,6 +61,7 @@ from .resampling import (
     as_gated_resampler,
     effective_sample_size,
     multinomial_spacings,
+    randcat,
     randcat_gumbel,
     resample_multinomial,
     resample_residual,
@@ -53,6 +71,7 @@ from .resampling import (
 )
 from .smc import SMC, SMCSample, SSMKernel
 from .ssm import (
+    History,
     LatentDynamics,
     ObservationProcess,
     StatePrior,

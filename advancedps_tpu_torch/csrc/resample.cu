@@ -17,6 +17,9 @@
 //                (_make_lookup_kernel).
 //   B4 decode+move  B2 and B3 in one pass over an output window.  Replaces
 //                the v1 staircase _resample_move_cols (_make_move_kernel).
+//                Its form over leaves moves up to eight arrays of rows (the
+//                leaves of a tree-shaped particle state) after one decode, as
+//                the TPU kernel moves its list of columns.
 //   B5 dense decode  B2 by counting instead of searching: each run of equal
 //                extents writes its end once, then an integer max-scan.
 //                Replaces decode_ancestors (_decode_kernel).
@@ -192,6 +195,20 @@
 // slower for one column and up to a tenth faster for three or four.  The TPU
 // staircase's compare masks, which stood in for the missing per-lane gather,
 // are not carried over.
+//
+// B4 over leaves.  A tree-shaped state (the history buffer beside the state
+// of a non-Markov model, a record of variables) is several arrays of rows
+// moved by the same ancestors.  One B4 launch a leaf would decode each tile
+// once a leaf; the TPU kernel takes a list of columns for that reason.  Here
+// the leaves go to the kernel as one by-value table (a pointer in, a pointer
+// out and a width each, 24 bytes a leaf, eight leaves: far under the 4 KB
+// parameter limit): a block decodes its tile once with decode_tile, puts the
+// owners in shared memory once, and moves each leaf's rows by B4's own paths
+// (one column from registers, wider rows as consecutive 16-byte or 4-byte
+// words).  The table's loop is unrolled so that no entry is indexed at run
+// time.  The bytes are those of the leaves, read once and written once; the
+// decode's chain is paid once a tile instead of once a leaf.  More leaves than
+// eight take more launches, each decoding again.
 //
 // B5 counting.  anc[k] = #{j : f_j <= k} is, for nondecreasing f, one more
 // than the last row whose extent is <= k.  Each run of equal extents ends at
@@ -794,6 +811,57 @@ decode_tile_kernel(const int* __restrict__ f, int64_t m, int guard, int64_t star
   store_slots(anc + k0, threadIdx.x * kDecodeItems, nk, cnt);
 }
 
+// ---- The move of B4 and B4 over leaves: a tile's rows by its slots' owners.
+
+// One column: the rows of a thread's own slots, straight from its registers.
+__device__ __forceinline__ void move_column(const uint32_t* __restrict__ v,
+                                            uint32_t* __restrict__ tile_out, int kx, int nk,
+                                            int rows, const int (&a)[kDecodeItems]) {
+  uint32_t w[kDecodeItems];
+#pragma unroll
+  for (int i = 0; i < kDecodeItems; ++i) {
+    w[i] = kx + i < nk && a[i] < rows ? __ldg(v + a[i]) : 0u;
+  }
+  store_slots(tile_out, kx, nk, w);
+}
+
+// Put the owners of the tile's slots in sh.slot_cnt for move_rows_wide (the
+// array must be free: decode_tile ends with a barrier).  Ends with a barrier.
+__device__ __forceinline__ void stage_owners(DecodeTile& sh, const int (&a)[kDecodeItems]) {
+#pragma unroll
+  for (int q = 0; q < kDecodeItems / 4; ++q) {
+    reinterpret_cast<int4*>(sh.slot_cnt)[threadIdx.x * (kDecodeItems / 4) + q] =
+        make_int4(a[4 * q], a[4 * q + 1], a[4 * q + 2], a[4 * q + 3]);
+  }
+  __syncthreads();
+}
+
+// d > 1 columns, owners staged: the tile's rows are contiguous in out, nk * d
+// < 2^31 words, so consecutive threads write consecutive words (16 bytes each
+// where d and the alignment allow), the owner of a word's slot read from
+// shared memory.
+__device__ __forceinline__ void move_rows_wide(const uint32_t* __restrict__ v, int d,
+                                               uint32_t* __restrict__ tile_out, int nk, int rows,
+                                               const DecodeTile& sh) {
+  if ((d & 3) == 0 && aligned16(v) && aligned16(tile_out)) {
+    const int d4 = d >> 2;
+    const uint4* v4 = reinterpret_cast<const uint4*>(v);
+    uint4* out4 = reinterpret_cast<uint4*>(tile_out);
+    for (int e = threadIdx.x; e < nk * d4; e += kDecodeThreads) {
+      const int i = e / d4;
+      const int owner = sh.slot_cnt[i];
+      out4[e] = owner < rows ? __ldg(v4 + (int64_t)owner * d4 + (e - i * d4))
+                             : make_uint4(0u, 0u, 0u, 0u);
+    }
+  } else {
+    for (int e = threadIdx.x; e < nk * d; e += kDecodeThreads) {
+      const int i = e / d;
+      const int owner = sh.slot_cnt[i];
+      tile_out[e] = owner < rows ? __ldg(v + (int64_t)owner * d + (e - i * d)) : 0u;
+    }
+  }
+}
+
 // ---- B4: one block per kDecodeMoveTile consecutive output slots, B2's tile
 // (see "B4 decode, then move").
 __global__ void __launch_bounds__(kDecodeThreads, kDecodeMoveBlocks)
@@ -810,40 +878,49 @@ decode_move_kernel(const int* __restrict__ f, int64_t m, int guard, int64_t star
   const int rows = (int)m;  // m < 2^31
   uint32_t* tile_out = out + k0 * d;
   if (d == 1) {
-    // The rows of a thread's own slots, straight from its registers.
-    uint32_t w[kDecodeItems];
-#pragma unroll
-    for (int i = 0; i < kDecodeItems; ++i) {
-      w[i] = kx + i < nk && a[i] < rows ? __ldg(v + a[i]) : 0u;
-    }
-    store_slots(tile_out, kx, nk, w);
+    move_column(v, tile_out, kx, nk, rows, a);
   } else {
-    // The tile's rows are contiguous in out, nk * d < 2^31 words:
-    // consecutive threads write consecutive words (16 bytes each where d and
-    // the alignment allow), the owner of a word's slot read from shared
-    // memory.
+    stage_owners(sh, a);
+    move_rows_wide(v, d, tile_out, nk, rows, sh);
+  }
 #pragma unroll
-    for (int q = 0; q < kDecodeItems / 4; ++q) {
-      reinterpret_cast<int4*>(sh.slot_cnt)[threadIdx.x * (kDecodeItems / 4) + q] =
-          make_int4(a[4 * q], a[4 * q + 1], a[4 * q + 2], a[4 * q + 3]);
-    }
-    __syncthreads();
-    if ((d & 3) == 0 && aligned16(v) && aligned16(tile_out)) {
-      const int d4 = d >> 2;
-      const uint4* v4 = reinterpret_cast<const uint4*>(v);
-      uint4* out4 = reinterpret_cast<uint4*>(tile_out);
-      for (int e = threadIdx.x; e < nk * d4; e += kDecodeThreads) {
-        const int i = e / d4;
-        const int owner = sh.slot_cnt[i];
-        out4[e] = owner < rows ? __ldg(v4 + (int64_t)owner * d4 + (e - i * d4))
-                               : make_uint4(0u, 0u, 0u, 0u);
-      }
+  for (int i = 0; i < kDecodeItems; ++i) a[i] = min(a[i], rows - 1);
+  store_slots(anc_clipped + k0, kx, nk, a);
+}
+
+// ---- B4 over leaves: one decode of a tile, then the rows of up to
+// kMaxLeaves leaves (see "B4 over leaves").  The leaf table is a by-value
+// parameter; its loop is unrolled so that every entry is read at a fixed
+// offset of the parameter space.
+constexpr int kMaxLeaves = 8;
+
+struct LeafSet {
+  const uint32_t* v[kMaxLeaves];
+  uint32_t* out[kMaxLeaves];
+  int64_t d[kMaxLeaves];
+  int count;
+};
+
+__global__ void __launch_bounds__(kDecodeThreads, kDecodeMoveBlocks)
+decode_move_leaves_kernel(const int* __restrict__ f, int64_t m, int guard, int64_t start,
+                          int64_t n_out, const LeafSet leaves, int* __restrict__ anc_clipped) {
+  __shared__ DecodeTile sh;
+  const int64_t k0 = (int64_t)blockIdx.x * kDecodeMoveTile;
+  const int nk = (int)(n_out - k0 < kDecodeMoveTile ? n_out - k0 : kDecodeMoveTile);
+  int a[kDecodeItems];
+  decode_tile(f, m, guard, start + k0, nk, sh, a);
+  const int kx = threadIdx.x * kDecodeItems;
+  const int rows = (int)m;  // m < 2^31
+  stage_owners(sh, a);  // once, for every leaf of more than one column
+#pragma unroll
+  for (int l = 0; l < kMaxLeaves; ++l) {
+    if (l >= leaves.count) break;
+    const int d = (int)leaves.d[l];
+    uint32_t* tile_out = leaves.out[l] + k0 * d;
+    if (d == 1) {
+      move_column(leaves.v[l], tile_out, kx, nk, rows, a);
     } else {
-      for (int e = threadIdx.x; e < nk * d; e += kDecodeThreads) {
-        const int i = e / d;
-        const int owner = sh.slot_cnt[i];
-        tile_out[e] = owner < rows ? __ldg(v + (int64_t)owner * d + (e - i * d)) : 0u;
-      }
+      move_rows_wide(leaves.v[l], d, tile_out, nk, rows, sh);
     }
   }
 #pragma unroll
@@ -1144,6 +1221,31 @@ int aps_decode_move(const int* f, int64_t m, int guard, int64_t start, int64_t n
   cudaStream_t s = (cudaStream_t)stream;
   decode_move_kernel<<<blocks_for(n_out, kDecodeMoveTile), kDecodeThreads, 0, s>>>(
       f, m, guard, start, n_out, (const uint32_t*)v, (int)d, (uint32_t*)out, anc_clipped);
+  return (int)cudaGetLastError();
+}
+
+// The most leaves one launch of B4 over leaves moves.
+int aps_max_leaves() { return kMaxLeaves; }
+
+// B4 over leaves.  f as for B2; count leaves, 1 <= count <= kMaxLeaves: leaf l
+// 32-bit words v[l] [m, d[l]] moved into out[l] [n_out, d[l]] (0 past the
+// population), 1 <= d[l] <= 2^19; v, out and d are host arrays of count
+// entries; anc_clipped int32[n_out], the counts clipped to m - 1.
+int aps_decode_move_leaves(const int* f, int64_t m, int guard, int64_t start, int64_t n_out,
+                           int count, const void* const* v, void* const* out, const int64_t* d,
+                           int* anc_clipped, void* stream) {
+  if (count < 1 || count > kMaxLeaves) return (int)cudaErrorInvalidValue;
+  LeafSet set{};
+  for (int l = 0; l < count; ++l) {
+    if (d[l] < 1 || d[l] > (1 << 19)) return (int)cudaErrorInvalidValue;
+    set.v[l] = (const uint32_t*)v[l];
+    set.out[l] = (uint32_t*)out[l];
+    set.d[l] = d[l];
+  }
+  set.count = count;
+  cudaStream_t s = (cudaStream_t)stream;
+  decode_move_leaves_kernel<<<blocks_for(n_out, kDecodeMoveTile), kDecodeThreads, 0, s>>>(
+      f, m, guard, start, n_out, set, anc_clipped);
   return (int)cudaGetLastError();
 }
 

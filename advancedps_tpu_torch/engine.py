@@ -23,6 +23,13 @@ then the decode and move of :func:`~advancedps_tpu_torch.ops.resample.resample_m
 resampler (residual, or a user's) returns its ancestors and the state is
 gathered by them.
 
+The particle state is a tensor or a tree of tensors (a tuple, list or dict,
+each leaf with leading axis N), as the JAX engine moves any pytree: the
+``(x, history)`` of a non-Markov model, a record of variables.  A firing
+decodes once and moves every leaf (float32 and int32 leaves through the
+kernels, others gathered); snapshots and the reference trajectory are trees
+of the snapshot's structure.
+
 Conditional sweeps (PG/PGAS): the reference trajectory occupies slot ``N−1``,
 reads its stored state instead of sampling (:func:`inject_ref`), and survives
 every resampling: the other ``N−1`` ancestors are drawn from all ``N`` weights.
@@ -43,8 +50,9 @@ from typing import Any, Optional
 
 import torch
 
-from . import rng as rngmod
+from . import _tree, rng as rngmod
 from ._device import resolve_device
+from ._tree import tree_at, tree_map, tree_rows, tree_stack
 from .ops import resample as ops
 from .resampling import (
     ResampleWithESSThreshold,
@@ -83,10 +91,12 @@ class SweepKernel:
       latents (slot ``N−1`` reads ``ref0`` when a reference is present) and
       score ``y_0``; ``rng`` is a :class:`~advancedps_tpu_torch.rng.StepRng`.
     * ``step(t, rng, state, ref_t, ref_mask) -> (state, logw[N])`` — one
-      transition + observation score.  ``state`` is a float32 ``[N]`` or
-      ``[N, D]`` tensor; resampling moves its rows.
-    * ``snapshot(state) -> [N, ...] | None`` — the per-step value recorded for
-      trajectory reconstruction.
+      transition + observation score.  ``state`` is a tensor or a tree of
+      tensors (tuple, list or dict), each leaf with leading axis ``N``;
+      resampling moves its rows.
+    * ``snapshot(state) -> [N, ...] | None`` — the per-step value (a tensor or
+      a tree) recorded for trajectory reconstruction; a reference trajectory
+      is a series of these, ``[T, ...]`` leaf by leaf.
     * ``transition_logprob(t, state, ref_t) -> [N]`` — density of moving from
       each particle's state to ``ref_t``; needed by PGAS only.
     """
@@ -132,11 +142,17 @@ class SweepResult:
 
 def inject_ref(ref_mask, ref_val, vals):
     """Slot ``N−1`` (where ``ref_mask`` is true) takes the reference value
-    instead of its own: a ``where``, so the read stays inside the step."""
+    instead of its own: a ``where``, so the read stays inside the step.
+    ``vals`` a tensor or tree with leading axis N, ``ref_val`` the matching
+    value or tree for one particle."""
     if ref_mask is None or ref_val is None:
         return vals
-    m = ref_mask.reshape(ref_mask.shape + (1,) * (vals.dim() - 1))
-    return torch.where(m, torch.as_tensor(ref_val, dtype=vals.dtype, device=vals.device), vals)
+
+    def one(v, r):
+        m = ref_mask.reshape(ref_mask.shape + (1,) * (v.dim() - 1))
+        return torch.where(m, torch.as_tensor(r, dtype=v.dtype, device=v.device), v)
+
+    return tree_map(one, vals, ref_val)
 
 
 def _fused_extents(scheme, rs_key, logw, m, s1, n_resample):
@@ -181,7 +197,7 @@ def sweep(
     gids = torch.arange(n, device=device)
     ref_mask = None
     if has_ref:
-        ref = torch.as_tensor(ref, dtype=torch.float32, device=device)
+        ref = _tree.as_reference(ref, device)
         ref_mask = gids == (n - 1)
     # With a reference, n − 1 positions are drawn and slot n − 1 keeps the
     # reference.
@@ -189,14 +205,21 @@ def sweep(
     scheme = _FUSED_SCHEMES.get(resampler.resampler)
 
     rng0 = rngmod.StepRng(rngmod.step_key(key, rngmod.INIT, 0), gids)
-    state, logw = kernel.init(rng0, ref[0] if has_ref else None, ref_mask)
+    state, logw = kernel.init(rng0, tree_at(ref, 0), ref_mask)
 
     snap0 = kernel.snapshot(state)
     do_store = store_states and snap0 is not None
     states = None
+
+    def store(t, snap):
+        def put(buf, s):
+            buf[t] = s
+        tree_map(put, states, snap)
+
     if do_store:
-        states = torch.empty((T,) + tuple(snap0.shape), dtype=snap0.dtype, device=device)
-        states[0] = snap0
+        states = tree_map(lambda s: torch.empty((T,) + tuple(s.shape), dtype=s.dtype,
+                                                device=device), snap0)
+        store(0, snap0)
 
     iota = torch.arange(n, dtype=torch.int32, device=device)
     ancestors = torch.empty((T, n), dtype=torch.int32, device=device)
@@ -235,12 +258,12 @@ def sweep(
                 # before the move: n − 1 (PG), or drawn ∝ w_i·f_t(ref_t | x_i)
                 # (PGAS).  A device tensor: no host sync.
                 if ancestor_sampling:
-                    anc_logw = logw + kernel.transition_logprob(t, state, ref[t])
+                    anc_logw = logw + kernel.transition_logprob(t, state, tree_at(ref, t))
                     anc_key = rngmod.step_key(key, rngmod.ANCESTOR, t)
                     ref_anc = randcat_gumbel(anc_key, anc_logw, gids).reshape(1)
                 else:
                     ref_anc = iota[n - 1:]
-                ref_row = state.index_select(0, ref_anc)
+                ref_row = tree_rows(state, ref_anc)
             if scheme is not None:
                 f = _fused_extents(scheme, rs_key, logw, m, s1, n_resample)
                 # With a reference, slot n − 1 decodes past the drawn
@@ -250,12 +273,15 @@ def sweep(
                 anc, state_rs = ops.resample_move_f(f, state, n, guard_n=n_resample)
                 if has_ref:
                     anc[n - 1:] = ref_anc
-                    state_rs[n - 1:] = ref_row
+
+                    def put_ref(mv, r):
+                        mv[n - 1:] = r
+                    tree_map(put_ref, state_rs, ref_row)
             else:
                 anc = resampler.resampler(rs_key, e / s1, n_resample)
                 if has_ref:
                     anc = torch.cat([anc, ref_anc])
-                state_rs = state.index_select(0, anc.long())
+                state_rs = tree_rows(state, anc.long())
             state = state_rs
             ancestors[t] = anc
             pending = ln_n
@@ -265,11 +291,11 @@ def sweep(
         resampled[t] = do_rs
 
         rng_t = rngmod.StepRng(rngmod.step_key(key, rngmod.PROPAGATE, t), gids)
-        state, score = kernel.step(t, rng_t, state, ref[t] if has_ref else None, ref_mask)
+        state, score = kernel.step(t, rng_t, state, tree_at(ref, t), ref_mask)
         # After a resample the weights restart at 0, so the new weights are the score.
         logw = score if do_rs else logw + score
         if do_store:
-            states[t] = kernel.snapshot(state)
+            store(t, kernel.snapshot(state))
 
     log_z = log_z + (torch.logsumexp(logw, 0) - pending)
 
@@ -310,14 +336,17 @@ def _lineage_slots(ancestors: torch.Tensor, index) -> torch.Tensor:
     return torch.cat(slots[::-1])
 
 
-def reconstruct(states: torch.Tensor, ancestors: torch.Tensor, index: Optional[int]):
-    """Trajectories through the genealogy: ``index`` None → all N ``[T, N, ...]``;
-    a slot ``index`` (int or one-element tensor) → ``[T, ...]``."""
+def reconstruct(states, ancestors: torch.Tensor, index: Optional[int]):
+    """Trajectories through the genealogy (``states`` a tensor or tree of
+    ``[T, N, ...]`` leaves): ``index`` None → all N ``[T, N, ...]``; a slot
+    ``index`` (int or one-element tensor) → ``[T, ...]``."""
     T = ancestors.shape[0]
     steps = torch.arange(T, device=ancestors.device)
     if index is None:
-        return states[steps[:, None], lineages(ancestors).long()]
-    return states[steps, _lineage_slots(ancestors, index)]
+        lin = lineages(ancestors).long()
+        return tree_map(lambda s: s[steps[:, None], lin], states)
+    slots = _lineage_slots(ancestors, index)
+    return tree_map(lambda s: s[steps, slots], states)
 
 
 @torch.no_grad()
@@ -337,14 +366,14 @@ def replay_trajectory(key, kernel: SweepKernel, ancestors: torch.Tensor, index, 
     has_ref = ref is not None
     slots = _lineage_slots(ancestors, index)
     if has_ref:
-        ref = torch.as_tensor(ref, dtype=torch.float32, device=ancestors.device)
+        ref = _tree.as_reference(ref, ancestors.device)
 
     def mask_of(g):
         return (g == n - 1) if has_ref else None
 
     g = slots[0:1]
     rng0 = rngmod.StepRng(rngmod.step_key(key, rngmod.INIT, 0), g)
-    state, _ = kernel.init(rng0, ref[0] if has_ref else None, mask_of(g))
+    state, _ = kernel.init(rng0, tree_at(ref, 0), mask_of(g))
     snap = kernel.snapshot(state)
     if snap is None:
         raise ValueError("replay requires a kernel with per-step snapshots")
@@ -352,6 +381,6 @@ def replay_trajectory(key, kernel: SweepKernel, ancestors: torch.Tensor, index, 
     for t in range(1, T):
         g = slots[t:t + 1]
         rng_t = rngmod.StepRng(rngmod.step_key(key, rngmod.PROPAGATE, t), g)
-        state, _ = kernel.step(t, rng_t, state, ref[t] if has_ref else None, mask_of(g))
+        state, _ = kernel.step(t, rng_t, state, tree_at(ref, t), mask_of(g))
         snaps.append(kernel.snapshot(state))
-    return torch.stack(snaps)[:, 0]
+    return tree_map(lambda s: s[:, 0], tree_stack(snaps))

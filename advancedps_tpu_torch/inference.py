@@ -15,6 +15,7 @@ import torch
 
 from . import rng as rngmod
 from ._device import resolve_device
+from ._tree import tree_stack
 from .engine import SweepKernel, reconstruct, replay_trajectory, sweep
 from .pg import PG, PGSample, PGState
 from .resampling import randcat_gumbel
@@ -111,7 +112,8 @@ def sample_pg(key: Key, model, sampler: PG, n_iterations: int,
     """Run a PG(AS) chain of ``n_iterations`` on ``device`` (None: the GPU): iteration ``i``
     uses the key ``fold_in(key, i)``, and the first runs without a reference.
     Returns the stacked :class:`PGSample`: ``trajectory [n_iterations, T, ...]``,
-    ``log_evidence [n_iterations]``.
+    ``log_evidence [n_iterations]`` (a tree-shaped trajectory stacked leaf by
+    leaf).
 
     The chain is a Python loop over iterations.  The JAX package's
     ``jit_chain`` (the chain as one compiled ``lax.scan``) has no counterpart
@@ -126,7 +128,7 @@ def sample_pg(key: Key, model, sampler: PG, n_iterations: int,
                           trajectory_storage, device)
         samples.append(smp)
     return PGSample(
-        trajectory=torch.stack([s.trajectory for s in samples]),
+        trajectory=tree_stack([s.trajectory for s in samples]),
         log_evidence=torch.stack([s.log_evidence for s in samples]),
     )
 

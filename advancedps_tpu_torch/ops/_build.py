@@ -40,6 +40,8 @@ _SIGNATURES = {
     "aps_decode_ancestors": (_P, _I64, _I32, _I64, _I64, _P, _P),
     "aps_move_rows": (_P, _I64, _I64, _P, _I64, _P, _P, _P),
     "aps_decode_move": (_P, _I64, _I32, _I64, _I64, _P, _I64, _P, _P, _P),
+    "aps_max_leaves": (),
+    "aps_decode_move_leaves": (_P, _I64, _I32, _I64, _I64, _I32, _P, _P, _P, _P, _P),
     "aps_decode_ancestors_dense": (_P, _I64, _I32, _I64, _P, _P, _I64, _U64, _P, _P),
     "aps_count_le_sorted_bs": (_P, _I64, _P, _I64, _P, _P),
     "aps_count_le_sorted": (_P, _I64, _P, _I64, _P, _P),

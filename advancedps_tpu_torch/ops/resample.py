@@ -13,7 +13,9 @@ Two more kernels compute the same decode in other forms:
 
 * B4 :func:`decode_move` — B2 and B3 in one launch over an output window,
   each block decoding its slots as B2's does and moving their rows from
-  registers; what the sweep runs after B1;
+  registers; what the sweep runs after B1; and its form over a list of
+  leaves, :func:`decode_move_leaves`, one decode for up to
+  :data:`MAX_LEAVES` arrays of rows;
 * B5 :func:`decode_ancestors_dense` — B2 by counting, with no search: a
   scatter of the run ends and one single-pass max-scan.
 
@@ -32,7 +34,10 @@ from two more primitives:
 :data:`MOVE_VERSION` picks B4 (1, the default), B2 + B3 (6) or B5 + a gather
 (0), as the JAX package's ``APS_MOVE_VERSION`` does.  :func:`resample_move_window_fext`
 and :func:`resample_move_window` decode and move one output window, as the
-sharded exchange does.
+sharded exchange does.  All of them take the state as one tensor or as a
+tree of tensors (:mod:`advancedps_tpu_torch._tree`): one decode a firing,
+the float32 and int32 leaves moved by the kernels as 32-bit words (so
+bitwise), any other leaf gathered by the clipped ancestors.
 
 Each wrapper takes its plain PyTorch version (``*_ref``, beside it) only when
 its tensors lie on the CPU.  On a CUDA tensor it launches the hand-written
@@ -49,6 +54,7 @@ from typing import Optional
 import torch
 
 from . import _build
+from .._tree import is_tree, tree_flatten, tree_unflatten
 
 __all__ = [
     "extents_from_logw",
@@ -62,6 +68,8 @@ __all__ = [
     "resample_move_ref",
     "decode_move",
     "decode_move_ref",
+    "decode_move_leaves",
+    "decode_move_leaves_ref",
     "scaled_prefix_from_logw",
     "prefix_sum",
     "scaled_prefix_ref",
@@ -86,6 +94,8 @@ __all__ = [
     "COUNT_LE_SORTED",
     "MOVE_VERSION",
     "MAX_DECODE_MOVE_D",
+    "MAX_LEAVES",
+    "WORD_DTYPES",
     "KERNEL_WRAPPERS",
     "reset_launch_counts",
 ]
@@ -95,6 +105,12 @@ MAX_N = 1 << 24
 
 #: B4 counts the words of one block's rows in an int32.
 MAX_DECODE_MOVE_D = 1 << 19
+
+#: Leaves one launch of :func:`decode_move_leaves` moves (``aps_max_leaves``).
+MAX_LEAVES = 8
+
+#: Row types the moves copy as 32-bit words: bitwise, whatever the bits.
+WORD_DTYPES = (torch.float32, torch.int32)
 
 #: Which merge-count :func:`count_le_sorted_auto` runs: ``"bs"`` (B7, the
 #: search; the default, as in the JAX package) or ``"merge"`` (B8, merge
@@ -212,6 +228,15 @@ def decode_move_ref(f, v, n_out: int, guard: Optional[int] = None, start: int = 
     return resample_move_ref(decode_ancestors_ref(f, n_out, guard, start), v)
 
 
+def decode_move_leaves_ref(f, leaves, n_out: int, guard: Optional[int] = None,
+                           start: int = 0):
+    """:func:`decode_ancestors_ref` once, then :func:`resample_move_ref` of
+    each leaf: ``(anc clipped to M−1, [moved leaf, ...])``."""
+    anc = decode_ancestors_ref(f, n_out, guard, start)
+    moved = [resample_move_ref(anc, v)[1] for v in leaves]
+    return torch.clamp(anc, max=f.numel() - 1), moved
+
+
 def scaled_prefix_ref(x, m, scale, use_exp: bool) -> torch.Tensor:
     """``cummax(fl32(cumsum(e)) · scale)`` with ``e = exp(x − m)`` (float32)
     or ``x``, the prefix summed in float64 and rounded once; ``scale`` None
@@ -233,11 +258,12 @@ def count_le_sorted_ref(s, t) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndims=(1,)):
+def _check(t: torch.Tensor, name: str, dtype, ndims=(1,)):
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    dtypes = dtype if isinstance(dtype, tuple) else (dtype,)
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} must be {' or '.join(map(str, dtypes))}, got {t.dtype}")
     if t.dim() not in ndims:
         raise ValueError(f"{name} must have {' or '.join(map(str, ndims))} dims, got shape {tuple(t.shape)}")
     if not t.is_contiguous():
@@ -425,19 +451,23 @@ def decode_ancestors_dense(f, n_out: int, guard: Optional[int] = None) -> torch.
     return anc
 
 
-def _check_rows(v, m: Optional[int] = None):
-    _check(v, "v", torch.float32, ndims=(1, 2))
+def _check_rows(v, m: Optional[int] = None, name: str = "v"):
+    _check(v, name, WORD_DTYPES, ndims=(1, 2))
     if v.shape[0] == 0:
-        raise ValueError("v must hold at least one row")
+        raise ValueError(f"{name} must hold at least one row")
     if m is not None and v.shape[0] != m:
-        raise ValueError(f"v has {v.shape[0]} rows, f has {m} extents")
+        raise ValueError(f"{name} has {v.shape[0]} rows, f has {m} extents")
+    d = 1 if v.dim() == 1 else v.shape[1]
+    if not 1 <= d <= MAX_DECODE_MOVE_D:
+        raise ValueError(f"{name} must have 1 to {MAX_DECODE_MOVE_D} columns, got {d}")
+    return d
 
 
 def move_rows(anc, v):
     """B3: move particle rows by ancestor.
 
-    ``anc`` int32 ``[n]`` with values in ``[0, M]``; ``v`` float32 ``[M]`` or
-    ``[M, D]``, contiguous.  Returns ``(anc clipped to M−1, moved)`` where
+    ``anc`` int32 ``[n]`` with values in ``[0, M]``; ``v`` float32 or int32
+    ``[M]`` or ``[M, D]``, contiguous.  Returns ``(anc clipped to M−1, moved)`` where
     ``moved[k]`` is a bitwise copy of ``v[anc[k]]``, or 0 where
     ``anc[k] == M``.
     """
@@ -465,7 +495,7 @@ def move_rows(anc, v):
 def decode_move(f, v, n_out: int, guard: Optional[int] = None, start: int = 0):
     """B4: :func:`decode_ancestors` and :func:`move_rows` in one launch.
 
-    ``f`` int32 ``[M]`` extents, ``v`` float32 ``[M]`` or ``[M, D]`` rows;
+    ``f`` int32 ``[M]`` extents, ``v`` float32 or int32 ``[M]`` or ``[M, D]`` rows;
     decodes the output slots ``[start, start + n_out)`` with ``f[M−1]`` read
     as ``guard`` (as :func:`decode_ancestors`) and returns ``(anc clipped to
     M−1, moved)``, ``moved`` a bitwise copy of the owner rows with 0 past the
@@ -475,10 +505,7 @@ def decode_move(f, v, n_out: int, guard: Optional[int] = None, start: int = 0):
     owners in between.
     """
     _check_extents(f, start)
-    _check_rows(v, f.numel())
-    d = 1 if v.dim() == 1 else v.shape[1]
-    if not 1 <= d <= MAX_DECODE_MOVE_D:
-        raise ValueError(f"v must have 1 to {MAX_DECODE_MOVE_D} columns, got {d}")
+    d = _check_rows(v, f.numel())
     g = _guard_of(n_out, guard, start)
     if _on_cpu(f, v):
         return decode_move_ref(f, v, n_out, g, start)
@@ -495,6 +522,48 @@ def decode_move(f, v, n_out: int, guard: Optional[int] = None, start: int = 0):
     _raise_on(rc, "decode_move")
     decode_move.launches += 1
     return anc_clipped, out
+
+
+def decode_move_leaves(f, leaves, n_out: int, guard: Optional[int] = None, start: int = 0):
+    """B4 over a list of leaves: :func:`decode_move`'s decode once, then
+    each leaf's rows.
+
+    ``leaves`` a list of float32 or int32 ``[M]`` or ``[M, D_l]`` contiguous
+    rows; returns ``(anc clipped to M−1, [moved leaf, ...])``, each moved
+    leaf a bitwise copy of its owner rows with 0 past the drawn population,
+    as :func:`decode_move` gives it leaf by leaf.  One launch moves up to
+    :data:`MAX_LEAVES` leaves; more take further launches, each of which
+    decodes the tile again.  (The moves of a tree send a single 32-bit leaf
+    to :func:`decode_move` instead.)
+    """
+    _check_extents(f, start)
+    leaves = list(leaves)
+    if not leaves:
+        raise ValueError("decode_move_leaves needs at least one leaf")
+    widths = [_check_rows(v, f.numel(), f"leaf {i}") for i, v in enumerate(leaves)]
+    g = _guard_of(n_out, guard, start)
+    if _on_cpu(f, *leaves):
+        return decode_move_leaves_ref(f, leaves, n_out, g, start)
+    outs = [torch.empty((n_out,) + tuple(v.shape[1:]), dtype=v.dtype, device=v.device)
+            for v in leaves]
+    anc_clipped = torch.empty(n_out, dtype=torch.int32, device=f.device)
+    if n_out == 0:
+        return anc_clipped, outs
+    lib = _build.library()
+    with torch.cuda.device(f.device):
+        for lo in range(0, len(leaves), MAX_LEAVES):
+            part = range(lo, min(lo + MAX_LEAVES, len(leaves)))
+            vs = (ctypes.c_void_p * len(part))(*(leaves[i].data_ptr() for i in part))
+            os_ = (ctypes.c_void_p * len(part))(*(outs[i].data_ptr() for i in part))
+            ds = (ctypes.c_int64 * len(part))(*(widths[i] for i in part))
+            rc = lib.aps_decode_move_leaves(
+                _ptr(f), f.numel(), g, int(start), int(n_out), len(part),
+                ctypes.cast(vs, ctypes.c_void_p), ctypes.cast(os_, ctypes.c_void_p),
+                ctypes.cast(ds, ctypes.c_void_p), _ptr(anc_clipped), _stream(f.device),
+            )
+            _raise_on(rc, "decode_move_leaves")
+            decode_move_leaves.launches += 1
+    return anc_clipped, outs
 
 
 def _scaled_prefix(wrapper, x, m, scale, use_exp: bool) -> torch.Tensor:
@@ -603,19 +672,66 @@ def _resolve_version(version: Optional[int]) -> int:
     return ver
 
 
+def _as_rows(leaf):
+    """A leaf as the contiguous rows a kernel moves: ``[M]``, or ``[M, D]``
+    with the trailing axes flattened."""
+    leaf = leaf.contiguous()
+    return leaf if leaf.dim() == 1 else leaf.reshape(leaf.shape[0], -1)
+
+
+def _move_tree(f, state, n_out: int, guard: Optional[int], start: int, ver: int):
+    """Decode once and move every leaf of the tree ``state``: the float32
+    and int32 leaves by the move of version ``ver`` (B4 over leaves for 1,
+    B3 a leaf for 6), the others gathered by the clipped ancestors; version
+    0 (whole population only) gathers every leaf after B5."""
+    leaves, structure = tree_flatten(state)
+    m = f.numel()
+    words = [i for i, a in enumerate(leaves) if a.dtype in WORD_DTYPES]
+    moved = [None] * len(leaves)
+    if ver == 0:
+        anc = torch.clamp(decode_ancestors_dense(f, n_out, guard=guard), max=m - 1)
+    elif ver == 1 and len(words) == 1:
+        anc, mv = decode_move(f, _as_rows(leaves[words[0]]), n_out, guard, start)
+        moved[words[0]] = mv
+    elif ver == 1 and words:
+        anc, mvs = decode_move_leaves(f, [_as_rows(leaves[i]) for i in words], n_out, guard,
+                                      start)
+        for i, mv in zip(words, mvs):
+            moved[i] = mv
+    else:
+        raw = decode_ancestors(f, n_out, guard, start)
+        anc = torch.clamp(raw, max=m - 1)
+        if ver == 6:
+            for i in words:
+                anc, moved[i] = move_rows(raw, _as_rows(leaves[i]))
+    for i, a in enumerate(leaves):
+        if moved[i] is None:
+            moved[i] = a.index_select(0, anc.long())
+        else:
+            moved[i] = moved[i].reshape((n_out,) + tuple(a.shape[1:]))
+    return anc, tree_unflatten(structure, moved)
+
+
 def resample_move_f(f, state, n: int, version: Optional[int] = None,
                     guard_n: Optional[int] = None):
     """Decode the ``n`` output slots of extents ``f`` and move ``state``
-    (float32 ``[M]`` or ``[M, D]``) by them.  Returns ``(anc clipped to M−1,
-    moved)``.
+    (float32 ``[M]`` or ``[M, D]``, or a tree of tensors with leading axis
+    ``M``) by them.  Returns ``(anc clipped to M−1, moved)``.
 
     ``f[M−1]`` is read as ``guard_n`` (``n`` if not given): slots from the
     guard on lie past the drawn population.  Their rows are 0 under versions
     1 and 6, and ``state[M−1]`` under version 0, which clips the counts and
-    gathers (``pallas_resample.py:1273-1280``).  ``version`` None means
-    :data:`MOVE_VERSION`.
+    gathers (``pallas_resample.py:1273-1280``); a tree's leaves that are
+    gathered take row ``M−1`` there under every version.  ``version`` None
+    means :data:`MOVE_VERSION`.  A tree is decoded once: its float32 and
+    int32 leaves go through B4 over leaves in ``⌈leaves / MAX_LEAVES⌉``
+    launches under version 1 (one leaf: :func:`decode_move`), through B3 a
+    leaf under 6, through an ``index_select`` a leaf under 0.
     """
     ver = _resolve_version(version)
+    if is_tree(state):
+        return _move_tree(f, state, n, guard_n, 0, ver)
+    state = state.contiguous()
     if ver == 0:
         anc = decode_ancestors_dense(f, n, guard=guard_n)
         anc = torch.clamp(anc, max=f.shape[0] - 1)
@@ -648,8 +764,13 @@ def resample_move_window_fext(f_ext, state, n: int, start: int, n_out: int,
     ancestors are run-local (global owner − the run's first row), clipped to
     the run.  Given the whole population as the run, they are global.
     Version 0 runs version 1, as ``pallas_resample.py:1323-1328`` does.
+    ``state`` may be a tree of tensors, moved as :func:`resample_move_f`
+    moves one.
     """
     ver = _resolve_version(version)
+    if is_tree(state):
+        return _move_tree(f_ext, state, n_out, n, start, 6 if ver == 6 else 1)
+    state = state.contiguous()
     if ver == 6:
         return move_rows(decode_ancestors(f_ext, n_out, guard=n, start=start), state)
     return decode_move(f_ext, state, n_out, guard=n, start=start)
@@ -674,8 +795,9 @@ def systematic_decode(u, weights, n: int) -> torch.Tensor:
 
 #: Every wrapper that launches a kernel, each with its ``launches`` count.
 KERNEL_WRAPPERS = (
-    extents_from_logw, decode_ancestors, move_rows, decode_move, decode_ancestors_dense,
-    scaled_prefix_from_logw, prefix_sum, count_le_sorted_bs, count_le_sorted,
+    extents_from_logw, decode_ancestors, move_rows, decode_move, decode_move_leaves,
+    decode_ancestors_dense, scaled_prefix_from_logw, prefix_sum, count_le_sorted_bs,
+    count_le_sorted,
 )
 
 

@@ -13,6 +13,7 @@ from typing import Optional
 import torch
 
 from .. import rng as rngmod
+from .._tree import tree_stack
 from ..engine import reconstruct, replay_trajectory
 from ..pg import PG, PGSample, PGState
 from ..resampling import randcat_gumbel
@@ -91,6 +92,6 @@ def sharded_sample_pg(
                                   trajectory_storage, exchange)
         samples.append(smp)
     return PGSample(
-        trajectory=torch.stack([s.trajectory for s in samples]),
+        trajectory=tree_stack([s.trajectory for s in samples]),
         log_evidence=torch.stack([s.log_evidence for s in samples]),
     )

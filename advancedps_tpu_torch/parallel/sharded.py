@@ -31,6 +31,11 @@ runs each step on every shard in turn, then the collectives, as JAX's
     predicate on ``fb`` holds (one host read per firing), else the
     all-gather.  Exact either way.
 
+* The state may be a tree of tensors, as in the engine: every collective
+  that moves it runs leaf by leaf, and the decode + move of a window moves
+  every leaf after one decode.  Per-particle keys fold the global id, so a
+  component sampled particle by particle draws what it draws in the
+  single-device sweep.
 * The reference particle of a conditional sweep occupies the last slot of
   the last shard.  Its PGAS ancestor is a local Gumbel argmax per shard, then
   a :func:`pmax` of the value and a :func:`pmin` of the global id (ties to the
@@ -49,7 +54,8 @@ from typing import Any
 
 import torch
 
-from .. import rng as rngmod
+from .. import _tree, rng as rngmod
+from .._tree import tree_at, tree_flatten, tree_map, tree_rows, tree_unflatten
 from ..engine import _FUSED_SCHEMES, SweepResult, _fused_extents
 from ..ops import resample as ops
 from ..resampling import ResampleWithESSThreshold
@@ -80,6 +86,16 @@ def _replicas(kernel, devices):
     return [copies[d] for d in devices]
 
 
+def _leafwise(collective, mesh, trees, *args, **kwargs):
+    """A collective over the shards' trees of one structure, leaf by leaf
+    (one call of the collective for a tensor)."""
+    flat = [tree_flatten(t) for t in trees]
+    structure = flat[0][1]
+    per_leaf = [collective(mesh, [f[0][i] for f in flat], *args, **kwargs)
+                for i in range(len(flat[0][0]))]
+    return [tree_unflatten(structure, [leaf[k] for leaf in per_leaf]) for k in range(len(trees))]
+
+
 @dataclass
 class _Shards:
     """What every step of one sharded sweep reads."""
@@ -107,7 +123,7 @@ def _draw_ref_anc(sh: _Shards, key, t, states, logws, ancestor_sampling: bool):
     anc_key = rngmod.step_key(key, rngmod.ANCESTOR, t)
     best, values = [], []
     for k in range(mesh.size):
-        alw = logws[k] + sh.kernels[k].transition_logprob(t, states[k], sh.refs[k][t])
+        alw = logws[k] + sh.kernels[k].transition_logprob(t, states[k], tree_at(sh.refs[k], t))
         u = rngmod.pos_uniform(anc_key, sh.gids[k])
         z = alw - torch.log(-torch.log(u))  # randcat_gumbel's expression
         li = torch.argmax(z)
@@ -124,7 +140,10 @@ def _apply_ref(sh: _Shards, local_anc, moved, ref_anc, ref_row):
     shard) with the retained ancestor draw and its pre-move row."""
     last = sh.mesh.size - 1
     local_anc[last][sh.L - 1] = ref_anc[last]
-    moved[last][sh.L - 1] = ref_row[0]
+
+    def put(mv, r):
+        mv[sh.L - 1] = r[0]
+    tree_map(put, moved[last], ref_row)
 
 
 def _exchange_allgather(sh: _Shards, rs_key, resampler, scheme, states, logws, es, ms, s1s,
@@ -136,7 +155,7 @@ def _exchange_allgather(sh: _Shards, rs_key, resampler, scheme, states, logws, e
     local_anc, moved = [], []
     if scheme is not None:
         logw_all = all_gather(mesh, logws)
-        state_all = all_gather(mesh, states)
+        state_all = _leafwise(all_gather, mesh, states)
         for k in range(mesh.size):
             f = _fused_extents(scheme, rs_key, logw_all[k], ms[k], s1s[k], nr)
             a, mv = ops.resample_move_window_fext(f, state_all[k], nr, k * L, L)
@@ -144,18 +163,18 @@ def _exchange_allgather(sh: _Shards, rs_key, resampler, scheme, states, logws, e
             moved.append(mv)
         if sh.has_ref:
             last = mesh.size - 1
-            ref_row = state_all[last].index_select(0, ref_anc[last].reshape(1))
+            ref_row = tree_rows(state_all[last], ref_anc[last].reshape(1))
             _apply_ref(sh, local_anc, moved, ref_anc, ref_row)
         return local_anc, moved
     e_all = all_gather(mesh, es)
-    state_all = all_gather(mesh, states)
+    state_all = _leafwise(all_gather, mesh, states)
     for k in range(mesh.size):
         anc = resampler.resampler(rs_key, e_all[k] / s1s[k], nr)
         if sh.has_ref:
             anc = torch.cat([anc, ref_anc[k].reshape(1)])
         a = anc[sh.gids[k]]
         local_anc.append(a)
-        moved.append(state_all[k].index_select(0, a))
+        moved.append(tree_rows(state_all[k], a))
     return local_anc, moved
 
 
@@ -190,7 +209,7 @@ def _exchange_neighbor(sh: _Shards, u, states, es, s1s, prefix, fb, ref_anc):
         f[L - 1] = fb[k][k]
         f_loc.append(torch.cummax(f, 0).values)
     f_left, f_right = ppermute(mesh, f_loc, 1), ppermute(mesh, f_loc, -1)
-    s_left, s_right = ppermute(mesh, states, 1), ppermute(mesh, states, -1)
+    s_left, s_right = _leafwise(ppermute, mesh, states, 1), _leafwise(ppermute, mesh, states, -1)
     local_anc, moved = [], []
     for k in range(K):
         # Ring wrap: shard 0's left block is consumed (extent 0), shard K−1's
@@ -198,17 +217,17 @@ def _exchange_neighbor(sh: _Shards, u, states, es, s1s, prefix, fb, ref_anc):
         fl = torch.zeros_like(f_loc[k]) if k == 0 else f_left[k]
         fr = torch.full_like(f_loc[k], nr) if k == K - 1 else f_right[k]
         f_ext = torch.cat([fl, f_loc[k], fr])
-        state_ext = torch.cat([s_left[k], states[k], s_right[k]])
+        state_ext = tree_map(lambda *parts: torch.cat(parts), s_left[k], states[k], s_right[k])
         a, mv = ops.resample_move_window_fext(f_ext, state_ext, nr, k * L, L)
         local_anc.append(torch.clamp((k - 1) * L + a, 0, sh.n - 1))
         moved.append(mv)
     if sh.has_ref:
         # One global row, exactly: every shard offers its clipped candidate
         # row and the owner's is taken from the K-row gather.
-        cands = [states[k].index_select(0, torch.clamp(ref_anc[k] - k * L, 0, L - 1).reshape(1))
+        cands = [tree_rows(states[k], torch.clamp(ref_anc[k] - k * L, 0, L - 1).reshape(1))
                  for k in range(K)]
-        rows = all_gather(mesh, cands)
-        ref_row = rows[K - 1].index_select(0, (ref_anc[K - 1] // L).reshape(1))
+        rows = _leafwise(all_gather, mesh, cands)
+        ref_row = tree_rows(rows[K - 1], (ref_anc[K - 1] // L).reshape(1))
         _apply_ref(sh, local_anc, moved, ref_anc, ref_row)
     return local_anc, moved
 
@@ -278,8 +297,7 @@ def sweep_shard_body(
     gids = [torch.arange(k * L, (k + 1) * L, device=d) for k, d in enumerate(devs)]
     refs, masks = [None] * K, [None] * K
     if has_ref:
-        ref = torch.as_tensor(ref, dtype=torch.float32)
-        refs = [ref.to(d) for d in devs]
+        refs = [_tree.as_reference(ref, d) for d in devs]
         masks = [g == n - 1 for g in gids]
     # With a reference, n − 1 positions are drawn and slot n − 1 keeps it.
     sh = _Shards(mesh, _replicas(kernel, devs), gids, refs, masks, n, L,
@@ -289,18 +307,25 @@ def sweep_shard_body(
     init_key = rngmod.step_key(key, rngmod.INIT, 0)
     states, logws = [], []
     for k in range(K):
-        s, lw = sh.kernels[k].init(rngmod.StepRng(init_key, gids[k]),
-                                   refs[k][0] if has_ref else None, masks[k])
+        s, lw = sh.kernels[k].init(rngmod.StepRng(init_key, gids[k]), tree_at(refs[k], 0),
+                                   masks[k])
         states.append(s)
         logws.append(lw)
 
     snaps = None
+
+    def store(k, t, snap):
+        def put(buf, s):
+            buf[t] = s
+        tree_map(put, snaps[k], snap)
+
     if store_states and sh.kernels[0].snapshot(states[0]) is not None:
         snaps = []
         for k in range(K):
             s0 = sh.kernels[k].snapshot(states[k])
-            snaps.append(torch.empty((T,) + tuple(s0.shape), dtype=s0.dtype, device=devs[k]))
-            snaps[k][0] = s0
+            snaps.append(tree_map(lambda a, d=devs[k]: torch.empty((T,) + tuple(a.shape),
+                                                                   dtype=a.dtype, device=d), s0))
+            store(k, 0, s0)
     ancs = [torch.empty((T, L), dtype=torch.int32, device=d) for d in devs]
     for k in range(K):
         ancs[k][0] = gids[k]
@@ -340,12 +365,12 @@ def sweep_shard_body(
         for k in range(K):
             ancs[k][t] = local_anc[k]
             s, score = sh.kernels[k].step(t, rngmod.StepRng(prop_key, gids[k]), states[k],
-                                          refs[k][t] if has_ref else None, masks[k])
+                                          tree_at(refs[k], t), masks[k])
             states[k] = s
             # After a firing the weights restart at 0: the new weights are the score.
             logws[k] = score if do_rs else logws[k] + score
             if snaps is not None:
-                snaps[k][t] = sh.kernels[k].snapshot(s)
+                store(k, t, sh.kernels[k].snapshot(s))
 
     # Close the pending base with the final weights' log-sum-exp.
     mf = pmax(mesh, [torch.max(lw) for lw in logws])
@@ -387,7 +412,7 @@ def sharded_sweep(
     dev = mesh.devices[0]
 
     def joined(xs, dim=0):
-        return torch.cat([x.to(dev) for x in xs], dim)
+        return tree_map(lambda *parts: torch.cat([x.to(dev) for x in parts], dim), *xs)
 
     return SweepResult(
         log_evidence=log_z,

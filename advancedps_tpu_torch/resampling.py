@@ -24,10 +24,12 @@ from typing import Callable
 
 import torch
 
+from . import random as rnd
 from . import rng as rngmod
 from ._device import resolve_device
 
 __all__ = [
+    "randcat",
     "randcat_gumbel",
     "resample_systematic",
     "resample_stratified",
@@ -48,6 +50,14 @@ def _inverse_cdf(weights: torch.Tensor, us: torch.Tensor) -> torch.Tensor:
     cdf = torch.cumsum(weights, 0)
     idx = torch.searchsorted(cdf, us, right=True)
     return torch.clamp(idx, 0, weights.shape[0] - 1).to(torch.int32)
+
+
+def randcat(key, weights: torch.Tensor) -> torch.Tensor:
+    """One categorical draw by CDF inversion of ``jax.random.uniform(key)``
+    (0-dim int32): JAX's ``randcat``, bitwise for the same key and weights
+    but where the two float32 ``cumsum``s differ."""
+    u = rnd.uniform(key, device=weights.device)
+    return _inverse_cdf(weights, u.reshape(1))[0]
 
 
 def randcat_gumbel(key: rngmod.Key, log_weights: torch.Tensor, gids=None) -> torch.Tensor:

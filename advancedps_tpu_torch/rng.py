@@ -10,7 +10,9 @@ package for the same key words (``jax.random.key(s)`` has words ``(0, s)``).
 Key arithmetic (``fold_in``, ``step_key``, the scalar :func:`uniform`) runs on
 host integers, so deriving a step key never touches the device.  Per-particle
 draws run the cipher on int64 tensors masked to 32 bits: torch's uint32
-coverage is thin, on CUDA too.
+coverage is thin, on CUDA too.  Components that are sampled particle by
+particle get one key per particle (:func:`particle_keys`), an int64 tensor of
+two words each, and draw from it with :mod:`advancedps_tpu_torch.random`.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ import struct
 from dataclasses import dataclass
 
 import torch
+
+from ._device import resolve_device
 
 __all__ = [
     "PROPAGATE",
@@ -37,6 +41,9 @@ __all__ = [
     "pos_uniform",
     "pos_normal_pair",
     "pos_normal",
+    "pos_normals",
+    "fold_in_ids",
+    "particle_keys",
     "StepRng",
 ]
 
@@ -163,19 +170,62 @@ def pos_normal(k: Key, gids: torch.Tensor, draw: int = 0) -> torch.Tensor:
     return torch.where((g & 1) == 0, z0, z1)
 
 
+def pos_normals(k: Key, gids: torch.Tensor, d: int, draw0: int = 0) -> torch.Tensor:
+    """``[n, d]`` N(0,1) draws: element ``(i, j)`` a pure function of
+    ``(k, draw0 + j // 2, gids[i])``, consecutive columns taking the two
+    Box–Muller outputs of one block."""
+    cols = []
+    for j in range(0, d, 2):
+        z0, z1 = pos_normal_pair(k, gids, draw0 + j // 2)
+        cols.append(z0)
+        if j + 1 < d:
+            cols.append(z1)
+    return torch.stack(cols, dim=-1)
+
+
+def fold_in_ids(k: Key, ids: torch.Tensor) -> torch.Tensor:
+    """``fold_in(k, ids[i])`` for every id, as a batch of keys: an int64
+    tensor ``ids.shape + (2,)`` of uint32 words (``jax.random.key_data`` of
+    ``vmap(fold_in)``)."""
+    b0, b1 = threefry2x32(k.k0, k.k1, 0, _as_counter(ids))
+    return torch.stack([b0, b1], dim=-1)
+
+
+def particle_keys(k: Key, tag: int, t: int, n: int, device=None) -> torch.Tensor:
+    """``[n, 2]`` keys, one per particle slot for stream ``tag`` at step
+    ``t``: ``fold_in(step_key(k, tag, t), i)`` for ``i < n``, on ``device``
+    (None: the GPU)."""
+    return fold_in_ids(step_key(k, tag, t), torch.arange(n, device=resolve_device(device)))
+
+
 @dataclass(frozen=True)
 class StepRng:
     """Per-(stream, step) randomness handed to a sweep kernel: ``key`` is
-    already folded with (tag, t); ``gids`` are the global particle ids."""
+    already folded with (tag, t); ``gids`` are the global particle ids.
+
+    The counted draws (:meth:`uniform`, :meth:`normal`, :meth:`normal_pair`,
+    :meth:`normals`) are the vectorized components' path; :meth:`particle_keys`
+    gives one key per particle for components sampled particle by particle.
+    Both are positional in the global id."""
 
     key: Key
     gids: torch.Tensor
+
+    def particle_keys(self) -> torch.Tensor:
+        """``[n, 2]`` keys ``fold_in(key, gids[i])``."""
+        return fold_in_ids(self.key, self.gids)
 
     def uniform(self, draw: int = 0) -> torch.Tensor:
         return pos_uniform(self.key, self.gids, draw)
 
     def normal(self, draw: int = 0) -> torch.Tensor:
         return pos_normal(self.key, self.gids, draw)
+
+    def normal_pair(self, draw: int = 0):
+        return pos_normal_pair(self.key, self.gids, draw)
+
+    def normals(self, d: int) -> torch.Tensor:
+        return pos_normals(self.key, self.gids, d)
 
     @property
     def n(self) -> int:

@@ -30,7 +30,10 @@ final line:
    one stream and beside B1 on a second stream, with slots fewer and more
    than rows, and at 16M; and the scan of B1 and B6 at lengths around a tile, a
    group of 32 tiles and 32 groups, at 1M and at 16M (within the plain
-   versions' tolerances, nondecreasing, two calls bitwise equal);
+   versions' tolerances, nondecreasing, two calls bitwise equal); B4 over
+   leaves at 1M (leaves [N], [N, 2], [N, 100] and an int32 [N] in one launch,
+   nine leaves in two, unaligned rows; whole, guarded and windowed) bitwise
+   its plain version and B4 a leaf;
 4. the SMC flagship (stationary LGSSM a=0.9, q=0.32, r=1.0, T=100,
    N=1,000,000, resampling at ESS ≤ N/2) through ``sample`` with each fused
    scheme — systematic, stratified, multinomial, and multinomial with the
@@ -65,7 +68,9 @@ final line:
    time for its plain version and, where one PyTorch call computes the same
    function, for that call; the time per call by CUDA events, wrapper and host
    included (plain, kernel, kernel, plain); the bytes it must move and the
-   least time they take at the card's memory rate.  The inputs are the same
+   least time they take at the card's memory rate (a move counting only the
+   rows that own a slot: B3, B4, and B4 over leaves at 1 + 2 + 100 + 1 words
+   a row and on the GP-SSM's state).  The inputs are the same
    tensors on every call, as in the sweep, where each was written by the step
    before: they sit in the 50 MB L2, so the readings are L2-warm.  A second
    window takes each kernel L2-cold, on 128 MB of copies of its inputs in
@@ -74,11 +79,23 @@ final line:
    it, and is held to the L2's ceiling instead (``L2_BYTES_PER_S``); a warm
    share above 1 is printed.  Then the move versions in turns (6, 1, 0, 0, 1,
    6): the device time of one firing's decode + move on one and on three
-   columns, and the median of 5 systematic sweeps under each.
+   columns, and the median of 5 systematic sweeps under each;
+8. the model families at N=1M, T=100 through ``sample`` with no device named
+   (systematic at ESS ≤ N/2): the stochastic-volatility model (a=0.9, q=0.5),
+   the Lévy SSM (state [N, 2], 64 jumps, dt=0.5) and the GP-SSM (state
+   (x [N], history [N, 100])): finite logZ, B1 and the decode + move on every
+   firing (B4 over leaves ⌈leaves / 8⌉ times for the GP-SSM), the sweep time
+   (median of 3; one for Lévy), launches a step and the device busy share of
+   a profiled sweep; PGAS (2 iterations, replay) and the sharded sweep (K = 4)
+   of each model at 1M, with their launch counts; then the
+   statistical contracts at the JAX tests' sizes: the SV PGAS update rate
+   (N=20, T=60, 150 iterations: mean > (1 − 1/N) − 0.1, PG's early third 0.3
+   below PGAS's), GP-SSM PG (N=20, T=100) and Lévy PGAS (N=50, T=200), 5
+   iterations each, replay against dense storage within 1e-5 and 1e-4.
 
 Each launch count is read from the run of its own path, the counts set to 0
 just before it.  The last lines are the kernels' JSON record (launches summed
-over the runs of phases 4-6, and per sweep and per PGAS iteration by scheme),
+over the runs of phases 4-6 and 8, and per sweep and per PGAS iteration by scheme),
 the card, and ``{"ok": true, "device": {...}}``.
 Imports no JAX: the card's machine has none.
 """
@@ -127,6 +144,7 @@ REPLACES = {
     "decode_ancestors": f"{TPU_FILE}:972",
     "move_rows": f"{TPU_FILE}:1090",
     "decode_move": f"{TPU_FILE}:728",
+    "decode_move_leaves": f"{TPU_FILE}:728",
     "decode_ancestors_dense": f"{TPU_FILE}:103",
     "scaled_prefix_from_logw": f"{TPU_FILE}:325",
     "prefix_sum": f"{TPU_FILE}:325",
@@ -141,7 +159,7 @@ EARLIER_MULTINOMIAL_PGAS_LOGZ = [-161.53640747070312, -161.53016662597656]
 #: Wrappers whose call is one device-side launch by design: the single-pass
 #: scan (no reset pass, no memset), the tile decode, and the decode + move on it.
 SINGLE_LAUNCH = ("extents_from_logw", "scaled_prefix_from_logw", "prefix_sum", "decode_ancestors",
-                 "decode_move")
+                 "decode_move", "decode_move_leaves")
 #: Device-side launches a call may make at most, where that is not 1: B5 is a
 #: scatter and a single-pass scan, with no memset.
 MOST_LAUNCHES = {"decode_ancestors_dense": 2}
@@ -209,6 +227,11 @@ def bits(x: torch.Tensor) -> torch.Tensor:
     return x.view(torch.int32)
 
 
+def word_bits(x: torch.Tensor) -> torch.Tensor:
+    """The 32-bit words of a float32 or int32 tensor."""
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
 def max_ulps(a: torch.Tensor, b: torch.Tensor) -> int:
     """Largest float32 ulp distance between two nonnegative tensors."""
     return int((bits(a).long() - bits(b).long()).abs().max())
@@ -273,7 +296,20 @@ def device_ms(fn) -> float:
 
 
 def nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
+    """Bytes of the tensors, lists of tensors counted element by element."""
+    return sum(nbytes(*t) if isinstance(t, (list, tuple)) else t.numel() * t.element_size()
+               for t in tensors)
+
+
+def monotone_extents(m: int, n: int, gen: torch.Generator) -> torch.Tensor:
+    """Nondecreasing extents of m rows for n positions ending at n, from
+    skewed weights: the running max of the float32 cumsum's extents (a
+    parallel cumsum may dip by an ulp where its partial sums meet)."""
+    w = torch.rand(m, generator=gen, device="cuda") ** 4
+    f = torch.ceil(torch.cumsum(w, 0) / w.sum() * n).clamp(0, n).to(torch.int32)
+    f = torch.cummax(f, 0).values
+    f[-1] = n
+    return f
 
 
 def geometry_cases(tile: int, stage: int, merge: int, gen: torch.Generator):
@@ -448,6 +484,7 @@ def check_decode_forms(ops, f, n, vs, label, err):
 
 
 def main():
+    t_script = time.perf_counter()
     if not torch.cuda.is_available():
         fail("no CUDA device: chip_smoke.py runs only on a GPU")
     import advancedps_tpu_torch as apt
@@ -617,6 +654,57 @@ def main():
     print("B5: two calls bitwise equal; B1, B5, B1 and B6, B5, B6 in turn on one stream and B5 "
           "beside B1 on a second stream equal to each alone; slots fewer and more than rows; 16M "
           "rows and slots equal to B2", flush=True)
+
+    # B4 over leaves at 1M: leaves [N], [N, 2], [N, 100] and an int32 [N] in
+    # one call, bitwise its plain version and B4 a leaf, whole, guarded and as
+    # windows; nine leaves take two launches; unaligned leaves.
+    check(lib.aps_max_leaves() == ops.MAX_LEAVES,
+          f"aps_max_leaves() is {lib.aps_max_leaves()}, the wrapper's MAX_LEAVES {ops.MAX_LEAVES}")
+    f_ml = monotone_extents(N, N, gen)
+    leaves = [torch.randn(N, generator=gen, device="cuda"),
+              torch.randn(N, 2, generator=gen, device="cuda"),
+              torch.randn(N, 100, generator=gen, device="cuda"),
+              torch.randint(-2**31, 2**31 - 1, (N,), generator=gen, device="cuda",
+                            dtype=torch.int32)]
+    unaligned = [torch.randn(3 * N + 1, generator=gen, device="cuda")[1:].view(N, 3),
+                 torch.randn(N + 1, generator=gen, device="cuda")[1:]]
+    for what, ls, launches_want in (("1 + 2 + 100 + 1 words", leaves, 1),
+                                    ("nine leaves", [leaves[0]] * 5 + leaves, 2),
+                                    ("unaligned rows", unaligned, 1)):
+        for guard, start, n_out in ((N, 0, N), (N - 1, 0, N), (N, 2 * L, L), (N, 333, 1000)):
+            ops.reset_launch_counts()
+            a_ml, mv_ml = ops.decode_move_leaves(f_ml, ls, n_out, guard=guard, start=start)
+            got_launches = ops.decode_move_leaves.launches
+            ra, rmv = ops.decode_move_leaves_ref(f_ml, ls, n_out, guard, start)
+            err["decode_move_leaves"] = max(err["decode_move_leaves"], max_abs(a_ml, ra),
+                                            *(max_abs(x.float(), y.float())
+                                              for x, y in zip(mv_ml, rmv)))
+            label = f"B4 over leaves [{what}, guard {guard}, slots {start}+{n_out}]"
+            check(torch.equal(a_ml, ra) and all(torch.equal(word_bits(x), word_bits(y))
+                                                for x, y in zip(mv_ml, rmv)),
+                  f"{label}: differs from its plain version")
+            check(got_launches == launches_want,
+                  f"{label}: {got_launches} launches, want ceil(leaves / 8) = {launches_want}")
+            for v, mv in zip(ls, mv_ml):
+                a4, mv4 = ops.decode_move(f_ml, v, n_out, guard=guard, start=start)
+                check(torch.equal(a4, a_ml) and torch.equal(word_bits(mv4), word_bits(mv)),
+                      f"{label}: differs from B4 a leaf")
+    # A tree state under each move version (B4 over leaves, B3 a leaf, B5 and
+    # an index_select a leaf): the same tree on every drawn slot.
+    tree = {"x": leaves[0], "rest": (leaves[1], leaves[3], leaves[3].long())}
+    moved_by = {ver: ops.resample_move_f(f_ml, tree, N, version=ver, guard_n=N - 1)
+                for ver in (1, 6, 0)}
+    for ver, (a_v, mv_v) in moved_by.items():
+        for got, want in zip(apt._tree.tree_flatten(mv_v)[0],
+                             apt._tree.tree_flatten(moved_by[1][1])[0]):
+            check(torch.equal(a_v, moved_by[1][0]) and torch.equal(got[:N - 1], want[:N - 1]),
+                  f"a tree state under move version {ver} differs from version 1")
+    del leaves, unaligned, tree, moved_by
+    ops.reset_launch_counts()
+    print(f"B4 over leaves at 1M: 1 + 2 + 100 + 1 words a row (float32 and int32) in one launch, "
+          f"nine leaves in two, unaligned rows: bitwise its plain version and B4 a leaf, whole, "
+          f"guarded and as windows; a tree with an int64 leaf equal under move versions 1, 6, 0",
+          flush=True)
 
     # The scan of B1 and B6 at the edges of its geometry, and at 1M and 16M:
     # against the plain versions, nondecreasing, and two calls bitwise equal.
@@ -1125,6 +1213,10 @@ def main():
     anc = ops.decode_ancestors(f, N)
     x = torch.randn(N, generator=gen, device="cuda")
     xd = torch.randn(N, 3, generator=gen, device="cuda")
+    wide_leaves = (x, torch.randn(N, 2, generator=gen, device="cuda"),
+                   torch.randn(N, T, generator=gen, device="cuda"),
+                   torch.randint(0, 1 << 30, (N,), generator=gen, device="cuda",
+                                 dtype=torch.int32))
     f_16m = torch.arange(1, 16 * N + 1, dtype=torch.int32, device="cuda") // 3 * 3
     scale = N / s1
     g = apt.multinomial_spacings(apt.rng.key(8), N, device="cuda")
@@ -1170,17 +1262,30 @@ def main():
             ops.count_le_sorted_ref, ops.count_le_sorted_bs, count_library, (s_, thr)),
         "count_le_sorted": (
             ops.count_le_sorted_ref, ops.count_le_sorted, count_library, (s_, thr)),
+        # B4 over leaves at 1 + 2 + 100 + 1 words a row: its library yardstick
+        # is B2 and one index_select a leaf (no single call moves a list).
+        "decode_move_leaves": (
+            lambda f_, *ls: ops.decode_move_leaves_ref(f_, list(ls), N),
+            lambda f_, *ls: ops.decode_move_leaves(f_, list(ls), N),
+            lambda: (lambda a: [v.index_select(0, a) for v in wide_leaves])(
+                ops.decode_ancestors(f, N)),
+            (f, *wide_leaves)),
     }
 
     def turns(readings):
         return ", ".join(f"{r:.4f}" for r in readings)
 
+    # A move reads only the rows that own a slot: the rows of the others are
+    # bytes it need not move, so its bound counts this run's owner rows.
+    owners = int(torch.unique(anc).numel())
+    gathered = {"move_rows": (x,), "decode_move": (x,), "decode_move_leaves": wide_leaves}
     timing = {}
     for name, (plain, kernel_fn, library, inputs) in measured.items():
         call_ms, plain_call_ms, readings = plain_vs_kernel(lambda: plain(*inputs),
                                                            lambda: kernel_fn(*inputs))
         outputs = kernel_fn(*inputs)
         moved = nbytes(*inputs) + nbytes(*(outputs if isinstance(outputs, tuple) else (outputs,)))
+        moved -= sum(nbytes(v) // N for v in gathered.get(name, ())) * (N - owners)
         # The same call on copies of its inputs taken in turn, 128 MB of them:
         # by the time a copy comes round again the 50 MB L2 has lost it.
         copies = [tuple(a.clone() for a in inputs) for _ in range(-(-COLD_BYTES // moved))]
@@ -1199,11 +1304,14 @@ def main():
         row["cold_bound_share"] = row["bound_ms"] / row["cold_device_ms"]
         row["l2_bound_ms"] = moved / L2_BYTES_PER_S * 1e3
         timing[name] = row
+        if name in gathered:
+            row["owner_rows"] = owners
         lib_txt = "no single call" if library is None else f"{row['library_ms']:.5f} ms"
         print(f"kernel {name} at 1M: {launches_per_call} launch(es) a call, device "
               f"{row['device_ms']:.5f} ms L2-warm, "
               f"{row['cold_device_ms']:.5f} ms L2-cold, plain {row['plain_ms']:.5f} ms, library "
-              f"{lib_txt}; bound {row['bound_ms']:.5f} ms ({moved} bytes at 3.35 TB/s), share "
+              f"{lib_txt}; bound {row['bound_ms']:.5f} ms ({moved} bytes at 3.35 TB/s"
+              f"{f', {owners} owner rows' if name in gathered else ''}), share "
               f"{row['bound_share']:.4f} warm, {row['cold_bound_share']:.4f} cold; per call by "
               f"events, host included: {call_ms:.4f} ms, plain {plain_call_ms:.4f} ms (plain, "
               f"kernel, kernel, plain: {turns(readings)}) {tag}", flush=True)
@@ -1239,6 +1347,15 @@ def main():
               f"{device_ms(plain):.5f} ms; per call by events {k_ms:.4f} ms, plain {p_ms:.4f} ms "
               f"({turns(readings)}) {tag}", flush=True)
     del f_16m
+    # One firing's move of the GP-SSM's tree state (phase 8) at 1M: x [N] and
+    # the history [N, T], 101 words a row, through B4 over leaves.
+    gp_state = (x, wide_leaves[2])
+    ms_tree = device_ms(lambda: ops.resample_move_f(f, gp_state, N))
+    tree_bytes = (nbytes(f, *gp_state) * 2 - nbytes(f) + 4 * N
+                  - sum(nbytes(v) // N for v in gp_state) * (N - owners))
+    print(f"B4 over leaves, one firing of the GP-SSM's state (x [N] + history [N, {T}]) at 1M: "
+          f"device {ms_tree:.5f} ms, bound {tree_bytes / HBM_BYTES_PER_S * 1e3:.5f} ms "
+          f"({tree_bytes} bytes, {owners} owner rows) {tag}", flush=True)
     # The move versions in one call and in turns: the device time of one
     # firing's decode + move (version 0's clamp and gather included) on one and
     # on three columns, and the median of SWEEPS systematic flagship sweeps.
@@ -1339,6 +1456,141 @@ def main():
                                                   store_states=False).log_evidence),
              f"{T - 1} gate reads and a boundary read per firing")
 
+    # ---- 8. the model families at the flagship's N and T, through sample
+    def profile_one(fn):
+        """Wall ms, device busy ms, device-side launches and result of one call."""
+        with profiler_window(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILER_PAD_S)
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            time.sleep(PROFILER_PAD_S)
+        rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        check(rows, "the profiler saw no device time")
+        for e in sorted(rows, key=lambda e: e.self_device_time_total, reverse=True)[:6]:
+            print(f"  {e.self_device_time_total / 1e3:10.3f} ms {e.count:7d}x  {e.key[:90]}",
+                  flush=True)
+        return (wall * 1e3, sum(e.self_device_time_total for e in rows) / 1e3,
+                sum(e.count for e in rows), out)
+
+    # (label, model, leaves of its state): the SV model (a = 0.9, q = 0.5,
+    # scalar state), the Lévy SSM (state [N, 2], a budget of 64 jumps, dt =
+    # 0.5) and the GP-SSM (state (x [N], history [N, T])).
+    model_set = (("stochastic volatility", apt.models.stochastic_volatility_ssm(a=0.9, q=0.5), 1),
+                 ("Lévy", apt.models.levy_ssm(dt=0.5), 1),
+                 ("GP-SSM", apt.models.gp_ssm(num_steps=T), 2))
+    t_models = time.perf_counter()
+    for label, model, leaves in model_set:
+        model = model.to("cuda")
+        _, ys_m = apt.simulate(apt.rng.key(60), model, T)
+        traced_m = apt.TracedSSM(model, ys_m)
+        kernel_m = apt.SSMKernel(traced_m)
+        per_firing = {"extents_from_logw": 1,
+                      **({"decode_move": 1} if leaves == 1 else {"decode_move_leaves": -(-leaves // 8)})}
+        # SMC with no device named: the card.  Lévy's one sweep (a hundred
+        # times as long as the others') is this run, profiled; the others are
+        # timed three times unprofiled and profiled once more.
+        levy = label == "Lévy"
+        sample_smc = lambda: apt.sample(apt.rng.key(61), traced_m, apt.SMC(N), store_states=False)
+        if levy:
+            (wall, busy, kernels, smc), launches = drive(lambda: profile_one(sample_smc))
+            times = [wall / 1e3]
+        else:
+            t0 = time.perf_counter()
+            smc, launches = drive(sample_smc)
+            log_z = float(smc.log_evidence)
+            times = [time.perf_counter() - t0]
+        log_z = float(smc.log_evidence)
+        fires = int(smc.diagnostics["resampled"].sum())
+        check(math.isfinite(log_z), f"{label}: SMC logZ {log_z} is not finite")
+        check(fires > 0, f"{label}: the gate never fired")
+        check(launches == expected(per_firing, fires),
+              f"{label}: launches {launches} != {expected(per_firing, fires)} "
+              f"(B4 over leaves: ceil({leaves} leaves / 8) a firing)")
+        if not levy:
+            for i in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                float(apt.sweep(apt.rng.key(62 + i), kernel_m, N, systematic,
+                                store_states=False, device="cuda").log_evidence)
+                times.append(time.perf_counter() - t0)
+            wall, busy, kernels, _ = profile_one(lambda: apt.sweep(
+                apt.rng.key(61), kernel_m, N, systematic, store_states=False, device="cuda"))
+        print(f"model [{label}] N={N} T={T}: SMC logZ {log_z:.6f}, firings {fires}, launches "
+              f"{launches}; sweep {statistics.median(times) * 1e3:.3f} ms (median of "
+              f"{len(times)}{', profiled' if levy else ''}: "
+              f"{', '.join(f'{t * 1e3:.3f}' for t in times)}); profiled sweep: wall {wall:.3f} ms, "
+              f"device busy {busy:.3f} ms ({busy / wall:.4f} of wall), {kernels} device-side "
+              f"launches ({kernels / T:.1f} a step) {tag}", flush=True)
+
+        # PGAS with replay storage, 2 iterations (the first without a
+        # reference, the second on the first's trajectory; every step
+        # resamples), and the sharded sweep on K logical shards, each shard
+        # moving its window.
+        chain, launches = drive(lambda: apt.sample(apt.rng.key(63), traced_m, apt.PGAS(N), 2,
+                                                   trajectory_storage="replay"))
+        check(bool(torch.isfinite(chain.log_evidence).all())
+              and bool(torch.isfinite(chain.trajectory).all()), f"{label}: PGAS not finite")
+        check(launches == expected(per_firing, 2 * (T - 1)), f"{label}: PGAS launches {launches}")
+        mesh.reset_counts()
+        res, launches = drive(lambda: parallel.sharded_sweep(apt.rng.key(61), kernel_m, N,
+                                                             systematic, mesh, store_states=False))
+        fires_s = int(res.resampled.sum())
+        branches = dict(mesh.exchanges)
+        dlz = abs(float(res.log_evidence) - log_z)
+        print(f"model [{label}] PGAS N={N} 2 iterations (replay): logZ "
+              f"{chain.log_evidence.tolist()}; sharded N={N} K={K}: logZ "
+              f"{float(res.log_evidence):.6f} |dlogZ| vs single-device {dlz:.3e}, firings by "
+              f"branch {branches}, launches {launches}; phase 8 so far "
+              f"{time.perf_counter() - t_models:.1f}s", flush=True)
+        check(math.isfinite(float(res.log_evidence)), f"{label}: sharded logZ not finite")
+        move = "decode_move" if leaves == 1 else "decode_move_leaves"
+        check(launches[move] == K * fires_s * per_firing[move]
+              and launches["extents_from_logw"] == K * branches.get("allgather", 0),
+              f"{label}: sharded launches {launches}")
+        del traced_m, kernel_m, smc, chain, res
+        torch.cuda.empty_cache()
+
+    # The statistical contracts at the JAX tests' sizes, on the card.
+    sv = apt.models.stochastic_volatility_ssm(a=0.9, q=0.5).to("cuda")
+    _, ys_sv = apt.simulate(apt.rng.key(70), sv, 60)
+    sv_traced = apt.TracedSSM(sv, ys_sv)
+
+    def update_rate(chain):
+        return (chain.trajectory.diff(dim=0).abs() > 0).double().mean(0)
+
+    (pgas_rate, pg_rate), _ = drive(lambda: (
+        update_rate(apt.sample(apt.rng.key(71), sv_traced, apt.PGAS(20), 150)),
+        update_rate(apt.sample(apt.rng.key(71), sv_traced, apt.PG(20, 1.0), 150))))
+    theory = 1.0 - 1.0 / 20
+    early = slice(0, 20)
+    print(f"SV PGAS update rate N=20 T=60, 150 iterations: mean {float(pgas_rate.mean()):.4f} "
+          f"(phase 8 so far {time.perf_counter() - t_models:.1f}s) "
+          f"(1 - 1/N = {theory}); early third PG {float(pg_rate[early].mean()):.4f} against "
+          f"PGAS {float(pgas_rate[early].mean()):.4f}", flush=True)
+    check(float(pgas_rate.mean()) > theory - 0.1, "SV PGAS update rate below (1 - 1/N) - 0.1")
+    check(float(pg_rate[early].mean()) < float(pgas_rate[early].mean()) - 0.3,
+          "SV: PG's early update rate is not 0.3 below PGAS's")
+    for label, model, n_p, steps, sampler, tol in (
+            ("GP-SSM PG", apt.models.gp_ssm(num_steps=T), 20, T, apt.PG, 1e-5),
+            # One particle and N particles sum a step's 64 masked jumps in
+            # different orders on the card: hence the looser bound.
+            ("Lévy PGAS", apt.models.levy_ssm(dt=0.5), 50, 200, apt.PGAS, 1e-4)):
+        model = model.to("cuda")
+        _, ys_x = apt.simulate(apt.rng.key(72), model, steps)
+        tr_x = apt.TracedSSM(model, ys_x)
+        (dense, repl), _ = drive(lambda: tuple(
+            apt.sample(apt.rng.key(73), tr_x, sampler(n_p), 5, trajectory_storage=st)
+            for st in ("dense", "replay")))
+        diff = float((dense.trajectory - repl.trajectory).abs().max())
+        print(f"{label} N={n_p} T={steps}, 5 iterations: replay against dense storage max |diff| "
+              f"{diff:.3e} (bound {tol}), logZ {dense.log_evidence.tolist()}; phase 8 so far "
+              f"{time.perf_counter() - t_models:.1f}s", flush=True)
+        check(bool(torch.isfinite(dense.log_evidence).all()), f"{label}: logZ not finite")
+        check(diff <= tol, f"{label}: replay and dense differ by {diff} > {tol}")
+
+    print(f"phases 1-8 took {time.perf_counter() - t_script:.1f}s", flush=True)
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
          "launches": main_launches[name], "max_abs_err": err[name],

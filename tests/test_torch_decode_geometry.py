@@ -70,10 +70,11 @@ def test_decode_geometry_is_read_back_in_the_order_of_the_constants():
                      re.S).group(1)
     assert re.findall(r"\? (k\w+)", body) == ["kDecodeTile", "kDecodeStage", "kDecodeMoveTile",
                                                 "kDenseTile"]
-    # B4's cases are B2's: both decode a tile of the same size by one function.
+    # B4's cases are B2's: both decode a tile of the same size by one function,
+    # as B4 over leaves does.
     assert MOVE_TILE == TILE
     source = _SOURCE.read_text()
-    assert source.count("decode_tile(f, m, guard, start + k0, nk, sh,") == 2
+    assert source.count("decode_tile(f, m, guard, start + k0, nk, sh,") == 3
 
 
 def test_scan_groups_are_warps():

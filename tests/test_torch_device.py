@@ -45,6 +45,19 @@ ENTRY_POINTS = {
     "particle_mesh": parallel.particle_mesh,
     "chain_particle_mesh": parallel.chain_particle_mesh,
     "resolve_device": resolve_device,
+    "model_from_numpy": apt.model_from_numpy,
+    "particle_keys": apt.rng.particle_keys,
+    "key_tensor": apt.random.key_tensor,
+    "bits": apt.random.bits,
+    "uniform": apt.random.uniform,
+    "normal": apt.random.normal,
+    "exponential": apt.random.exponential,
+    "bernoulli": apt.random.bernoulli,
+    "categorical": apt.random.categorical,
+    "gamma": apt.random.gamma,
+    "beta": apt.random.beta,
+    "t": apt.random.t,
+    "poisson": apt.random.poisson,
 }
 
 #: Each entry point called with no ``device``.
@@ -62,6 +75,20 @@ CALLS = {
     "particle_mesh": lambda: parallel.particle_mesh(4),
     "chain_particle_mesh": lambda: parallel.chain_particle_mesh(2, 2),
     "resolve_device": lambda: resolve_device(),
+    "model_from_numpy": lambda: apt.model_from_numpy("stochastic_volatility", {"a": 0.9, "q": 0.5}),
+    "particle_keys": lambda: apt.rng.particle_keys(apt.rng.key(1), apt.rng.PROPAGATE, 1, 8),
+    # A host Key names no device: the draws are made on the GPU.
+    "key_tensor": lambda: apt.random.key_tensor(apt.rng.key(1)),
+    "bits": lambda: apt.random.bits(apt.rng.key(1), (4,)),
+    "uniform": lambda: apt.random.uniform(apt.rng.key(1), (4,)),
+    "normal": lambda: apt.random.normal(apt.rng.key(1), (4,)),
+    "exponential": lambda: apt.random.exponential(apt.rng.key(1), (4,)),
+    "bernoulli": lambda: apt.random.bernoulli(apt.rng.key(1), 0.5, (4,)),
+    "categorical": lambda: apt.random.categorical(apt.rng.key(1), [0.0, 1.0]),
+    "gamma": lambda: apt.random.gamma(apt.rng.key(1), 2.0, (4,)),
+    "beta": lambda: apt.random.beta(apt.rng.key(1), 2.0, 3.0, (4,)),
+    "t": lambda: apt.random.t(apt.rng.key(1), 3.0, (4,)),
+    "poisson": lambda: apt.random.poisson(apt.rng.key(1), 3.0, (4,)),
 }
 
 
@@ -75,8 +102,8 @@ def test_every_device_parameter_of_the_package_is_listed():
     # point in the sense above and must be in the table.
     found = set()
     modules = [apt, apt.engine, apt.inference, apt.convert, apt.resampling, apt.rng, apt.smc,
-               apt.pg, apt.ssm, parallel, parallel.mesh, parallel.chains, parallel.sharded,
-               parallel.smc, parallel.pg]
+               apt.pg, apt.ssm, apt.random, apt.distributions, apt.models, parallel,
+               parallel.mesh, parallel.chains, parallel.sharded, parallel.smc, parallel.pg]
     for mod in modules:
         for attr, fn in vars(mod).items():
             if inspect.isfunction(fn) and not attr.startswith("_") \

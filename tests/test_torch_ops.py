@@ -232,8 +232,9 @@ def test_cpu_path_counts_no_launches():
     thr = ops.scaled_prefix_from_logw(torch.zeros(64), torch.tensor(0.0), torch.tensor(1.0))
     ops.count_le_sorted_bs(s[:64], thr)
     ops.count_le_sorted(s[:64], thr)
-    assert len(ops.KERNEL_WRAPPERS) == 9
-    assert [w.launches for w in ops.KERNEL_WRAPPERS] == [0] * 9
+    ops.decode_move_leaves(f, [torch.zeros(64), torch.zeros(64, 3, dtype=torch.int32)], 64)
+    assert len(ops.KERNEL_WRAPPERS) == 10
+    assert [w.launches for w in ops.KERNEL_WRAPPERS] == [0] * 10
 
 
 # --- B6: the scaled prefix ----------------------------------------------------

@@ -206,26 +206,33 @@ def test_model_buffers_follow_to():
     assert model.to(torch.float64).dynamics.a.dtype == torch.float64
 
 
+class _HistoryDynamics(apt.models.LinearGaussianDynamics):
+    """The LGSSM's dynamics declared non-Markov: the history is passed and
+    not read."""
+
+    needs_history = True
+
+    def distribution(self, step, state, history=None):
+        return super().distribution(step, state)
+
+
+class _ScalarPrior(apt.models.GaussianPrior):
+    """The LGSSM's prior, drawn particle by particle."""
+
+    vectorized = False
+
+
+def _formerly_refused_models():
+    lg = apt.models
+    return [apt.StateSpaceModel(lg.GaussianPrior(), _HistoryDynamics(),
+                                lg.LinearGaussianObservation()),
+            apt.StateSpaceModel(_ScalarPrior(), lg.LinearGaussianDynamics(),
+                                lg.LinearGaussianObservation())]
+
+
 def test_unported_paths_raise():
     tr = cpu_traced_ssm(PARAMS, _ys(7, 5))
     key = apt.rng.key(0)
-    # Non-Markov dynamics and per-particle-key sampling belong to later slices.
-    lg = apt.models
-
-    class HistoryDynamics(lg.LinearGaussianDynamics):
-        needs_history = True
-
-    class ScalarPrior(lg.GaussianPrior):
-        vectorized = False
-
-    for model, match in [
-        (apt.StateSpaceModel(lg.GaussianPrior(), HistoryDynamics(),
-                             lg.LinearGaussianObservation()), "models slice"),
-        (apt.StateSpaceModel(ScalarPrior(), lg.LinearGaussianDynamics(),
-                             lg.LinearGaussianObservation()), "not vectorized"),
-    ]:
-        with pytest.raises(NotImplementedError, match=match):
-            cpu_sample(key, apt.TracedSSM(model, torch.zeros(5)), apt.SMC(16))
     with pytest.raises(TypeError, match="unknown sampler"):
         cpu_sample(key, tr, object(), 10)
     with pytest.raises(ValueError):
@@ -234,3 +241,29 @@ def test_unported_paths_raise():
         apt.make_kernel(object())
     with pytest.raises(ValueError, match="missing"):
         cpu_traced_ssm({"a": 0.9}, np.zeros(3))
+
+
+@pytest.mark.parametrize("which", [0, 1])
+def test_formerly_refused_models_now_sweep(which):
+    # Non-Markov dynamics and a per-particle prior: the two models the port
+    # refused before its models slice.  Both run through sample, SMC and
+    # PGAS, and equal the plain LGSSM where their draws are the same.
+    model = _formerly_refused_models()[which]
+    ys = torch.as_tensor(_ys(7, 12))
+    traced = apt.TracedSSM(model, ys)
+    smc = cpu_sample(apt.rng.key(0), traced, apt.SMC(64))
+    assert torch.isfinite(smc.log_evidence) and smc.trajectories.shape == (12, 64)
+    chain = cpu_sample(apt.rng.key(1), traced, apt.PGAS(16), 3)
+    assert chain.trajectory.shape == (3, 12) and torch.isfinite(chain.log_evidence).all()
+    xs, ys_sim = apt.simulate(apt.rng.key(2), model, 6)
+    assert xs.shape == ys_sim.shape == (6,) and torch.isfinite(xs).all()
+    if which == 0:
+        # The history is not read, and the non-Markov branch draws with
+        # per-particle keys: a Markov model that draws so gives the same sweep.
+        class _Keyed(apt.models.LinearGaussianDynamics):
+            vectorized = False
+
+        plain = apt.TracedSSM(apt.StateSpaceModel(apt.models.GaussianPrior(), _Keyed(),
+                                                  apt.models.LinearGaussianObservation()), ys)
+        other = cpu_sample(apt.rng.key(0), plain, apt.SMC(64))
+        assert torch.equal(other.log_evidence, smc.log_evidence)
