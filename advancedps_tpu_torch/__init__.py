@@ -7,7 +7,10 @@ linear-Gaussian, stochastic-volatility, Lévy and GP-SSM models (components
 vectorized or per particle, Markov or with a history), the systematic,
 stratified, multinomial and residual schemes under the ESS gate, the sweep
 engine with tree-shaped particle states, reference trajectories and ancestor
-sampling, and the SMC and PG entry points.  Resampling runs through hand-written CUDA
+sampling, the SMC and PG entry points, generic programs
+(:class:`GenericModel`), chain checkpoints (:mod:`~advancedps_tpu_torch.utils`)
+and a multi-device layer whose meshes may span processes
+(:mod:`~advancedps_tpu_torch.parallel`).  Resampling runs through hand-written CUDA
 kernels (:mod:`advancedps_tpu_torch.ops.resample`) on CUDA tensors and
 through their plain PyTorch versions on CPU tensors.  Every entry point runs
 on the GPU unless the caller passes ``device="cpu"``; without a CUDA device a
@@ -25,9 +28,14 @@ Quick start::
     chain = apt.sample(apt.rng.key(2), traced, apt.PGAS(100_000), 10,
                        trajectory_storage="replay")
     cpu = apt.sample(apt.rng.key(1), traced, apt.SMC(4096), device="cpu")
+
+    def program(ctx):                       # a generic program: PG and SMC
+        x = ctx.sample(apt.Normal(0.0, 1.0), name="x")
+        ctx.observe(apt.Normal(x, 0.5), 0.7)
+    pg = apt.sample(apt.rng.key(3), apt.GenericModel(program), apt.PG(1000), 10)
 """
 
-from . import convert, distributions, models, ops, random, rng, utils
+from . import convert, distributions, generic, models, ops, random, rng, utils
 from .convert import key_from_words, model_from_numpy, traced_ssm_from_numpy
 from .distributions import (
     Bernoulli,
@@ -53,6 +61,7 @@ from .engine import (
     replay_trajectory,
     sweep,
 )
+from .generic import GenericModel, GenericSSMKernel, observe, sample_site
 from .inference import make_kernel, sample, sample_pg, sample_smc, step_pg
 from .pg import PG, PGAS, PGSample, PGState
 from .resampling import (

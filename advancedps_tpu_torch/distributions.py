@@ -28,6 +28,7 @@ tensor (a Python number goes there too).
 
 from __future__ import annotations
 
+import copy
 import math
 
 import torch
@@ -55,11 +56,20 @@ __all__ = [
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
 
 
+def _tensor(v, dtype, device):
+    """``v`` as a tensor of ``dtype`` on ``device``.  A Python number is
+    filled in on the device: ``as_tensor`` would copy it from the host and
+    wait for the device to drain its queue first."""
+    if isinstance(v, (bool, int, float)) and device is not None:
+        return torch.full((), v, dtype=dtype, device=device)
+    return torch.as_tensor(v, dtype=dtype, device=device)
+
+
 def _params(*values, dtype=torch.float32):
     """``values`` as tensors of ``dtype`` on the device of the first tensor
     among them (the CPU if none is)."""
     device = next((v.device for v in values if isinstance(v, torch.Tensor)), None)
-    return [torch.as_tensor(v, dtype=dtype, device=device) for v in values]
+    return [_tensor(v, dtype, device) for v in values]
 
 
 class Distribution:
@@ -82,6 +92,17 @@ class Distribution:
     @property
     def _device(self) -> torch.device:
         return getattr(self, self._fields[0]).device
+
+    def to(self, device) -> "Distribution":
+        """This law with its parameters on ``device``: a shallow copy (the
+        parameters that lie there already are shared; the others are copied,
+        without waiting only where the copy goes to the card: a copy to the
+        CPU must have landed before the CPU reads it)."""
+        out = copy.copy(self)
+        to_card = torch.device(device).type == "cuda"
+        for f in self._fields:
+            setattr(out, f, getattr(self, f).to(device, non_blocking=to_card))
+        return out
 
     def sample(self, key, sample_shape=()):
         raise NotImplementedError
@@ -209,7 +230,7 @@ class MvNormal(Distribution):
     def log_prob(self, x):
         d = self.event_shape[0]
         chol = self._chol
-        diff = torch.as_tensor(x, dtype=torch.float32, device=self.loc.device) - self.loc
+        diff = _tensor(x, torch.float32, self.loc.device) - self.loc
         z = torch.linalg.solve_triangular(chol, diff[..., None], upper=False)[..., 0]
         half_logdet = torch.sum(torch.log(torch.diagonal(chol, dim1=-2, dim2=-1)), -1)
         return -0.5 * torch.sum(z * z, -1) - half_logdet - d * _HALF_LOG_2PI
@@ -238,7 +259,7 @@ class Bernoulli(Distribution):
         return (rng.uniform(draw) < self.p).to(torch.float32)
 
     def log_prob(self, x):
-        x = torch.as_tensor(x, dtype=torch.float32, device=self.p.device)
+        x = _tensor(x, torch.float32, self.p.device)
         # xlogy-style, so that p ∈ {0, 1} scores exactly.
         return torch.xlogy(x, self.p) + torch.special.xlog1py(1.0 - x, -self.p)
 
@@ -302,7 +323,7 @@ class Gamma(Distribution):
 
     def log_prob(self, x):
         a, s = self.concentration, self.scale
-        x = torch.as_tensor(x, dtype=torch.float32, device=a.device)
+        x = _tensor(x, torch.float32, a.device)
         return (a - 1.0) * torch.log(x) - x / s - torch.lgamma(a) - a * torch.log(s)
 
     @property
@@ -338,7 +359,7 @@ class Beta(Distribution):
         return ga / (ga + gb)
 
     def log_prob(self, x):
-        x = torch.as_tensor(x, dtype=torch.float32, device=self.a.device)
+        x = _tensor(x, torch.float32, self.a.device)
         return ((self.a - 1.0) * torch.log(x) + (self.b - 1.0) * torch.log1p(-x)
                 - _betaln(self.a, self.b))
 
@@ -364,7 +385,7 @@ class Uniform(Distribution):
         return self.low + rng.uniform(draw) * (self.high - self.low)
 
     def log_prob(self, x):
-        x = torch.as_tensor(x, dtype=torch.float32, device=self.low.device)
+        x = _tensor(x, torch.float32, self.low.device)
         inside = (x >= self.low) & (x <= self.high)
         return torch.where(inside, -torch.log(self.high - self.low), -math.inf)
 
@@ -392,7 +413,7 @@ class Exponential(Distribution):
         return -torch.log1p(-rng.uniform(draw)) * self.scale
 
     def log_prob(self, x):
-        x = torch.as_tensor(x, dtype=torch.float32, device=self.scale.device)
+        x = _tensor(x, torch.float32, self.scale.device)
         return torch.where(x >= 0, -x / self.scale - torch.log(self.scale), -math.inf)
 
     @property
@@ -445,7 +466,7 @@ class Poisson(Distribution):
 
     def log_prob(self, x):
         r = self.rate
-        x = torch.as_tensor(x, dtype=torch.float32, device=r.device)
+        x = _tensor(x, torch.float32, r.device)
         return torch.xlogy(x, r) - r - torch.lgamma(x + 1.0)
 
     @property
@@ -508,7 +529,7 @@ class LogNormal(Distribution):
         return torch.exp(self._normal().sample_rng(rng, draw))
 
     def log_prob(self, x):
-        logx = torch.log(torch.as_tensor(x, dtype=torch.float32, device=self.loc.device))
+        logx = torch.log(_tensor(x, torch.float32, self.loc.device))
         return self._normal().log_prob(logx) - logx
 
     @property
@@ -543,7 +564,7 @@ class StudentT(Distribution):
 
     def log_prob(self, x):
         df, scale = self.df, self.scale
-        z = (torch.as_tensor(x, dtype=torch.float32, device=df.device) - self.loc) / scale
+        z = (_tensor(x, torch.float32, df.device) - self.loc) / scale
         return (torch.lgamma(0.5 * (df + 1.0)) - torch.lgamma(0.5 * df)
                 - 0.5 * torch.log(df * math.pi) - torch.log(scale)
                 - 0.5 * (df + 1.0) * torch.log1p(z * z / df))

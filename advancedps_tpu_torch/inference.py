@@ -2,9 +2,9 @@
 
 * :func:`sample_smc` — one SMC sweep (weighted trajectories + log-evidence);
 * :func:`step_pg` / :func:`sample_pg` — one / many PG(AS) iterations;
-* :func:`sample` — the entry point that dispatches on the sampler type.
-
-Generic programs belong to a later slice of the port.
+* :func:`sample` — the entry point that dispatches on the sampler type and
+  takes structured (:class:`TracedSSM`) and generic (:class:`GenericModel`)
+  models alike.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ from . import rng as rngmod
 from ._device import resolve_device
 from ._tree import tree_stack
 from .engine import SweepKernel, reconstruct, replay_trajectory, sweep
+from .generic import GenericModel, GenericSSMKernel
 from .pg import PG, PGSample, PGState
 from .resampling import randcat_gumbel
 from .rng import Key
@@ -32,10 +33,11 @@ def make_kernel(model) -> SweepKernel:
         return model
     if isinstance(model, TracedSSM):
         return SSMKernel(model)
+    if isinstance(model, GenericModel):
+        return GenericSSMKernel(model)
     raise TypeError(
         f"cannot build a sweep kernel for {type(model).__name__}; expected "
-        "TracedSSM or a SweepKernel implementation (generic programs belong to "
-        "a later slice of the port)"
+        "TracedSSM, GenericModel, or a SweepKernel implementation"
     )
 
 
@@ -82,13 +84,27 @@ def step_pg(key: Key, model, sampler: PG, state: Optional[PGState] = None,
       retained trajectory is re-sampled along its lineage from the positional
       RNG (:func:`~advancedps_tpu_torch.engine.replay_trajectory`): the same
       genealogy and draws, states equal up to float reordering, and memory
-      O(T·N) instead of O(T·N·D).
+      O(T·N) instead of O(T·N·D).  Structured models only.
+
+    A :class:`GenericModel` takes PG with dense storage: ancestor sampling
+    needs transition densities, and its state is its whole record of values.
     """
     if trajectory_storage not in ("dense", "replay"):
         raise ValueError(f"unknown trajectory_storage {trajectory_storage!r}")
     replay = trajectory_storage == "replay"
     device = resolve_device(device)
     kernel = make_kernel(_on_device(model, device))
+    if sampler.ancestor_sampling and isinstance(model, GenericModel):
+        raise TypeError(
+            "PGAS requires transition densities — only structured state-space "
+            "models support ancestor sampling (reference: update_ref! dispatches "
+            "on SSMTrace, AdvancedPS.jl src/pgas.jl:113)"
+        )
+    if replay and isinstance(model, GenericModel):
+        raise TypeError(
+            "trajectory_storage='replay' needs per-step snapshots; generic "
+            "models carry their whole variable record as state — use 'dense'"
+        )
     ref = None if state is None else state.trajectory
     res = sweep(
         key, kernel, sampler.n_particles, sampler.resampler,

@@ -1,10 +1,12 @@
-"""The multi-device layer: particle meshes, the sharded sweep and its drivers
+"""The multi-device layer: particle meshes (in one process, or spanning
+processes after :func:`init_distributed`), the sharded sweep and its drivers
 (PyTorch port of ``advancedps_tpu/parallel``)."""
 
 from .mesh import (
     CHAIN_AXIS,
     PARTICLE_AXIS,
     chain_particle_mesh,
+    init_distributed,
     particle_mesh,
     shard_along,
 )
@@ -17,6 +19,7 @@ __all__ = [
     "CHAIN_AXIS",
     "PARTICLE_AXIS",
     "chain_particle_mesh",
+    "init_distributed",
     "particle_mesh",
     "shard_along",
     "sharded_sweep",

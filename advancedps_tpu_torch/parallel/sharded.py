@@ -44,6 +44,14 @@ runs each step on every shard in turn, then the collectives, as JAX's
 With K logical shards on one card the per-step kernels launch K times; the
 sharded sweep is then slower than the single-device one, and serves to check
 the exchange.  Shards on distinct cards run the same code.
+
+On a mesh that spans processes (:func:`~advancedps_tpu_torch.parallel.mesh.init_distributed`)
+each rank runs only its local shards (``mesh.local``, their global shard
+numbers), the per-shard lists below hold those, and the collectives gather
+across the ranks and fold in shard order: every rank computes the same
+replicated values, takes the same host decisions from them, and returns the
+whole result (:meth:`~advancedps_tpu_torch.parallel.mesh.ParticleMesh.join`).
+The sweep is then bitwise the one-process K-shard sweep.
 """
 
 from __future__ import annotations
@@ -98,13 +106,14 @@ def _leafwise(collective, mesh, trees, *args, **kwargs):
 
 @dataclass
 class _Shards:
-    """What every step of one sharded sweep reads."""
+    """What every step of one sharded sweep reads.  The lists hold this
+    process's shards, in the order of ``mesh.local``."""
 
     mesh: ParticleMesh
-    kernels: list  # one per shard
-    gids: list  # int64 [L] global ids per shard
-    refs: list  # the reference trajectory per shard, or None
-    masks: list  # the reference slot's mask per shard, or None
+    kernels: list  # one per local shard
+    gids: list  # int64 [L] global ids per local shard
+    refs: list  # the reference trajectory per local shard, or None
+    masks: list  # the reference slot's mask per local shard, or None
     n: int
     L: int
     n_resample: int
@@ -112,6 +121,11 @@ class _Shards:
     @property
     def has_ref(self) -> bool:
         return self.refs[0] is not None
+
+    @property
+    def holds_last(self) -> bool:
+        """Whether this process holds the last shard, the reference slot's."""
+        return self.mesh.local[-1] == self.mesh.size - 1
 
 
 def _draw_ref_anc(sh: _Shards, key, t, states, logws, ancestor_sampling: bool):
@@ -122,12 +136,12 @@ def _draw_ref_anc(sh: _Shards, key, t, states, logws, ancestor_sampling: bool):
         return [torch.tensor(sh.n - 1, dtype=torch.int32, device=d) for d in mesh.devices]
     anc_key = rngmod.step_key(key, rngmod.ANCESTOR, t)
     best, values = [], []
-    for k in range(mesh.size):
-        alw = logws[k] + sh.kernels[k].transition_logprob(t, states[k], tree_at(sh.refs[k], t))
-        u = rngmod.pos_uniform(anc_key, sh.gids[k])
+    for i in range(len(mesh.local)):
+        alw = logws[i] + sh.kernels[i].transition_logprob(t, states[i], tree_at(sh.refs[i], t))
+        u = rngmod.pos_uniform(anc_key, sh.gids[i])
         z = alw - torch.log(-torch.log(u))  # randcat_gumbel's expression
         li = torch.argmax(z)
-        best.append(sh.gids[k][li].to(torch.int32))
+        best.append(sh.gids[i][li].to(torch.int32))
         values.append(z[li])
     vmax = pmax(mesh, values)
     cands = [torch.where(v == vm, b, torch.full_like(b, sh.n))
@@ -137,13 +151,13 @@ def _draw_ref_anc(sh: _Shards, key, t, states, logws, ancestor_sampling: bool):
 
 def _apply_ref(sh: _Shards, local_anc, moved, ref_anc, ref_row):
     """Overwrite the reference slot (global n − 1: the last slot of the last
-    shard) with the retained ancestor draw and its pre-move row."""
-    last = sh.mesh.size - 1
-    local_anc[last][sh.L - 1] = ref_anc[last]
+    shard, the last local one of the process that holds it) with the retained
+    ancestor draw and its pre-move row."""
+    local_anc[-1][sh.L - 1] = ref_anc[-1]
 
     def put(mv, r):
         mv[sh.L - 1] = r[0]
-    tree_map(put, moved[last], ref_row)
+    tree_map(put, moved[-1], ref_row)
 
 
 def _exchange_allgather(sh: _Shards, rs_key, resampler, scheme, states, logws, es, ms, s1s,
@@ -156,25 +170,24 @@ def _exchange_allgather(sh: _Shards, rs_key, resampler, scheme, states, logws, e
     if scheme is not None:
         logw_all = all_gather(mesh, logws)
         state_all = _leafwise(all_gather, mesh, states)
-        for k in range(mesh.size):
-            f = _fused_extents(scheme, rs_key, logw_all[k], ms[k], s1s[k], nr)
-            a, mv = ops.resample_move_window_fext(f, state_all[k], nr, k * L, L)
+        for i, k in enumerate(mesh.local):
+            f = _fused_extents(scheme, rs_key, logw_all[i], ms[i], s1s[i], nr)
+            a, mv = ops.resample_move_window_fext(f, state_all[i], nr, k * L, L)
             local_anc.append(a)
             moved.append(mv)
-        if sh.has_ref:
-            last = mesh.size - 1
-            ref_row = tree_rows(state_all[last], ref_anc[last].reshape(1))
+        if sh.has_ref and sh.holds_last:
+            ref_row = tree_rows(state_all[-1], ref_anc[-1].reshape(1))
             _apply_ref(sh, local_anc, moved, ref_anc, ref_row)
         return local_anc, moved
     e_all = all_gather(mesh, es)
     state_all = _leafwise(all_gather, mesh, states)
-    for k in range(mesh.size):
-        anc = resampler.resampler(rs_key, e_all[k] / s1s[k], nr)
+    for i in range(len(mesh.local)):
+        anc = resampler.resampler(rs_key, e_all[i] / s1s[i], nr)
         if sh.has_ref:
-            anc = torch.cat([anc, ref_anc[k].reshape(1)])
-        a = anc[sh.gids[k]]
+            anc = torch.cat([anc, ref_anc[i].reshape(1)])
+        a = anc[sh.gids[i]]
         local_anc.append(a)
-        moved.append(tree_rows(state_all[k], a))
+        moved.append(tree_rows(state_all[i], a))
     return local_anc, moved
 
 
@@ -194,41 +207,42 @@ def _exchange_neighbor(sh: _Shards, u, states, es, s1s, prefix, fb, ref_anc):
     mesh, L, nr, K = sh.mesh, sh.L, sh.n_resample, sh.mesh.size
     mesh.exchanges["neighbor"] += 1
     f_loc = []
-    for k in range(K):
+    for i, k in enumerate(mesh.local):
         # B1's formula with the float64 prefix offset by the shards before
         # this one, so the extents agree with the all-gather exchange; then
         # clip, set the last extent to fb[k] and take the running max, so
         # the stitched extents are nondecreasing across shards and each
         # shard's last one is bitwise fb[k].
-        p = torch.cumsum(es[k], 0, dtype=torch.float64)
+        p = torch.cumsum(es[i], 0, dtype=torch.float64)
         if k:
-            p = p + prefix[k][k - 1]
-        f = torch.minimum(ops.extents_from_prefix(p, s1s[k], u, nr), fb[k][k])
+            p = p + prefix[i][k - 1]
+        f = torch.minimum(ops.extents_from_prefix(p, s1s[i], u, nr), fb[i][k])
         if k:
-            f = torch.maximum(f, fb[k][k - 1])
-        f[L - 1] = fb[k][k]
+            f = torch.maximum(f, fb[i][k - 1])
+        f[L - 1] = fb[i][k]
         f_loc.append(torch.cummax(f, 0).values)
     f_left, f_right = ppermute(mesh, f_loc, 1), ppermute(mesh, f_loc, -1)
     s_left, s_right = _leafwise(ppermute, mesh, states, 1), _leafwise(ppermute, mesh, states, -1)
     local_anc, moved = [], []
-    for k in range(K):
+    for i, k in enumerate(mesh.local):
         # Ring wrap: shard 0's left block is consumed (extent 0), shard K−1's
         # right block lies past every drawn slot (extent nr).
-        fl = torch.zeros_like(f_loc[k]) if k == 0 else f_left[k]
-        fr = torch.full_like(f_loc[k], nr) if k == K - 1 else f_right[k]
-        f_ext = torch.cat([fl, f_loc[k], fr])
-        state_ext = tree_map(lambda *parts: torch.cat(parts), s_left[k], states[k], s_right[k])
+        fl = torch.zeros_like(f_loc[i]) if k == 0 else f_left[i]
+        fr = torch.full_like(f_loc[i], nr) if k == K - 1 else f_right[i]
+        f_ext = torch.cat([fl, f_loc[i], fr])
+        state_ext = tree_map(lambda *parts: torch.cat(parts), s_left[i], states[i], s_right[i])
         a, mv = ops.resample_move_window_fext(f_ext, state_ext, nr, k * L, L)
         local_anc.append(torch.clamp((k - 1) * L + a, 0, sh.n - 1))
         moved.append(mv)
     if sh.has_ref:
         # One global row, exactly: every shard offers its clipped candidate
         # row and the owner's is taken from the K-row gather.
-        cands = [tree_rows(states[k], torch.clamp(ref_anc[k] - k * L, 0, L - 1).reshape(1))
-                 for k in range(K)]
+        cands = [tree_rows(states[i], torch.clamp(ref_anc[i] - k * L, 0, L - 1).reshape(1))
+                 for i, k in enumerate(mesh.local)]
         rows = _leafwise(all_gather, mesh, cands)
-        ref_row = tree_rows(rows[K - 1], (ref_anc[K - 1] // L).reshape(1))
-        _apply_ref(sh, local_anc, moved, ref_anc, ref_row)
+        if sh.holds_last:
+            ref_row = tree_rows(rows[-1], (ref_anc[-1] // L).reshape(1))
+            _apply_ref(sh, local_anc, moved, ref_anc, ref_row)
     return local_anc, moved
 
 
@@ -271,8 +285,8 @@ def sweep_shard_body(
     store_states: bool = True,
     exchange: str = "auto",
 ):
-    """The sharded sweep on every shard of ``mesh`` in lockstep, ``L`` = n/K
-    particles per shard.
+    """The sharded sweep on every local shard of ``mesh`` in lockstep, ``L`` =
+    n/K particles per shard.
 
     ``exchange`` picks the state exchange on a firing (module docstring):
     ``"auto"``, ``"allgather"``, or ``"neighbor"``, the neighbour exchange
@@ -280,11 +294,11 @@ def sweep_shard_body(
     firing's owners leave the neighbour window (for tests of the collective
     footprint).  Only systematic resampling has the neighbour exchange.
 
-    Returns ``(states, logws, log_z, snaps, ancs, ess, resampled)``: per
-    shard lists of the final state and log-weights ``[L, ...]``, the
-    snapshots ``[T, L, ...]`` (or None) and global ancestor ids ``[T, L]``
-    (row 0 the shard's own ids); the log-evidence and ``ess [T]`` on the
-    first shard's device; ``resampled`` a list of T bools.
+    Returns ``(states, logws, log_z, snaps, ancs, ess, resampled)``: lists
+    over the local shards of the final state and log-weights ``[L, ...]``,
+    the snapshots ``[T, L, ...]`` (or None) and global ancestor ids
+    ``[T, L]`` (row 0 the shard's own ids); the log-evidence and ``ess [T]``
+    on the first local shard's device; ``resampled`` a list of T bools.
     """
     if exchange not in EXCHANGES:
         raise ValueError(f"unknown exchange {exchange!r}")
@@ -294,8 +308,9 @@ def sweep_shard_body(
     T = kernel.num_steps
     has_ref = ref is not None
     devs = mesh.devices
-    gids = [torch.arange(k * L, (k + 1) * L, device=d) for k, d in enumerate(devs)]
-    refs, masks = [None] * K, [None] * K
+    gids = [torch.arange(k * L, (k + 1) * L, device=d) for k, d in zip(mesh.local, devs)]
+    nl = len(devs)
+    refs, masks = [None] * nl, [None] * nl
     if has_ref:
         refs = [_tree.as_reference(ref, d) for d in devs]
         masks = [g == n - 1 for g in gids]
@@ -306,29 +321,29 @@ def sweep_shard_body(
 
     init_key = rngmod.step_key(key, rngmod.INIT, 0)
     states, logws = [], []
-    for k in range(K):
-        s, lw = sh.kernels[k].init(rngmod.StepRng(init_key, gids[k]), tree_at(refs[k], 0),
-                                   masks[k])
+    for i in range(nl):
+        s, lw = sh.kernels[i].init(rngmod.StepRng(init_key, gids[i]), tree_at(refs[i], 0),
+                                   masks[i])
         states.append(s)
         logws.append(lw)
 
     snaps = None
 
-    def store(k, t, snap):
+    def store(i, t, snap):
         def put(buf, s):
             buf[t] = s
-        tree_map(put, snaps[k], snap)
+        tree_map(put, snaps[i], snap)
 
     if store_states and sh.kernels[0].snapshot(states[0]) is not None:
         snaps = []
-        for k in range(K):
-            s0 = sh.kernels[k].snapshot(states[k])
-            snaps.append(tree_map(lambda a, d=devs[k]: torch.empty((T,) + tuple(a.shape),
+        for i in range(nl):
+            s0 = sh.kernels[i].snapshot(states[i])
+            snaps.append(tree_map(lambda a, d=devs[i]: torch.empty((T,) + tuple(a.shape),
                                                                    dtype=a.dtype, device=d), s0))
-            store(k, 0, s0)
+            store(i, 0, s0)
     ancs = [torch.empty((T, L), dtype=torch.int32, device=d) for d in devs]
-    for k in range(K):
-        ancs[k][0] = gids[k]
+    for i in range(nl):
+        ancs[i][0] = gids[i]
     ess_all = torch.empty(T, dtype=torch.float32, device=devs[0])
     ess_all[0] = float(n)
     resampled = [False] * T
@@ -362,15 +377,15 @@ def sweep_shard_body(
         resampled[t] = do_rs
 
         prop_key = rngmod.step_key(key, rngmod.PROPAGATE, t)
-        for k in range(K):
-            ancs[k][t] = local_anc[k]
-            s, score = sh.kernels[k].step(t, rngmod.StepRng(prop_key, gids[k]), states[k],
-                                          tree_at(refs[k], t), masks[k])
-            states[k] = s
+        for i in range(nl):
+            ancs[i][t] = local_anc[i]
+            s, score = sh.kernels[i].step(t, rngmod.StepRng(prop_key, gids[i]), states[i],
+                                          tree_at(refs[i], t), masks[i])
+            states[i] = s
             # After a firing the weights restart at 0: the new weights are the score.
-            logws[k] = score if do_rs else logws[k] + score
+            logws[i] = score if do_rs else logws[i] + score
             if snaps is not None:
-                store(k, t, sh.kernels[k].snapshot(s))
+                store(i, t, sh.kernels[i].snapshot(s))
 
     # Close the pending base with the final weights' log-sum-exp.
     mf = pmax(mesh, [torch.max(lw) for lw in logws])
@@ -394,10 +409,12 @@ def sharded_sweep(
     """Sharded counterpart of :func:`advancedps_tpu_torch.engine.sweep`.
 
     ``n_particles`` must divide evenly by the mesh's ``axis`` size;
-    ``kernel``'s tensors must lie on the mesh's first device.  Returns a
-    :class:`SweepResult` whose per-particle tensors join the shards in order
-    on the first device (the counterpart of JAX's sharded global arrays).
-    ``exchange`` selects the state exchange (:func:`sweep_shard_body`).
+    ``kernel``'s tensors must lie on the mesh's first (local) device.
+    Returns a :class:`SweepResult` whose per-particle tensors join the shards
+    in order on the first local device (the counterpart of JAX's sharded
+    global arrays); on a mesh that spans processes every rank returns the
+    whole result.  ``exchange`` selects the state exchange
+    (:func:`sweep_shard_body`).
     """
     n = n_particles
     K = mesh.shape[axis]
@@ -412,7 +429,7 @@ def sharded_sweep(
     dev = mesh.devices[0]
 
     def joined(xs, dim=0):
-        return tree_map(lambda *parts: torch.cat([x.to(dev) for x in parts], dim), *xs)
+        return tree_map(lambda *parts: mesh.join(parts, dim), *xs)
 
     return SweepResult(
         log_evidence=log_z,

@@ -70,7 +70,8 @@ final line:
    included (plain, kernel, kernel, plain); the bytes it must move and the
    least time they take at the card's memory rate (a move counting only the
    rows that own a slot: B3, B4, and B4 over leaves at 1 + 2 + 100 + 1 words
-   a row and on the GP-SSM's state).  The inputs are the same
+   a row and on the GP-SSM's state; B4 also on phase 9's ``[100k, 50]``
+   generic state, beside B2 + ``index_select``).  The inputs are the same
    tensors on every call, as in the sweep, where each was written by the step
    before: they sit in the 50 MB L2, so the readings are L2-warm.  A second
    window takes each kernel L2-cold, on 128 MB of copies of its inputs in
@@ -90,12 +91,32 @@ final line:
    of each model at 1M, with their launch counts; then the
    statistical contracts at the JAX tests' sizes: the SV PGAS update rate
    (N=20, T=60, 150 iterations: mean > (1 − 1/N) − 0.1, PG's early third 0.3
-   below PGAS's), GP-SSM PG (N=20, T=100) and Lévy PGAS (N=50, T=200), 5
-   iterations each, replay against dense storage within 1e-5 and 1e-4.
+   below PGAS's), GP-SSM PG (N=20, T=100, 5 iterations) and Lévy PGAS
+   (N=50, T=200, 2 iterations), replay against dense storage within 1e-5 and
+   1e-4;
+9. the generic front-end, chain checkpoints and a mesh spanning processes:
+   the LGSSM as a ``GenericModel`` program of T = 50 sample sites and 50
+   observes at N = 100,000 (``profiling/bench_generic.py``'s harness, not
+   cut) through ``sample`` with no device named, against Kalman (|logZ −
+   Kalman| < 0.1) and beside the structured ``SSMKernel`` on the same ys:
+   the median of 3 sweeps of each and their ratio, B1 and B4 on every firing
+   (its state ``[N, 50]``), launches a step and the busy share of a profiled
+   sweep, with and without the early stop at a step's observe (bitwise the
+   same sweep), PG with dense storage (3 iterations, finite), and B4 on one
+   firing of the ``[100k, 50]`` state beside B2 + ``index_select`` (read in
+   phase 7, before any profiled sweep); the two
+   analytic −2·log 2 tests at their CPU sizes, a multivariate site whose
+   parameters lie on the CPU, a program that branches on a sampled value
+   (by ``if`` and by ``.item()``) refused as mis-aligned, and a CPU sweep
+   over parameters on the card, bitwise one over CPU parameters; a PGAS chain at 1M with replay storage
+   checkpointed after 2 iterations and resumed for 2, bitwise the 4
+   uninterrupted ones; and a child process that joins a process group as one
+   NCCL rank (one card allows no more) with a K = 4 mesh, whose systematic
+   sharded sweep at 1M must be bitwise phase 5's one-controller sweep.
 
 Each launch count is read from the run of its own path, the counts set to 0
 just before it.  The last lines are the kernels' JSON record (launches summed
-over the runs of phases 4-6 and 8, and per sweep and per PGAS iteration by scheme),
+over the runs of phases 4-6, 8 and 9, and per sweep and per PGAS iteration by scheme),
 the card, and ``{"ok": true, "device": {...}}``.
 Imports no JAX: the card's machine has none.
 """
@@ -104,9 +125,12 @@ from __future__ import annotations
 
 import json
 import math
+import os
+import socket
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -137,6 +161,9 @@ SWEEPS = 5  # timed sweeps per scheme
 PGAS_ITERS, PGAS_WARM, PGAS_CHAINS = 8, 4, 6  # bench_pgas.py:34-38, 96-114
 SHARDED_PGAS_ITERS = 3
 CHAIN_ITERS = 3
+# The generic program of profiling/bench_generic.py: particles, observes, sites.
+NG, TG, SG = 100_000, 50, 50
+NCCL_CHILD_TIMEOUT_S = 300
 SOURCE = "advancedps_tpu_torch/csrc/resample.cu"
 TPU_FILE = "advancedps_tpu/ops/pallas_resample.py"
 REPLACES = {
@@ -1356,6 +1383,7 @@ def main():
     print(f"B4 over leaves, one firing of the GP-SSM's state (x [N] + history [N, {T}]) at 1M: "
           f"device {ms_tree:.5f} ms, bound {tree_bytes / HBM_BYTES_PER_S * 1e3:.5f} ms "
           f"({tree_bytes} bytes, {owners} owner rows) {tag}", flush=True)
+    generic_b4 = generic_state_move(ops, tag)
     # The move versions in one call and in turns: the device time of one
     # firing's decode + move (version 0's clamp and gather included) on one and
     # on three columns, and the median of SWEEPS systematic flagship sweeps.
@@ -1572,25 +1600,29 @@ def main():
     check(float(pgas_rate.mean()) > theory - 0.1, "SV PGAS update rate below (1 - 1/N) - 0.1")
     check(float(pg_rate[early].mean()) < float(pgas_rate[early].mean()) - 0.3,
           "SV: PG's early update rate is not 0.3 below PGAS's")
-    for label, model, n_p, steps, sampler, tol in (
-            ("GP-SSM PG", apt.models.gp_ssm(num_steps=T), 20, T, apt.PG, 1e-5),
+    for label, model, n_p, steps, sampler, tol, iters in (
+            ("GP-SSM PG", apt.models.gp_ssm(num_steps=T), 20, T, apt.PG, 1e-5, 5),
             # One particle and N particles sum a step's 64 masked jumps in
-            # different orders on the card: hence the looser bound.
-            ("Lévy PGAS", apt.models.levy_ssm(dt=0.5), 50, 200, apt.PGAS, 1e-4)):
+            # different orders on the card: hence the looser bound.  Two
+            # iterations (the second conditional on the first), ~13 s each
+            # for each storage on a slow host: the script's time limit.
+            ("Lévy PGAS", apt.models.levy_ssm(dt=0.5), 50, 200, apt.PGAS, 1e-4, 2)):
         model = model.to("cuda")
         _, ys_x = apt.simulate(apt.rng.key(72), model, steps)
         tr_x = apt.TracedSSM(model, ys_x)
         (dense, repl), _ = drive(lambda: tuple(
-            apt.sample(apt.rng.key(73), tr_x, sampler(n_p), 5, trajectory_storage=st)
+            apt.sample(apt.rng.key(73), tr_x, sampler(n_p), iters, trajectory_storage=st)
             for st in ("dense", "replay")))
         diff = float((dense.trajectory - repl.trajectory).abs().max())
-        print(f"{label} N={n_p} T={steps}, 5 iterations: replay against dense storage max |diff| "
+        print(f"{label} N={n_p} T={steps}, {iters} iterations: replay against dense storage max |diff| "
               f"{diff:.3e} (bound {tol}), logZ {dense.log_evidence.tolist()}; phase 8 so far "
               f"{time.perf_counter() - t_models:.1f}s", flush=True)
         check(bool(torch.isfinite(dense.log_evidence).all()), f"{label}: logZ not finite")
         check(diff <= tol, f"{label}: replay and dense differ by {diff} > {tol}")
 
-    print(f"phases 1-8 took {time.perf_counter() - t_script:.1f}s", flush=True)
+    generic_phase(apt, ops, drive, expected, profile_one, tag, traced, kernel, systematic, auto,
+                  generic_b4, main_launches)
+    print(f"phases 1-9 took {time.perf_counter() - t_script:.1f}s", flush=True)
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
          "launches": main_launches[name], "max_abs_err": err[name],
@@ -1609,5 +1641,296 @@ def main():
         "count": torch.cuda.device_count()}}), flush=True)
 
 
+def generic_state_move(ops, tag) -> dict:
+    """B4 on one firing of phase 9's generic state ``[NG, SG]``, bitwise its
+    plain version, beside B2 + ``index_select``: device times and the bound
+    (the rows that own a slot read once, the rows and ancestors written)."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    logw = torch.randn(NG, generator=gen, device="cuda") * 2.0
+    m = torch.max(logw)
+    s1 = torch.sum(torch.exp(logw - m))
+    f = ops.extents_from_logw(logw, m, s1, 0.25, NG)
+    v = torch.randn(NG, SG, generator=gen, device="cuda")
+    anc, moved = ops.decode_move(f, v, NG)
+    ref = ops.decode_move_ref(f, v, NG)
+    check(torch.equal(anc, ref[0]) and torch.equal(word_bits(moved), word_bits(ref[1])),
+          f"B4 on the [{NG}, {SG}] state differs from its plain version")
+    owners = int(torch.unique(anc).numel())
+    nb = nbytes(f, anc, moved) + 4 * SG * owners
+    row = {"device_ms": device_ms(lambda: ops.decode_move(f, v, NG)),
+           "library_ms": device_ms(lambda: v.index_select(0, ops.decode_ancestors(f, NG))),
+           "plain_ms": device_ms(lambda: ops.decode_move_ref(f, v, NG)),
+           "bound_ms": nb / HBM_BYTES_PER_S * 1e3}
+    print(f"kernel decode_move at {NG // 1000}k, D = {SG} (phase 9's generic state): device "
+          f"{row['device_ms']:.5f} ms, B2 + index_select {row['library_ms']:.5f} ms, plain "
+          f"{row['plain_ms']:.5f} ms; bound {row['bound_ms']:.5f} ms ({nb} bytes, {owners} "
+          f"owner rows) {tag}", flush=True)
+    return row
+
+
+def generic_phase(apt, ops, drive, expected, profile_one, tag, traced, kernel, systematic,
+                  sharded_auto, generic_b4, main_launches):
+    """Phase 9: the generic front-end, chain checkpoints and a one-rank NCCL
+    mesh (the module docstring)."""
+    from advancedps_tpu_torch import parallel
+
+    t_phase = time.perf_counter()
+    # ---- 9a. the LGSSM as a generic program at N = 100k, T = 50
+    model = apt.models.stationary_lgssm(A, Q, R)
+    _, ys_g = apt.simulate(torch.Generator().manual_seed(0), model, TG)
+    ys_list = ys_g.tolist()
+    kf_g = float(apt.utils.kalman_filter(ys_g, A, 0.0, Q, 1.0, R, 0.0, SIGMA0).log_likelihood)
+
+    def prog(ctx):
+        x = ctx.sample(apt.Normal(0.0, SIGMA0), name="x0")
+        ctx.observe(apt.Normal(x, R), ys_list[0])
+        for t in range(1, TG):
+            x = ctx.sample(apt.Normal(A * x, Q), name=f"x{t}")
+            ctx.observe(apt.Normal(x, R), ys_list[t])
+
+    gm = apt.GenericModel(prog)
+    check(gm.num_steps == TG and gm.flat_size == SG, "generic program: structure")
+    smc, launches = drive(lambda: apt.sample(apt.rng.key(80), gm, apt.SMC(NG)))
+    log_z = float(smc.log_evidence)
+    fires = int(smc.diagnostics["resampled"].sum())
+    check(smc.trajectories.is_cuda and tuple(smc.trajectories.shape) == (TG, NG, SG),
+          "generic SMC: trajectories not [T, N, S] on the card")
+    check(bool(torch.isfinite(smc.trajectories).all()), "generic SMC: trajectories not finite")
+    check(abs(log_z - kf_g) < 0.1, f"generic SMC: |logZ - kalman| = {abs(log_z - kf_g)} >= 0.1")
+    check(fires > 0 and launches == expected(PER_FIRING["systematic"], fires),
+          f"generic SMC: launches {launches} for {fires} firings")
+    print(f"generic program N={NG} T={TG} ({SG} sites): SMC logZ {log_z:.6f} kalman {kf_g:.6f} "
+          f"|err| {abs(log_z - kf_g):.6f}, firings {fires}, launches {launches} {tag}", flush=True)
+    del smc
+    g_kernel = apt.make_kernel(gm)
+    s_kernel = apt.SSMKernel(apt.TracedSSM(model, ys_g).to("cuda"))
+    times = {"generic": [], "structured": []}
+    for i in range(3):
+        for label, k in (("generic", g_kernel), ("structured", s_kernel)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            float(apt.sweep(apt.rng.key(81 + i), k, NG, systematic, store_states=False,
+                            device="cuda").log_evidence)
+            times[label].append(time.perf_counter() - t0)
+    med = {label: statistics.median(ts) for label, ts in times.items()}
+    listed = {label: ", ".join(f"{t * 1e3:.3f}" for t in ts) for label, ts in times.items()}
+    print(f"generic against structured, N={NG} T={TG}, 3 sweeps each in turns: generic median "
+          f"{med['generic'] * 1e3:.3f} ms ({listed['generic']}), structured "
+          f"{med['structured'] * 1e3:.3f} ms ({listed['structured']}), ratio "
+          f"{med['generic'] / med['structured']:.3f} {tag}", flush=True)
+    # One profiled sweep each: the early stop at a step's observe, the whole
+    # program at every step, and the structured kernel; the first two bitwise.
+    profiled = {}
+    stops_early = apt.GenericModel._stops_early
+    for label in ("generic, early stop", "generic, whole program", "structured"):
+        k = s_kernel if label == "structured" else g_kernel
+        if label == "generic, whole program":
+            apt.GenericModel._stops_early = lambda self, t: False
+        try:
+            wall, busy, kernels, res = profile_one(lambda: apt.sweep(
+                apt.rng.key(84), k, NG, systematic, store_states=False, device="cuda"))
+        finally:
+            apt.GenericModel._stops_early = stops_early
+        profiled[label] = res
+        print(f"profiled sweep [{label}] N={NG} T={TG}: wall {wall:.3f} ms, device busy "
+              f"{busy:.3f} ms ({busy / wall:.4f} of wall), {kernels} device-side launches "
+              f"({kernels / TG:.1f} a step) {tag}", flush=True)
+    a, b = profiled["generic, early stop"], profiled["generic, whole program"]
+    check(torch.equal(a.log_evidence, b.log_evidence) and torch.equal(a.ancestors, b.ancestors)
+          and torch.equal(a.final_state, b.final_state),
+          "generic: the early stop changes the sweep")
+    print("generic: the sweep with the early stop is bitwise the whole program's (logZ, "
+          "ancestors, final values)", flush=True)
+    chain, launches = drive(lambda: apt.sample(apt.rng.key(85), gm, apt.PG(NG), 3))
+    check(tuple(chain.trajectory.shape) == (3, TG, SG)
+          and bool(torch.isfinite(chain.trajectory).all())
+          and bool(torch.isfinite(chain.log_evidence).all()), "generic PG: not finite")
+    check(launches["extents_from_logw"] > 0 and launches["decode_move"] > 0,
+          f"generic PG: launches {launches}")
+    print(f"generic PG N={NG} dense, 3 iterations: logZ {chain.log_evidence.tolist()}, "
+          f"launches {launches}", flush=True)
+    del chain
+    print(f"B4 on one firing of the generic state [{NG}, {SG}] (read in phase 7, before the "
+          f"profiled sweeps: after a window of ~40k records the profiler drops a record of the "
+          f"ctypes-launched kernels in each later window): device "
+          f"{generic_b4['device_ms']:.5f} ms, B2 + index_select "
+          f"{generic_b4['library_ms']:.5f} ms, plain {generic_b4['plain_ms']:.5f} ms, bound "
+          f"{generic_b4['bound_ms']:.5f} ms {tag}", flush=True)
+
+    # ---- 9b. the analytic −2·log 2 evidence (tests/test_torch_generic.py's sizes)
+    def bernoulli_model(ctx):
+        ctx.sample(apt.Normal(0.0, 1.0), name="a")
+        x = ctx.sample(apt.Bernoulli(1.0), name="x")
+        ctx.sample(apt.Gamma(2.0, 3.0), name="b")
+        ctx.observe(apt.Bernoulli(x / 2.0), 1.0)
+        ctx.sample(apt.Beta(1.0, 1.0), name="c")
+        ctx.observe(apt.Bernoulli(x / 2.0), 0.0)
+
+    bm = apt.GenericModel(bernoulli_model)
+    exact = -2.0 * math.log(2.0)
+    smc_b = apt.sample(apt.rng.key(100), bm, apt.SMC(100))
+    pg_b = apt.sample(apt.rng.key(100), bm, apt.PG(10), 100)
+    smc_rel = abs(float(smc_b.log_evidence) - exact) / abs(exact)
+    pg_err = abs(float(pg_b.log_evidence.double().mean()) - exact)
+    check(smc_rel <= 1e-6, f"analytic SMC evidence: relative error {smc_rel} > 1e-6")
+    check(pg_err < 0.01, f"analytic PG evidence: |mean logZ + 2 log 2| = {pg_err} >= 0.01")
+    check(bool((bm.decode(smc_b.trajectories[-1])["x"] == 1.0).all())
+          and bool((bm.decode(pg_b.trajectory[:, -1, :])["x"] == 1.0).all()),
+          "analytic evidence: x is not 1 everywhere")
+
+    def vector_site(ctx):
+        v = ctx.sample(apt.Normal(torch.zeros(3), torch.ones(3)), name="v")
+        ctx.observe(apt.Normal(v.sum(), 1.0), 0.5)
+
+    vm = apt.GenericModel(vector_site)
+    smc_v = apt.sample(apt.rng.key(0), vm, apt.SMC(1000))
+    check(tuple(vm.decode(smc_v.trajectories[-1])["v"].shape) == (1000, 3)
+          and math.isfinite(float(smc_v.log_evidence)), "a site with CPU parameters failed")
+
+    # A branch on a sampled value is refused on the card with the reference's
+    # diagnosis, whether it is an ``if`` or an ``.item()``.
+    for branch in ("if", "item"):
+        def value_dependent(ctx, branch=branch):
+            a = ctx.sample(apt.Normal(0.0, 1.0), name="a")
+            ctx.observe(apt.Normal(a, 1.0), 0.3)
+            if (a > 0 if branch == "if" else a.item() > 0):
+                ctx.observe(apt.Normal(a, 1.0), -0.2)
+
+        try:
+            apt.sample(apt.rng.key(0), apt.GenericModel(value_dependent), apt.SMC(1000))
+        except RuntimeError as e:
+            check("mis-aligned" in str(e), f"value-dependent program ({branch}): {e}")
+        else:
+            fail(f"value-dependent program ({branch}): not refused on the card")
+
+    # Parameters on the card, swept on the CPU: each law's copy to the CPU
+    # lands before it is read, so the sweep is bitwise the CPU parameters'.
+    def card_params(where):
+        mean, sd = torch.zeros(3, device=where), torch.ones(3, device=where)
+
+        def fn(ctx):
+            v = ctx.sample(apt.Normal(mean, sd), name="v")
+            ctx.observe(apt.Normal(v.sum(), 1.0), 0.5)
+        return apt.GenericModel(fn)
+
+    from_card = apt.sample(apt.rng.key(4), card_params("cuda"), apt.SMC(1000), device="cpu")
+    from_cpu = apt.sample(apt.rng.key(4), card_params("cpu"), apt.SMC(1000), device="cpu")
+    check(torch.equal(from_card.log_evidence, from_cpu.log_evidence)
+          and torch.equal(from_card.trajectories, from_cpu.trajectories),
+          "a CPU sweep over parameters on the card differs from one over CPU parameters")
+    pg_mean = float(pg_b.log_evidence.double().mean())
+    print(f"analytic evidence on the card: SMC(100) logZ {float(smc_b.log_evidence):.9f} "
+          f"(relative error {smc_rel:.3e}), PG(10) x 100 mean {pg_mean:.9f} "
+          f"(|err| {pg_err:.3e}), exact {exact:.9f}; a [3] site with CPU parameters: logZ "
+          f"{float(smc_v.log_evidence):.6f}; value-dependent programs (if, .item()) refused "
+          f"as mis-aligned; a CPU sweep over card parameters bitwise the CPU one", flush=True)
+
+    # ---- 9c. a PGAS chain at 1M, replay storage, checkpointed and resumed
+    pgas = apt.PGAS(N)
+    key = apt.rng.key(90)
+    t0 = time.perf_counter()
+    (whole, first, resumed), launches = drive(lambda: _checkpointed_chain(apt, traced, pgas, key))
+    check(torch.equal(first.trajectory, whole.trajectory[:2])
+          and torch.equal(resumed.trajectory, whole.trajectory[2:])
+          and torch.equal(resumed.log_evidence, whole.log_evidence[2:]),
+          "PGAS resumed from a checkpoint differs from the uninterrupted chain")
+    check(launches == expected(PER_FIRING["systematic"], 8 * (T - 1)),
+          f"PGAS with a checkpoint: launches {launches}")
+    print(f"PGAS N={N} T={T} replay: 2 iterations, checkpoint, 2 resumed: bitwise the 4 "
+          f"uninterrupted (trajectories and logZ {whole.log_evidence.tolist()}); "
+          f"{time.perf_counter() - t0:.3f}s for 8 iterations, launches {launches} {tag}",
+          flush=True)
+
+    # ---- 9d. one NCCL rank of a K-shard mesh spanning processes
+    with tempfile.TemporaryDirectory() as tmp:
+        out_path = os.path.join(tmp, "nccl_rank.pt")
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        t0 = time.perf_counter()
+        try:
+            child = subprocess.run([sys.executable, os.path.abspath(__file__), "--nccl-rank",
+                                    str(port), out_path], capture_output=True, text=True,
+                                   timeout=NCCL_CHILD_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            fail(f"the NCCL rank did not finish in {NCCL_CHILD_TIMEOUT_S} s")
+        child_s = time.perf_counter() - t0
+        check(child.returncode == 0, f"the NCCL rank failed (rc {child.returncode}):\n"
+              f"{(child.stdout + child.stderr)[-4000:]}")
+        got = torch.load(out_path, weights_only=True)
+    for name, c in got["launches"].items():
+        main_launches[name] += c
+    fires = int(sharded_auto.resampled.sum())
+    branches = got["exchanges"]
+    want = expected({"decode_move": K}, fires)
+    want["extents_from_logw"] = K * branches.get("allgather", 0)
+    check(got["backend"] == "nccl" and got["local"] == list(range(K)),
+          f"the child's group is {got['backend']} with local shards {got['local']}")
+    check(got["launches"] == want, f"NCCL rank: launches {got['launches']} != {want}")
+    same = (torch.equal(got["log_evidence"], sharded_auto.log_evidence.cpu())
+            and torch.equal(got["ancestors"], sharded_auto.ancestors.cpu())
+            and torch.equal(got["log_weights"], sharded_auto.log_weights.cpu())
+            and torch.equal(got["resampled"], sharded_auto.resampled.cpu()))
+    check(same, "the NCCL rank's sharded sweep differs from the one-controller sweep")
+    print(f"NCCL rank (world 1, K={K} local shards) sharded sweep N={N} T={T}: logZ "
+          f"{float(got['log_evidence']):.6f}, bitwise the one-controller sweep (logZ, ancestors, "
+          f"log-weights, flags); firings by branch {branches}; collectives {got['calls']}; "
+          f"launches {got['launches']}; sweep {got['sweep_s'] * 1e3:.3f} ms, child process "
+          f"{child_s:.1f}s {tag}", flush=True)
+    print(f"phase 9 took {time.perf_counter() - t_phase:.1f}s", flush=True)
+
+
+def _checkpointed_chain(apt, traced, pgas, key):
+    """Four PGAS iterations in one chain; the same chain's first two, a
+    checkpoint, and two iterations resumed from it."""
+    whole = apt.sample(key, traced, pgas, 4, trajectory_storage="replay")
+    first = apt.sample(key, traced, pgas, 2, trajectory_storage="replay")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "chain.pt")
+        apt.utils.save_chain(path, apt.PGState(first.trajectory[-1]), key, 2)
+        resumed, _, it = apt.utils.resume_chain(path, traced, pgas, 2,
+                                                trajectory_storage="replay")
+    check(it == 4, f"resume_chain ended at iteration {it}")
+    return whole, first, resumed
+
+
+def nccl_rank(port: str, out_path: str):
+    """Phase 9's child: rank 0 of a one-process NCCL group, whose K-shard
+    mesh spans processes, runs phase 5's systematic sharded sweep at 1M."""
+    import torch.distributed as dist
+
+    import advancedps_tpu_torch as apt
+    from advancedps_tpu_torch import parallel
+    from advancedps_tpu_torch.ops import resample as ops
+
+    parallel.init_distributed(f"localhost:{port}", 1, 0)
+    try:
+        mesh = parallel.particle_mesh(K)
+        check(mesh.spans_processes, "the mesh does not span processes")
+        model = apt.models.stationary_lgssm(A, Q, R)
+        _, ys = apt.simulate(torch.Generator().manual_seed(0), model, T)
+        kernel = apt.SSMKernel(apt.TracedSSM(model, ys).to("cuda"))
+        systematic = apt.ResampleWithESSThreshold(apt.resample_systematic)
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = parallel.sharded_sweep(apt.rng.key(1), kernel, N, systematic, mesh,
+                                     store_states=False)
+        torch.cuda.synchronize()
+        sweep_s = time.perf_counter() - t0
+        torch.save({
+            "log_evidence": res.log_evidence.cpu(), "ancestors": res.ancestors.cpu(),
+            "log_weights": res.log_weights.cpu(), "resampled": res.resampled.cpu(),
+            "launches": {w.__name__: w.launches for w in ops.KERNEL_WRAPPERS},
+            "exchanges": dict(mesh.exchanges), "calls": dict(mesh.calls),
+            "backend": dist.get_backend(), "local": list(mesh.local), "sweep_s": sweep_s,
+        }, out_path)
+    finally:
+        dist.destroy_process_group()
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--nccl-rank"]:
+        nccl_rank(sys.argv[2], sys.argv[3])
+    else:
+        main()

@@ -14,6 +14,8 @@ bitwise: the two spellings of the CPU give the same tensors.
 """
 
 import inspect
+import os
+import tempfile
 
 import numpy as np
 import pytest
@@ -30,6 +32,13 @@ def _traced(steps=30):
     model = apt.models.stationary_lgssm(a=0.9, q=0.32, r=1.0)
     _, ys = apt.simulate(torch.Generator().manual_seed(0), model, steps)
     return apt.TracedSSM(model, ys)
+
+
+def _saved_chain():
+    """A chain checkpoint written on the CPU, for the restore entry points."""
+    path = os.path.join(tempfile.mkdtemp(), "chain.pt")
+    apt.utils.save_chain(path, apt.PGState(torch.zeros(30)), apt.rng.key(1), 1)
+    return path
 
 
 ENTRY_POINTS = {
@@ -58,6 +67,9 @@ ENTRY_POINTS = {
     "beta": apt.random.beta,
     "t": apt.random.t,
     "poisson": apt.random.poisson,
+    "init_distributed": parallel.init_distributed,
+    "restore_chain": apt.utils.restore_chain,
+    "resume_chain": apt.utils.resume_chain,
 }
 
 #: Each entry point called with no ``device``.
@@ -89,6 +101,10 @@ CALLS = {
     "beta": lambda: apt.random.beta(apt.rng.key(1), 2.0, 3.0, (4,)),
     "t": lambda: apt.random.t(apt.rng.key(1), 3.0, (4,)),
     "poisson": lambda: apt.random.poisson(apt.rng.key(1), 3.0, (4,)),
+    # NCCL on the card: refused before any process group is started.
+    "init_distributed": lambda: parallel.init_distributed("localhost:1", 1, 0),
+    "restore_chain": lambda: apt.utils.restore_chain(_saved_chain()),
+    "resume_chain": lambda: apt.utils.resume_chain(_saved_chain(), _traced(), apt.PG(16), 1),
 }
 
 
@@ -102,8 +118,9 @@ def test_every_device_parameter_of_the_package_is_listed():
     # point in the sense above and must be in the table.
     found = set()
     modules = [apt, apt.engine, apt.inference, apt.convert, apt.resampling, apt.rng, apt.smc,
-               apt.pg, apt.ssm, apt.random, apt.distributions, apt.models, parallel,
-               parallel.mesh, parallel.chains, parallel.sharded, parallel.smc, parallel.pg]
+               apt.pg, apt.ssm, apt.random, apt.distributions, apt.models, apt.generic,
+               apt.utils, apt.utils.checkpoint, parallel, parallel.mesh, parallel.chains,
+               parallel.sharded, parallel.smc, parallel.pg]
     for mod in modules:
         for attr, fn in vars(mod).items():
             if inspect.isfunction(fn) and not attr.startswith("_") \
@@ -161,3 +178,30 @@ def test_meshes_hold_the_named_device():
     assert [r.devices for r in rows] == [(torch.device("cpu"),) * 2] * 2
     spacings = apt.multinomial_spacings(apt.rng.key(3), 100, device="cpu")
     assert spacings.shape == (101,) and spacings.device.type == "cpu"
+
+
+@pytest.mark.cuda
+def test_a_law_from_the_card_reads_its_values_on_the_cpu():
+    # A copy from the card to the CPU must have landed before the CPU reads
+    # it, both in ``Distribution.to`` and in a CPU sweep over a program whose
+    # parameters lie on the card.
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    loc = torch.linspace(-3.0, 3.0, 1 << 20, device="cuda")
+    scale = torch.full((1 << 20,), 2.5, device="cuda")
+    law = apt.Normal(loc, scale).to("cpu")
+    assert law.loc.device.type == "cpu"
+    assert torch.equal(law.loc, loc.cpu()) and torch.equal(law.scale, scale.cpu())
+
+    def program(where):
+        mean, sd = torch.zeros(3, device=where), torch.ones(3, device=where)
+
+        def fn(ctx):
+            v = ctx.sample(apt.Normal(mean, sd), name="v")
+            ctx.observe(apt.Normal(v.sum(), 1.0), 0.5)
+        return apt.GenericModel(fn)
+
+    on_card = apt.sample(apt.rng.key(4), program("cuda"), apt.SMC(64), device="cpu")
+    on_cpu = apt.sample(apt.rng.key(4), program("cpu"), apt.SMC(64), device="cpu")
+    assert torch.equal(on_card.log_evidence, on_cpu.log_evidence)
+    assert torch.equal(on_card.trajectories, on_cpu.trajectories)
