@@ -69,9 +69,10 @@ def tree_rows(tree, idx):
     return tree_map(lambda a: a.index_select(0, idx), tree)
 
 
-def tree_stack(trees):
-    """Trees of one structure stacked leaf by leaf on a new leading axis."""
-    return tree_map(lambda *xs: torch.stack(xs), trees[0], *trees[1:])
+def tree_stack(trees, dim: int = 0):
+    """Trees of one structure stacked leaf by leaf on a new axis ``dim``
+    (leading by default)."""
+    return tree_map(lambda *xs: torch.stack(xs, dim), trees[0], *trees[1:])
 
 
 def as_reference(ref, device):

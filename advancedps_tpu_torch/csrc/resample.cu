@@ -237,6 +237,25 @@
 // each other's values.  The launch is cooperative and no larger than the card
 // holds, for the same reason as B1's.
 
+// The chain axis.  Independent chains run as one batch: C rows of N
+// log-weights, extents and particle rows, one launch for all of them.  B1 and
+// B6 number their tiles chain-major over all C rows and give every row its own
+// part of the look-back scratch, so a tile looks back only at the tiles of its
+// own row, in the same tree, and row c is the one-chain launch on that row bit
+// for bit: the same tiles, summed in the same order, under the row's own m, s1
+// and offset u (read from device arrays, where the one-chain launch takes u as
+// an argument).  Tile g waits only for tiles of lower number, so the argument
+// that the cooperative launch cannot deadlock is unchanged.  B4 and B4 over
+// leaves take the chain as blockIdx.y and offset their extents, rows, outputs
+// and owners by the row's stride in 64 bits (C * N * d words pass 2^31 on a
+// GP-SSM's [N, 100] history), each block decoding and moving as before.  The
+// one-chain entries are the same kernels instantiated without the chain axis,
+// where the chain index is the constant 0: the scan and B4 sit at their
+// register caps (64 and 32 a thread), and with the chain offsets compiled in,
+// one chain's B1 and B6 took 0.0153 ms at 1M against 0.0110 (chip_smoke.py
+// phase 7) and B4 0.0073-0.0075 against 0.0067 (profiling/torch_kernels_ab.py,
+// in turns with the one-chain kernels; H100 80GB HBM3 at 700 W).
+//
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
@@ -390,16 +409,19 @@ __device__ __forceinline__ void upper_bound_uniform(Load r, int len, const T (&t
 
 // ---- The epilogues of B1 and B6
 
-// B1's epilogue: the systematic extent of a double prefix.
+// B1's epilogue: the systematic extent of a double prefix.  Chain c reads
+// s1[c] and, where u_dev is set, u_dev[c] for its offset (else u_host).
 struct ExtentsEpilogue {
   using T = int;
   const float* s1;
-  float u;
+  const float* u_dev;
+  float u_host;
   int n;
-  float inv_s1, nf;  // set on the device by load()
+  float u, inv_s1, nf;  // set on the device by load()
   __host__ __device__ static int lowest() { return 0; }  // extents are >= 0
-  __device__ void load() {
-    inv_s1 = __frcp_rn(*s1);
+  __device__ void load(int64_t c) {
+    inv_s1 = __frcp_rn(s1[c]);
+    u = u_dev != nullptr ? u_dev[c] : u_host;
     nf = (float)n;
   }
   __device__ int operator()(double p) const {
@@ -410,14 +432,14 @@ struct ExtentsEpilogue {
   }
 };
 
-// B6's epilogue: the prefix rounded to float32 once, times `scale` (1 when
-// `scale_ptr` is null).
+// B6's epilogue: the prefix rounded to float32 once, times `scale` (chain c's
+// scale_ptr[c]; 1 when `scale_ptr` is null).
 struct ScaleEpilogue {
   using T = float;
   const float* scale_ptr;
   float scale;  // set on the device by load()
   __host__ __device__ static float lowest() { return -INFINITY; }
-  __device__ void load() { scale = scale_ptr != nullptr ? *scale_ptr : 1.0f; }
+  __device__ void load(int64_t c) { scale = scale_ptr != nullptr ? scale_ptr[c] : 1.0f; }
   __device__ float operator()(double p) const {
     return __fmul_rn(__double2float_rn(p), scale);
   }
@@ -535,26 +557,40 @@ __device__ T warp_lookback(ulonglong2* slot, int64_t cap, unsigned long long epo
   return r;
 }
 
-// Block b takes tiles b, b + gridDim.x, ...  The launch is cooperative, so
-// every block of the grid is resident: a block waits only for tiles below its
-// own, which blocks that are running hold, and those wait for lower tiles in
-// turn.  `epoch` is larger than that of any earlier launch on this scratch.
-template <bool kUseExp, typename Epi>
+// With kChains, `nchains` rows of `len` elements each, scanned on their own
+// (see "The chain axis"): tiles are numbered chain-major, tile g being tile
+// g % ntiles of row g / ntiles, and each row looks back through its own part
+// of the scratch.  Without it one row, its epilogue's values loaded once
+// before the loop: the chain index is the constant 0 and every offset folds
+// away.  Block b takes tiles b, b + gridDim.x, ...  The launch is cooperative,
+// so every block of the grid is resident: a block waits only for tiles below
+// its own in its row, which have lower numbers and are held by blocks that are
+// running, and those wait for lower tiles in turn.  `epoch` is larger than that
+// of any earlier launch on this scratch.
+template <bool kUseExp, bool kChains, typename Epi>
 __global__ void __launch_bounds__(kThreads, 4)  // four blocks an SM hold 1M in one wave
-prefix_scan_kernel(const float* __restrict__ x, int64_t len, const float* __restrict__ mx,
+prefix_scan_kernel(const float* __restrict__ x_all, int64_t len, const float* __restrict__ mx,
                    Epi epi, ulonglong2* __restrict__ scratch, int64_t cap,
-                   unsigned long long epoch, int ntiles, typename Epi::T* __restrict__ out) {
+                   unsigned long long epoch, int ntiles, int nchains,
+                   typename Epi::T* __restrict__ out_all) {
   using T = typename Epi::T;
   __shared__ double dsmem[32];
   __shared__ T tsmem[32];
   __shared__ double base_s;
   __shared__ T carry_s;
-  ulonglong2* sum_slot = scratch;
-  ulonglong2* max_slot = scratch + scan_slots(cap);
-  epi.load();
-  const float m = kUseExp ? *mx : 0.0f;
-  const bool vec_in = aligned16(x), vec_out = aligned16(out);
-  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+  if (!kChains) epi.load(0);
+  const float m0 = kUseExp && !kChains ? *mx : 0.0f;
+  const int all_tiles = kChains ? ntiles * nchains : ntiles;  // < 2^31: launch_scan checks
+  for (int g = blockIdx.x; g < all_tiles; g += gridDim.x) {
+    const int c = kChains ? g / ntiles : 0;
+    const int tile = kChains ? g - c * ntiles : g;
+    const float* __restrict__ x = x_all + (int64_t)c * len;
+    T* __restrict__ out = out_all + (int64_t)c * len;
+    ulonglong2* sum_slot = scratch + (int64_t)c * 2 * scan_slots(cap);
+    ulonglong2* max_slot = sum_slot + scan_slots(cap);
+    if (kChains) epi.load(c);
+    const float m = kChains ? (kUseExp ? mx[c] : 0.0f) : m0;
+    const bool vec_in = aligned16(x), vec_out = aligned16(out);
     const int64_t first = (int64_t)tile * kTile + (int64_t)threadIdx.x * kItems;
     const bool whole = first + kItems <= len;
 
@@ -645,34 +681,47 @@ inline int resident_blocks(const void* kernel, int (&cache)[64]) {
   return cache[dev];
 }
 
-// Launch `kernel` (a scan over `tiles` tiles that looks back through a scratch
-// for `cap` tiles) cooperatively, on no more blocks than the device holds at
-// once; `resident` is the kernel's own cache for resident_blocks().
+// Launch `kernel` (a scan over `tiles` tiles in each of `nchains` rows that
+// looks back through a scratch for `cap` tiles a row) cooperatively, on no
+// more blocks than the device holds at once; `resident` is the kernel's own
+// cache for resident_blocks().
 inline int launch_scan(const void* kernel, int (&resident)[64], int64_t tiles, int64_t cap,
-                       unsigned long long epoch, void** args, cudaStream_t s) {
-  if (tiles > cap || tiles >= (int64_t)1 << 31 || epoch == 0) return (int)cudaErrorInvalidValue;
+                       unsigned long long epoch, void** args, cudaStream_t s,
+                       int64_t nchains = 1) {
+  const int64_t all = tiles * nchains;
+  if (tiles > cap || nchains < 1 || all >= (int64_t)1 << 31 || epoch == 0) {
+    return (int)cudaErrorInvalidValue;
+  }
   const int room = resident_blocks(kernel, resident);
   if (room <= 0) return (int)cudaErrorLaunchOutOfResources;
-  const unsigned grid = (unsigned)(tiles < room ? tiles : room);
+  const unsigned grid = (unsigned)(all < room ? all : room);
   const cudaError_t err =
       cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(kThreads), args, 0, s);
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
-// scratch: aps_scan_scratch_words(cap) 8-byte words, 16-byte aligned, zero
-// when allocated and then written by these launches alone, each with a larger
-// epoch (> 0) than the one before; cap >= ntiles.
+// nchains rows of len elements; scratch: nchains * aps_scan_scratch_words(cap)
+// 8-byte words, 16-byte aligned, zero when allocated and then written by these
+// launches alone, each with a larger epoch (> 0) than the one before; cap >=
+// the tiles of one row.
 template <bool kUseExp, typename Epi>
-int prefix_scan(const float* x, int64_t len, const float* mx, Epi epi, void* scratch,
-                int64_t cap, unsigned long long epoch, typename Epi::T* out, cudaStream_t s) {
-  static int resident[64] = {};
+int prefix_scan(const float* x, int64_t nchains, int64_t len, const float* mx, Epi epi,
+                void* scratch, int64_t cap, unsigned long long epoch, typename Epi::T* out,
+                cudaStream_t s) {
+  static int resident[64] = {}, resident_chains[64] = {};
   const int64_t tiles = (len + kTile - 1) / kTile;
+  if (nchains >= (int64_t)1 << 31) return (int)cudaErrorInvalidValue;
   int ntiles = (int)tiles;
+  int nch = (int)nchains;
   ulonglong2* slots = (ulonglong2*)scratch;
   typename Epi::T* out_arg = out;
-  void* args[] = {&x, &len, &mx, &epi, &slots, &cap, &epoch, &ntiles, &out_arg};
-  return launch_scan((const void*)prefix_scan_kernel<kUseExp, Epi>, resident, tiles, cap, epoch,
-                     args, s);
+  void* args[] = {&x, &len, &mx, &epi, &slots, &cap, &epoch, &ntiles, &nch, &out_arg};
+  if (nchains == 1) {
+    return launch_scan((const void*)prefix_scan_kernel<kUseExp, false, Epi>, resident, tiles,
+                       cap, epoch, args, s);
+  }
+  return launch_scan((const void*)prefix_scan_kernel<kUseExp, true, Epi>, resident_chains, tiles,
+                     cap, epoch, args, s, nchains);
 }
 
 // Extent j with f[m-1] read as `guard`.
@@ -863,13 +912,22 @@ __device__ __forceinline__ void move_rows_wide(const uint32_t* __restrict__ v, i
 }
 
 // ---- B4: one block per kDecodeMoveTile consecutive output slots, B2's tile
-// (see "B4 decode, then move").
+// (see "B4 decode, then move"); with kChains, of chain blockIdx.y (see "The
+// chain axis"): its extents, rows, output and owners lie one chain's stride
+// into each array.  Without it the chain is the constant 0, and the kernel
+// fits its 32 registers as it did before the chain axis.
+template <bool kChains>
 __global__ void __launch_bounds__(kDecodeThreads, kDecodeMoveBlocks)
-decode_move_kernel(const int* __restrict__ f, int64_t m, int guard, int64_t start,
-                   int64_t n_out, const uint32_t* __restrict__ v, int d,
-                   uint32_t* __restrict__ out, int* __restrict__ anc_clipped) {
+decode_move_kernel(const int* __restrict__ f_all, int64_t m, int guard, int64_t start,
+                   int64_t n_out, const uint32_t* __restrict__ v_all, int d,
+                   uint32_t* __restrict__ out_all, int* __restrict__ anc_all) {
   static_assert(kDecodeMoveTile == kDecodeTile, "B4 decodes its tile as B2 does");
   __shared__ DecodeTile sh;
+  const int64_t c = kChains ? blockIdx.y : 0;
+  const int* __restrict__ f = f_all + c * m;
+  const uint32_t* __restrict__ v = v_all + c * m * d;
+  uint32_t* __restrict__ out = out_all + c * n_out * d;
+  int* __restrict__ anc_clipped = anc_all + c * n_out;
   const int64_t k0 = (int64_t)blockIdx.x * kDecodeMoveTile;
   const int nk = (int)(n_out - k0 < kDecodeMoveTile ? n_out - k0 : kDecodeMoveTile);
   int a[kDecodeItems];
@@ -901,10 +959,14 @@ struct LeafSet {
   int count;
 };
 
+template <bool kChains>
 __global__ void __launch_bounds__(kDecodeThreads, kDecodeMoveBlocks)
-decode_move_leaves_kernel(const int* __restrict__ f, int64_t m, int guard, int64_t start,
-                          int64_t n_out, const LeafSet leaves, int* __restrict__ anc_clipped) {
+decode_move_leaves_kernel(const int* __restrict__ f_all, int64_t m, int guard, int64_t start,
+                          int64_t n_out, const LeafSet leaves, int* __restrict__ anc_all) {
   __shared__ DecodeTile sh;
+  const int64_t c = kChains ? blockIdx.y : 0;
+  const int* __restrict__ f = f_all + c * m;
+  int* __restrict__ anc_clipped = anc_all + c * n_out;
   const int64_t k0 = (int64_t)blockIdx.x * kDecodeMoveTile;
   const int nk = (int)(n_out - k0 < kDecodeMoveTile ? n_out - k0 : kDecodeMoveTile);
   int a[kDecodeItems];
@@ -916,11 +978,12 @@ decode_move_leaves_kernel(const int* __restrict__ f, int64_t m, int guard, int64
   for (int l = 0; l < kMaxLeaves; ++l) {
     if (l >= leaves.count) break;
     const int d = (int)leaves.d[l];
-    uint32_t* tile_out = leaves.out[l] + k0 * d;
+    const uint32_t* v = leaves.v[l] + c * m * d;
+    uint32_t* tile_out = leaves.out[l] + (c * n_out + k0) * d;
     if (d == 1) {
-      move_column(leaves.v[l], tile_out, kx, nk, rows, a);
+      move_column(v, tile_out, kx, nk, rows, a);
     } else {
-      move_rows_wide(leaves.v[l], d, tile_out, nk, rows, sh);
+      move_rows_wide(v, d, tile_out, nk, rows, sh);
     }
   }
 #pragma unroll
@@ -1166,7 +1229,8 @@ int aps_prefix_tile_size() { return kTile; }
 
 const char* aps_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
-// 8-byte words of the scan scratch of B1 and B6 for up to `cap` tiles.
+// 8-byte words of the scan scratch of B1 and B6 for up to `cap` tiles (of one
+// chain: a launch over C chains takes C times as many).
 int aps_scan_scratch_words(int64_t cap) { return (int)(4 * scan_slots(cap)); }
 
 // B1.  logw float32[len]; mx, s1 float32 scalars on the device; f int32[len].
@@ -1176,8 +1240,22 @@ int aps_scan_scratch_words(int64_t cap) { return (int)(4 * scan_slots(cap)); }
 int aps_extents_from_logw(const float* logw, int64_t len, const float* mx,
                           const float* s1, float u, int n, void* scratch, int64_t cap,
                           uint64_t epoch, int* f, void* stream) {
-  ExtentsEpilogue epi{s1, u, n, 0.0f, 0.0f};
-  return prefix_scan<true>(logw, len, mx, epi, scratch, cap, epoch, f, (cudaStream_t)stream);
+  ExtentsEpilogue epi{s1, nullptr, u, n, 0.0f, 0.0f, 0.0f};
+  return prefix_scan<true>(logw, 1, len, mx, epi, scratch, cap, epoch, f, (cudaStream_t)stream);
+}
+
+// B1 with the chain axis.  logw float32[nchains, len]; mx, s1 and u float32
+// [nchains] on the device; f int32[nchains, len]; scratch
+// nchains * aps_scan_scratch_words(cap) words, as for B1.  Row c is B1 on
+// logw[c] with (mx[c], s1[c], u[c]), bit for bit.
+int aps_extents_from_logw_chains(const float* logw, int64_t nchains, int64_t len,
+                                 const float* mx, const float* s1, const float* u, int n,
+                                 void* scratch, int64_t cap, uint64_t epoch, int* f,
+                                 void* stream) {
+  if (u == nullptr) return (int)cudaErrorInvalidValue;
+  ExtentsEpilogue epi{s1, u, 0.0f, n, 0.0f, 0.0f, 0.0f};
+  return prefix_scan<true>(logw, nchains, len, mx, epi, scratch, cap, epoch, f,
+                           (cudaStream_t)stream);
 }
 
 // B6.  x float32[len]; with use_exp the summands are exp(x - *mx), else x;
@@ -1188,8 +1266,20 @@ int aps_scaled_prefix(const float* x, int64_t len, int use_exp, const float* mx,
                       float* out, void* stream) {
   ScaleEpilogue epi{scale, 1.0f};
   cudaStream_t s = (cudaStream_t)stream;
-  return use_exp ? prefix_scan<true>(x, len, mx, epi, scratch, cap, epoch, out, s)
-                 : prefix_scan<false>(x, len, mx, epi, scratch, cap, epoch, out, s);
+  return use_exp ? prefix_scan<true>(x, 1, len, mx, epi, scratch, cap, epoch, out, s)
+                 : prefix_scan<false>(x, 1, len, mx, epi, scratch, cap, epoch, out, s);
+}
+
+// B6 with the chain axis.  x float32[nchains, len]; mx and scale float32
+// [nchains] on the device (mx read with use_exp only; scale null for 1); out
+// float32[nchains, len]; scratch as for B1 with the chain axis.
+int aps_scaled_prefix_chains(const float* x, int64_t nchains, int64_t len, int use_exp,
+                             const float* mx, const float* scale, void* scratch, int64_t cap,
+                             uint64_t epoch, float* out, void* stream) {
+  ScaleEpilogue epi{scale, 1.0f};
+  cudaStream_t s = (cudaStream_t)stream;
+  return use_exp ? prefix_scan<true>(x, nchains, len, mx, epi, scratch, cap, epoch, out, s)
+                 : prefix_scan<false>(x, nchains, len, mx, epi, scratch, cap, epoch, out, s);
 }
 
 // The geometry of the decodes: 0 kDecodeTile and 1 kDecodeStage (B2; B4 stages
@@ -1212,20 +1302,41 @@ int aps_decode_ancestors(const int* f, int64_t m, int guard, int64_t start, int6
   return (int)cudaGetLastError();
 }
 
+// The most chains one launch of B4 with the chain axis takes (gridDim.y).
+constexpr int64_t kMaxChains = 65535;
+
+// B4 with the chain axis.  f int32[nchains, m], v 32-bit words [nchains, m, d],
+// out [nchains, n_out, d], anc_clipped int32[nchains, n_out]; chain c is B4 on
+// row c with the same guard, bit for bit.  1 <= nchains <= 65535.
+int aps_decode_move_chains(const int* f, int64_t nchains, int64_t m, int guard, int64_t start,
+                           int64_t n_out, const void* v, int64_t d, void* out, int* anc_clipped,
+                           void* stream) {
+  if (d < 1 || d > (1 << 19) || nchains < 1 || nchains > kMaxChains) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = (cudaStream_t)stream;
+  const dim3 grid(blocks_for(n_out, kDecodeMoveTile), (unsigned)nchains);
+  auto kernel = nchains == 1 ? decode_move_kernel<false> : decode_move_kernel<true>;
+  kernel<<<grid, kDecodeThreads, 0, s>>>(f, m, guard, start, n_out, (const uint32_t*)v, (int)d,
+                                         (uint32_t*)out, anc_clipped);
+  return (int)cudaGetLastError();
+}
+
 // B4.  f as for B2; v 32-bit words [m, d], 1 <= d <= 2^19 (a tile's words
 // are counted in an int); out [n_out, d] (0 past the population); anc_clipped
 // int32[n_out], the counts clipped to m - 1.
 int aps_decode_move(const int* f, int64_t m, int guard, int64_t start, int64_t n_out,
                     const void* v, int64_t d, void* out, int* anc_clipped, void* stream) {
-  if (d < 1 || d > (1 << 19)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  decode_move_kernel<<<blocks_for(n_out, kDecodeMoveTile), kDecodeThreads, 0, s>>>(
-      f, m, guard, start, n_out, (const uint32_t*)v, (int)d, (uint32_t*)out, anc_clipped);
-  return (int)cudaGetLastError();
+  return aps_decode_move_chains(f, 1, m, guard, start, n_out, v, d, out, anc_clipped, stream);
 }
 
 // The most leaves one launch of B4 over leaves moves.
 int aps_max_leaves() { return kMaxLeaves; }
+
+int aps_decode_move_leaves_chains(const int* f, int64_t nchains, int64_t m, int guard,
+                                  int64_t start, int64_t n_out, int count, const void* const* v,
+                                  void* const* out, const int64_t* d, int* anc_clipped,
+                                  void* stream);
 
 // B4 over leaves.  f as for B2; count leaves, 1 <= count <= kMaxLeaves: leaf l
 // 32-bit words v[l] [m, d[l]] moved into out[l] [n_out, d[l]] (0 past the
@@ -1234,7 +1345,20 @@ int aps_max_leaves() { return kMaxLeaves; }
 int aps_decode_move_leaves(const int* f, int64_t m, int guard, int64_t start, int64_t n_out,
                            int count, const void* const* v, void* const* out, const int64_t* d,
                            int* anc_clipped, void* stream) {
-  if (count < 1 || count > kMaxLeaves) return (int)cudaErrorInvalidValue;
+  return aps_decode_move_leaves_chains(f, 1, m, guard, start, n_out, count, v, out, d,
+                                       anc_clipped, stream);
+}
+
+// B4 over leaves with the chain axis: f int32[nchains, m], leaf l [nchains, m,
+// d[l]] into out[l] [nchains, n_out, d[l]], anc_clipped int32[nchains, n_out];
+// chain c is B4 over leaves on row c, bit for bit.  1 <= nchains <= 65535.
+int aps_decode_move_leaves_chains(const int* f, int64_t nchains, int64_t m, int guard,
+                                  int64_t start, int64_t n_out, int count, const void* const* v,
+                                  void* const* out, const int64_t* d, int* anc_clipped,
+                                  void* stream) {
+  if (count < 1 || count > kMaxLeaves || nchains < 1 || nchains > kMaxChains) {
+    return (int)cudaErrorInvalidValue;
+  }
   LeafSet set{};
   for (int l = 0; l < count; ++l) {
     if (d[l] < 1 || d[l] > (1 << 19)) return (int)cudaErrorInvalidValue;
@@ -1244,8 +1368,9 @@ int aps_decode_move_leaves(const int* f, int64_t m, int guard, int64_t start, in
   }
   set.count = count;
   cudaStream_t s = (cudaStream_t)stream;
-  decode_move_leaves_kernel<<<blocks_for(n_out, kDecodeMoveTile), kDecodeThreads, 0, s>>>(
-      f, m, guard, start, n_out, set, anc_clipped);
+  const dim3 grid(blocks_for(n_out, kDecodeMoveTile), (unsigned)nchains);
+  auto kernel = nchains == 1 ? decode_move_leaves_kernel<false> : decode_move_leaves_kernel<true>;
+  kernel<<<grid, kDecodeThreads, 0, s>>>(f, m, guard, start, n_out, set, anc_clipped);
   return (int)cudaGetLastError();
 }
 

@@ -5,6 +5,11 @@
 * :func:`sample` — the entry point that dispatches on the sampler type and
   takes structured (:class:`TracedSSM`) and generic (:class:`GenericModel`)
   models alike.
+
+Each takes a :class:`~advancedps_tpu_torch.rng.KeyBatch` of C keys in place
+of a key and then runs C independent chains as one batch (one set of launches
+a step, see :mod:`~advancedps_tpu_torch.engine`), every result with a leading
+chain axis; chain ``c`` is the call with ``key.key(c)``.
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ from .engine import SweepKernel, reconstruct, replay_trajectory, sweep
 from .generic import GenericModel, GenericSSMKernel
 from .pg import PG, PGSample, PGState
 from .resampling import randcat_gumbel
-from .rng import Key
+from .rng import Key, KeyBatch
 from .smc import SMC, SMCSample, SSMKernel
 from .ssm import TracedSSM
 
@@ -51,7 +56,8 @@ def _on_device(model, device):
 
 def sample_smc(key: Key, model, sampler: SMC, store_states: bool = True,
                device=None) -> SMCSample:
-    """One SMC sweep on ``device`` (None: the GPU)."""
+    """One SMC sweep on ``device`` (None: the GPU); for a :class:`KeyBatch`
+    of C keys, C sweeps as one batch, stacked on a leading run axis."""
     device = resolve_device(device)
     model = _on_device(model, device)
     res = sweep(
@@ -63,7 +69,7 @@ def sample_smc(key: Key, model, sampler: SMC, store_states: bool = True,
     )
     return SMCSample(
         trajectories=trajectories,
-        weights=torch.softmax(res.log_weights, 0),
+        weights=torch.softmax(res.log_weights, -1),
         log_evidence=res.log_evidence,
         diagnostics={"ess": res.ess, "resampled": res.resampled},
     )
@@ -88,6 +94,9 @@ def step_pg(key: Key, model, sampler: PG, state: Optional[PGState] = None,
 
     A :class:`GenericModel` takes PG with dense storage: ancestor sampling
     needs transition densities, and its state is its whole record of values.
+
+    For a :class:`KeyBatch` of C keys, C chains' iterations as one batch:
+    ``state``'s trajectory and the results have a leading chain axis.
     """
     if trajectory_storage not in ("dense", "replay"):
         raise ValueError(f"unknown trajectory_storage {trajectory_storage!r}")
@@ -115,7 +124,10 @@ def step_pg(key: Key, model, sampler: PG, state: Optional[PGState] = None,
     )
     # Retained-trajectory draw ∝ final weights, by Gumbel-max (a device
     # tensor: no host sync).
-    idx = randcat_gumbel(rngmod.step_key(key, rngmod.DRAW, 0), res.log_weights)
+    draw_key = rngmod.step_key(key, rngmod.DRAW, 0)
+    if isinstance(key, KeyBatch):
+        draw_key = draw_key.to(device).column()
+    idx = randcat_gumbel(draw_key, res.log_weights)
     if replay:
         traj = replay_trajectory(key, kernel, res.ancestors, idx, ref=ref)
     else:
@@ -134,6 +146,10 @@ def sample_pg(key: Key, model, sampler: PG, n_iterations: int,
     The chain is a Python loop over iterations.  The JAX package's
     ``jit_chain`` (the chain as one compiled ``lax.scan``) has no counterpart
     here: PyTorch runs eagerly.
+
+    For a :class:`KeyBatch` of C keys, C chains as one batch, chain ``c``'s
+    iteration ``i`` keyed ``fold_in(key.key(c), i)``: ``trajectory
+    [C, n_iterations, T, ...]``, ``log_evidence [C, n_iterations]``.
     """
     if n_iterations < 1:
         raise ValueError(f"n_iterations must be >= 1, got {n_iterations}")
@@ -143,9 +159,10 @@ def sample_pg(key: Key, model, sampler: PG, n_iterations: int,
         smp, st = step_pg(rngmod.fold_in(key, i), model, sampler, st,
                           trajectory_storage, device)
         samples.append(smp)
+    axis = 1 if isinstance(key, KeyBatch) else 0
     return PGSample(
-        trajectory=tree_stack([s.trajectory for s in samples]),
-        log_evidence=torch.stack([s.log_evidence for s in samples]),
+        trajectory=tree_stack([s.trajectory for s in samples], axis),
+        log_evidence=torch.stack([s.log_evidence for s in samples], axis),
     )
 
 

@@ -36,12 +36,17 @@ _SIGNATURES = {
     "aps_scan_scratch_words": (_I64,),
     "aps_extents_from_logw": (_P, _I64, _P, _P, ctypes.c_float, _I32, _P, _I64, _U64, _P, _P),
     "aps_scaled_prefix": (_P, _I64, _I32, _P, _P, _P, _I64, _U64, _P, _P),
+    "aps_extents_from_logw_chains": (_P, _I64, _I64, _P, _P, _P, _I32, _P, _I64, _U64, _P, _P),
+    "aps_scaled_prefix_chains": (_P, _I64, _I64, _I32, _P, _P, _P, _I64, _U64, _P, _P),
     "aps_decode_geometry": (_I32,),
     "aps_decode_ancestors": (_P, _I64, _I32, _I64, _I64, _P, _P),
     "aps_move_rows": (_P, _I64, _I64, _P, _I64, _P, _P, _P),
     "aps_decode_move": (_P, _I64, _I32, _I64, _I64, _P, _I64, _P, _P, _P),
     "aps_max_leaves": (),
     "aps_decode_move_leaves": (_P, _I64, _I32, _I64, _I64, _I32, _P, _P, _P, _P, _P),
+    "aps_decode_move_chains": (_P, _I64, _I64, _I32, _I64, _I64, _P, _I64, _P, _P, _P),
+    "aps_decode_move_leaves_chains": (_P, _I64, _I64, _I32, _I64, _I64, _I32, _P, _P, _P, _P,
+                                      _P),
     "aps_decode_ancestors_dense": (_P, _I64, _I32, _I64, _P, _P, _I64, _U64, _P, _P),
     "aps_count_le_sorted_bs": (_P, _I64, _P, _I64, _P, _P),
     "aps_count_le_sorted": (_P, _I64, _P, _I64, _P, _P),

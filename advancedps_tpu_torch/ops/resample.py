@@ -30,6 +30,14 @@ from two more primitives:
   thresholds and by merge path; :func:`count_le_sorted_auto` picks one
   (:data:`COUNT_LE_SORTED`).
 
+Independent chains run as a batch along a leading chain axis (``[C, N]``
+log-weights, ``[C, N, ...]`` rows): :func:`extents_from_logw_chains` (B1),
+:func:`scaled_prefix_from_logw_chains` and :func:`prefix_sum_chains` (B6),
+:func:`decode_move_chains` and :func:`decode_move_leaves_chains` (B4) are one
+launch for all C chains, row ``c`` bitwise the one-chain kernel on that row;
+:func:`resample_move_f_chains` is the batched decode + move (B4 under version
+1, the one-chain kernels once a chain under 6 and 0).
+
 :func:`resample_move_f` is the decode + move the sweep runs on a firing;
 :data:`MOVE_VERSION` picks B4 (1, the default), B2 + B3 (6) or B5 + a gather
 (0), as the JAX package's ``APS_MOVE_VERSION`` does.  :func:`resample_move_window_fext`
@@ -54,11 +62,22 @@ from typing import Optional
 import torch
 
 from . import _build
-from .._tree import is_tree, tree_flatten, tree_unflatten
+from .._tree import is_tree, tree_flatten, tree_map, tree_unflatten
 
 __all__ = [
     "extents_from_logw",
     "extents_from_logw_ref",
+    "extents_from_logw_chains",
+    "extents_from_logw_chains_ref",
+    "scaled_prefix_from_logw_chains",
+    "prefix_sum_chains",
+    "scaled_prefix_chains_ref",
+    "decode_move_chains",
+    "decode_move_chains_ref",
+    "decode_move_leaves_chains",
+    "decode_move_leaves_chains_ref",
+    "resample_move_f_chains",
+    "MAX_CHAINS",
     "extents_from_prefix",
     "decode_ancestors",
     "decode_ancestors_ref",
@@ -102,6 +121,9 @@ __all__ = [
 
 #: Extents are computed in float32; larger counts are not exact there.
 MAX_N = 1 << 24
+
+#: Chains one launch of B4 with the chain axis takes (its grid's second axis).
+MAX_CHAINS = 65535
 
 #: B4 counts the words of one block's rows in an int32.
 MAX_DECODE_MOVE_D = 1 << 19
@@ -248,6 +270,52 @@ def scaled_prefix_ref(x, m, scale, use_exp: bool) -> torch.Tensor:
     return torch.cummax(p, 0).values
 
 
+def extents_from_logw_chains_ref(logw, m, s1, u, n: int) -> torch.Tensor:
+    """:func:`extents_from_logw_ref` row by row: ``logw [C, N]``, ``m``,
+    ``s1`` and ``u`` float32 ``[C]``."""
+    prefix = torch.cumsum(torch.exp(logw - m[:, None]), -1, dtype=torch.float64)
+    return torch.cummax(extents_from_prefix(prefix, s1[:, None], u[:, None], n), -1).values
+
+
+def scaled_prefix_chains_ref(x, m, scale, use_exp: bool) -> torch.Tensor:
+    """:func:`scaled_prefix_ref` row by row: ``x [C, N]``, ``m`` and
+    ``scale`` float32 ``[C]`` (or None)."""
+    e = torch.exp(x - m[:, None]) if use_exp else x
+    p = torch.cumsum(e, -1, dtype=torch.float64).to(torch.float32)
+    if scale is not None:
+        p = p * scale[:, None]
+    return torch.cummax(p, -1).values
+
+
+def _rows_of(v, anc):
+    """``v[c, anc[c, k]]`` for every chain ``c`` and slot ``k``."""
+    return v[torch.arange(v.shape[0], device=v.device)[:, None], anc.long()]
+
+
+def decode_move_leaves_chains_ref(f, leaves, n_out: int, guard: Optional[int] = None):
+    """:func:`decode_move_leaves_ref` row by row: ``f [C, M]``, each leaf
+    ``[C, M, ...]``; returns ``(anc [C, n_out] clipped to M−1, [moved leaf
+    [C, n_out, ...], ...])``."""
+    m = f.shape[1]
+    g = _guard_of(n_out, guard, 0)
+    fg = torch.cat([f[:, :-1], torch.full_like(f[:, -1:], g)], dim=1).contiguous()
+    k = torch.arange(n_out, dtype=f.dtype, device=f.device).expand(f.shape[0], n_out)
+    anc = torch.searchsorted(fg, k.contiguous(), right=True).to(torch.int32)
+    clipped = torch.clamp(anc, max=m - 1)
+    moved = []
+    for v in leaves:
+        past = (anc >= m).reshape(anc.shape + (1,) * (v.dim() - 2))
+        moved.append(torch.where(past, torch.zeros((), dtype=v.dtype, device=v.device),
+                                 _rows_of(v, clipped)))
+    return clipped, moved
+
+
+def decode_move_chains_ref(f, v, n_out: int, guard: Optional[int] = None):
+    """:func:`decode_move_ref` row by row: ``f [C, M]``, ``v [C, M, ...]``."""
+    anc, (moved,) = decode_move_leaves_chains_ref(f, [v], n_out, guard)
+    return anc, moved
+
+
 def count_le_sorted_ref(s, t) -> torch.Tensor:
     """``#{k : s_k ≤ t_j}`` for each ``t_j``: ``searchsorted(s, t, right=True)``."""
     return torch.searchsorted(s, t, right=True).to(torch.int32)
@@ -308,9 +376,10 @@ def _raise_on(rc: int, what: str):
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
 
 
-#: The scan scratch of B1, B6 and B5 by (device index, stream): [tiles it
-#: serves, int64 words, launches so far].  Zero when allocated; from then on
-#: only the scans' launches on that stream write it, each under its own epoch:
+#: The scan scratch of B1, B6 and B5 by (device index, stream): [tiles a
+#: chain it serves, chains it serves, int64 words, launches so far].  Zero
+#: when allocated; from then on only the scans' launches on that stream write
+#: it, each under its own epoch:
 #: a launch reads a published value only under its own epoch, so B1, B5 and B6
 #: in turn on one stream never read each other's, and two streams have a
 #: scratch each.
@@ -321,22 +390,24 @@ _SCAN_SCRATCH: dict = {}
 _DENSE_MARKS: dict = {}
 
 
-def _scan_scratch(device: torch.device, length: int):
-    """``(scratch, cap, epoch)`` for one scan of ``length`` elements on the
-    current stream of ``device``: the scratch is grown (and zeroed anew) when
-    ``length`` needs more tiles than it serves, and ``epoch`` is one more than
-    that of the launch before.  Call with ``device`` current."""
+def _scan_scratch(device: torch.device, length: int, chains: int = 1):
+    """``(scratch, cap, epoch)`` for one scan of ``chains`` rows of ``length``
+    elements on the current stream of ``device``: the scratch (a part of
+    ``cap`` tiles for each chain) is grown, and zeroed anew, when a row needs
+    more tiles or the launch more chains than it serves, and ``epoch`` is one
+    more than that of the launch before.  Call with ``device`` current."""
     lib = _build.library()
     ntiles = -(-length // lib.aps_prefix_tile_size())
     key = (device.index, torch.cuda.current_stream(device).cuda_stream)
     entry = _SCAN_SCRATCH.get(key)
-    if entry is None or entry[0] < ntiles:
-        cap = max(1024, 1 << (ntiles - 1).bit_length())
-        words = lib.aps_scan_scratch_words(cap)
-        entry = [cap, torch.zeros(words, dtype=torch.int64, device=device), 0]
+    if entry is None or entry[0] < ntiles or entry[1] < chains:
+        cap = max(1024, 1 << (ntiles - 1).bit_length(), entry[0] if entry else 0)
+        rows = max(chains, entry[1] if entry else 1)
+        words = lib.aps_scan_scratch_words(cap) * rows
+        entry = [cap, rows, torch.zeros(words, dtype=torch.int64, device=device), 0]
         _SCAN_SCRATCH[key] = entry
-    entry[2] += 1
-    return entry[1], entry[0], entry[2]
+    entry[3] += 1
+    return entry[2], entry[0], entry[3]
 
 
 def _dense_marks(device: torch.device, n_out: int) -> torch.Tensor:
@@ -383,6 +454,41 @@ def extents_from_logw(logw, m, s1, u: float, n: int) -> torch.Tensor:
         )
     _raise_on(rc, "extents_from_logw")
     extents_from_logw.launches += 1
+    return f
+
+
+def _check_chain_scalars(c: int, **scalars):
+    for name, v in scalars.items():
+        _check(v, name, torch.float32)
+        if v.shape != (c,):
+            raise ValueError(f"{name} must have shape ({c},), got {tuple(v.shape)}")
+
+
+def extents_from_logw_chains(logw, m, s1, u, n: int) -> torch.Tensor:
+    """B1 with the chain axis: ``logw`` float32 ``[C, N]``, and ``m``, ``s1``
+    and the offsets ``u`` float32 ``[C]`` on its device.  Returns int32
+    ``[C, N]``; row ``c`` is :func:`extents_from_logw` on ``logw[c]`` with
+    ``(m[c], s1[c], u[c])``, bit for bit.  One launch: the tiles of all rows
+    in one cooperative grid, each row looking back only at its own tiles."""
+    _check(logw, "logw", torch.float32, ndims=(2,))
+    _check_chain_scalars(logw.shape[0], m=m, s1=s1, u=u)
+    if not 0 <= n < MAX_N:
+        raise ValueError(f"n must be in [0, 2**24), got {n}")
+    if _on_cpu(logw, m, s1, u):
+        return extents_from_logw_chains_ref(logw, m, s1, u, n)
+    f = torch.empty(logw.shape, dtype=torch.int32, device=logw.device)
+    if logw.numel() == 0:
+        return f
+    c, length = logw.shape
+    lib = _build.library()
+    with torch.cuda.device(logw.device):
+        scratch, cap, epoch = _scan_scratch(logw.device, length, c)
+        rc = lib.aps_extents_from_logw_chains(
+            _ptr(logw), c, length, _ptr(m), _ptr(s1), _ptr(u), int(n),
+            _ptr(scratch), cap, epoch, _ptr(f), _stream(logw.device),
+        )
+    _raise_on(rc, "extents_from_logw_chains")
+    extents_from_logw_chains.launches += 1
     return f
 
 
@@ -566,6 +672,90 @@ def decode_move_leaves(f, leaves, n_out: int, guard: Optional[int] = None, start
     return anc_clipped, outs
 
 
+def _check_chain_rows(f, leaves):
+    _check(f, "f", torch.int32, ndims=(2,))
+    c, m = f.shape
+    if m == 0:
+        raise ValueError("f must not be empty")
+    if m >= 1 << 31:
+        raise ValueError(f"f must hold fewer than 2**31 extents a chain, got {m}")
+    if not 1 <= c <= MAX_CHAINS:
+        raise ValueError(f"f must have 1 to {MAX_CHAINS} chains, got {c}")
+    widths = []
+    for i, v in enumerate(leaves):
+        name = f"leaf {i}"
+        _check(v, name, WORD_DTYPES, ndims=(2, 3))
+        if tuple(v.shape[:2]) != (c, m):
+            raise ValueError(f"{name} has shape {tuple(v.shape)}, f has {(c, m)}")
+        d = 1 if v.dim() == 2 else v.shape[2]
+        if not 1 <= d <= MAX_DECODE_MOVE_D:
+            raise ValueError(f"{name} must have 1 to {MAX_DECODE_MOVE_D} columns, got {d}")
+        widths.append(d)
+    return widths
+
+
+def decode_move_chains(f, v, n_out: int, guard: Optional[int] = None):
+    """B4 with the chain axis: ``f`` int32 ``[C, M]`` extents, ``v`` float32
+    or int32 ``[C, M]`` or ``[C, M, D]`` rows; returns ``(anc [C, n_out]
+    clipped to M−1, moved [C, n_out, ...])``, chain ``c`` bitwise
+    :func:`decode_move` of row ``c`` with the same ``guard`` (``n_out`` if not
+    given).  One launch, the chain on the grid's second axis."""
+    (d,) = _check_chain_rows(f, [v])
+    g = _guard_of(n_out, guard, 0)
+    if _on_cpu(f, v):
+        return decode_move_chains_ref(f, v, n_out, g)
+    c, m = f.shape
+    out = torch.empty((c, n_out) + tuple(v.shape[2:]), dtype=v.dtype, device=v.device)
+    anc_clipped = torch.empty((c, n_out), dtype=torch.int32, device=v.device)
+    if n_out == 0:
+        return anc_clipped, out
+    lib = _build.library()
+    with torch.cuda.device(v.device):
+        rc = lib.aps_decode_move_chains(
+            _ptr(f), c, m, g, 0, int(n_out), _ptr(v), d, _ptr(out), _ptr(anc_clipped),
+            _stream(v.device),
+        )
+    _raise_on(rc, "decode_move_chains")
+    decode_move_chains.launches += 1
+    return anc_clipped, out
+
+
+def decode_move_leaves_chains(f, leaves, n_out: int, guard: Optional[int] = None):
+    """B4 over leaves with the chain axis: ``f`` int32 ``[C, M]``, each leaf
+    float32 or int32 ``[C, M]`` or ``[C, M, D_l]``; returns ``(anc [C, n_out]
+    clipped to M−1, [moved leaf, ...])``, chain ``c`` bitwise
+    :func:`decode_move_leaves` of row ``c``.  One launch per
+    :data:`MAX_LEAVES` leaves."""
+    leaves = list(leaves)
+    if not leaves:
+        raise ValueError("decode_move_leaves_chains needs at least one leaf")
+    widths = _check_chain_rows(f, leaves)
+    g = _guard_of(n_out, guard, 0)
+    if _on_cpu(f, *leaves):
+        return decode_move_leaves_chains_ref(f, leaves, n_out, g)
+    c, m = f.shape
+    outs = [torch.empty((c, n_out) + tuple(v.shape[2:]), dtype=v.dtype, device=v.device)
+            for v in leaves]
+    anc_clipped = torch.empty((c, n_out), dtype=torch.int32, device=f.device)
+    if n_out == 0:
+        return anc_clipped, outs
+    lib = _build.library()
+    with torch.cuda.device(f.device):
+        for lo in range(0, len(leaves), MAX_LEAVES):
+            part = range(lo, min(lo + MAX_LEAVES, len(leaves)))
+            vs = (ctypes.c_void_p * len(part))(*(leaves[i].data_ptr() for i in part))
+            os_ = (ctypes.c_void_p * len(part))(*(outs[i].data_ptr() for i in part))
+            ds = (ctypes.c_int64 * len(part))(*(widths[i] for i in part))
+            rc = lib.aps_decode_move_leaves_chains(
+                _ptr(f), c, m, g, 0, int(n_out), len(part),
+                ctypes.cast(vs, ctypes.c_void_p), ctypes.cast(os_, ctypes.c_void_p),
+                ctypes.cast(ds, ctypes.c_void_p), _ptr(anc_clipped), _stream(f.device),
+            )
+            _raise_on(rc, "decode_move_leaves_chains")
+            decode_move_leaves_chains.launches += 1
+    return anc_clipped, outs
+
+
 def _scaled_prefix(wrapper, x, m, scale, use_exp: bool) -> torch.Tensor:
     """B6 on ``x``'s device: the plain version on the CPU, else the kernel,
     counted on ``wrapper``."""
@@ -612,6 +802,45 @@ def prefix_sum(x) -> torch.Tensor:
     the TPU kernel)."""
     _check(x, "x", torch.float32)
     return _scaled_prefix(prefix_sum, x, None, None, use_exp=False)
+
+
+def _scaled_prefix_chains(wrapper, x, m, scale, use_exp: bool) -> torch.Tensor:
+    """B6 with the chain axis on ``x``'s device, counted on ``wrapper``."""
+    _check(x, "x", torch.float32, ndims=(2,))
+    given = {k: v for k, v in (("m", m), ("scale", scale)) if v is not None}
+    _check_chain_scalars(x.shape[0], **given)
+    if _on_cpu(x, *given.values()):
+        return scaled_prefix_chains_ref(x, m, scale, use_exp)
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    c, length = x.shape
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        scratch, cap, epoch = _scan_scratch(x.device, length, c)
+        rc = lib.aps_scaled_prefix_chains(
+            _ptr(x), c, length, int(use_exp), _ptr(m) if use_exp else None,
+            _ptr(scale) if scale is not None else None,
+            _ptr(scratch), cap, epoch, _ptr(out), _stream(x.device),
+        )
+    _raise_on(rc, wrapper.__name__)
+    wrapper.launches += 1
+    return out
+
+
+def scaled_prefix_from_logw_chains(logw, m, scale) -> torch.Tensor:
+    """B6 with the chain axis: ``logw`` float32 ``[C, N]``, ``m`` and
+    ``scale`` float32 ``[C]``; row ``c`` is :func:`scaled_prefix_from_logw`
+    on row ``c`` with ``(m[c], scale[c])``, bit for bit.  One launch."""
+    if m is None or scale is None:
+        raise ValueError("scaled_prefix_from_logw_chains needs m and scale")
+    return _scaled_prefix_chains(scaled_prefix_from_logw_chains, logw, m, scale, use_exp=True)
+
+
+def prefix_sum_chains(x) -> torch.Tensor:
+    """B6's prefix sum with the chain axis: row ``c`` of float32 ``[C, N]``
+    is :func:`prefix_sum` of ``x[c]``, bit for bit.  One launch."""
+    return _scaled_prefix_chains(prefix_sum_chains, x, None, None, use_exp=False)
 
 
 def _count_le(wrapper, entry: str, s, t) -> torch.Tensor:
@@ -741,6 +970,48 @@ def resample_move_f(f, state, n: int, version: Optional[int] = None,
     return move_rows(decode_ancestors(f, n, guard=guard_n), state)
 
 
+def resample_move_f_chains(f, state, n: int, version: Optional[int] = None,
+                           guard_n: Optional[int] = None):
+    """:func:`resample_move_f` for C chains at once: ``f`` int32 ``[C, M]``,
+    ``state`` a tensor or tree whose leaves are ``[C, M, ...]``.  Returns
+    ``(anc [C, n] clipped to M−1, moved)``, chain ``c`` bitwise
+    :func:`resample_move_f` of row ``c`` under the same version.  Version 1
+    runs B4 (over leaves) with the chain axis, one launch for all chains;
+    versions 6 and 0 run their one-chain kernels once a chain."""
+    ver = _resolve_version(version)
+    c = f.shape[0]
+    if ver != 1:
+        outs = [resample_move_f(f[i], tree_map(lambda a, i=i: a[i], state), n, ver, guard_n)
+                for i in range(c)]
+        return (torch.stack([o[0] for o in outs]),
+                tree_map(lambda *xs: torch.stack(xs), *[o[1] for o in outs]))
+    leaves, structure = tree_flatten(state)
+    m = f.shape[1]
+    words = [i for i, a in enumerate(leaves) if a.dtype in WORD_DTYPES]
+    moved = [None] * len(leaves)
+
+    def rows(a):
+        a = a.contiguous()
+        return a if a.dim() == 2 else a.reshape(a.shape[0], a.shape[1], -1)
+
+    if len(words) == 1:
+        anc, mv = decode_move_chains(f, rows(leaves[words[0]]), n, guard_n)
+        moved[words[0]] = mv
+    elif words:
+        anc, mvs = decode_move_leaves_chains(f, [rows(leaves[i]) for i in words], n, guard_n)
+        for i, mv in zip(words, mvs):
+            moved[i] = mv
+    else:  # no 32-bit leaf: B2 a chain, then every leaf gathered
+        anc = torch.stack([torch.clamp(decode_ancestors(f[i].contiguous(), n, guard=guard_n),
+                                       max=m - 1) for i in range(c)])
+    for i, a in enumerate(leaves):
+        if moved[i] is None:
+            moved[i] = _rows_of(a, anc)
+        else:
+            moved[i] = moved[i].reshape((c, n) + tuple(a.shape[2:]))
+    return anc, tree_unflatten(structure, moved)
+
+
 def _systematic_extents(u, weights, n: int) -> torch.Tensor:
     """:func:`extents_from_prefix` on the float32 ``cumsum`` of normalised
     ``weights``, as the JAX package takes it."""
@@ -793,11 +1064,13 @@ def systematic_decode(u, weights, n: int) -> torch.Tensor:
     return torch.clamp(anc, max=weights.shape[0] - 1)
 
 
-#: Every wrapper that launches a kernel, each with its ``launches`` count.
+#: Every wrapper that launches a kernel, each with its ``launches`` count:
+#: the one-chain kernels, then those with the chain axis.
 KERNEL_WRAPPERS = (
     extents_from_logw, decode_ancestors, move_rows, decode_move, decode_move_leaves,
     decode_ancestors_dense, scaled_prefix_from_logw, prefix_sum, count_le_sorted_bs,
-    count_le_sorted,
+    count_le_sorted, extents_from_logw_chains, scaled_prefix_from_logw_chains,
+    prefix_sum_chains, decode_move_chains, decode_move_leaves_chains,
 )
 
 

@@ -1,9 +1,11 @@
 """Independent chains (PyTorch port of ``advancedps_tpu/parallel/chains.py``).
 
 Chain ``i`` draws from ``fold_in(key, i)``, so its results do not depend on
-where it runs.  :func:`sample_chains` and :func:`smc_ensemble` loop over the
-chains on one device (the JAX package ``vmap``s them); a batched form is later
-work.  :func:`sharded_chains_pg` runs chains on the rows of a
+where it runs.  :func:`sample_chains` and :func:`smc_ensemble` run the chains
+on one device as one batch along a leading chain axis (the batch of keys
+:func:`~advancedps_tpu_torch.rng.chain_keys`, handed to the drivers of
+:mod:`~advancedps_tpu_torch.inference`), one set of launches a step for all of
+them, as the JAX package ``vmap``s them.  :func:`sharded_chains_pg` runs chains on the rows of a
 :class:`~advancedps_tpu_torch.parallel.mesh.ChainParticleMesh`, each chain's
 particles sharded along its row; the rows share nothing, and one controller
 runs them in turn.
@@ -27,29 +29,18 @@ def sample_chains(key: rngmod.Key, model, sampler: PG, n_iterations: int, n_chai
                   trajectory_storage: str = "dense", device=None) -> PGSample:
     """``n_chains`` independent PG(AS) chains on ``device`` (None: the GPU).  Returns stacked
     samples with a leading chain axis: ``trajectory [n_chains, n_iterations,
-    T, ...]``, ``log_evidence [n_chains, n_iterations]``."""
-    runs = [sample_pg(rngmod.fold_in(key, i), model, sampler, n_iterations,
-                      trajectory_storage, device) for i in range(n_chains)]
-    return PGSample(
-        trajectory=torch.stack([r.trajectory for r in runs]),
-        log_evidence=torch.stack([r.log_evidence for r in runs]),
-    )
+    T, ...]``, ``log_evidence [n_chains, n_iterations]``.  Chain ``i`` is
+    ``sample_pg(fold_in(key, i), ...)``; all run as one batch."""
+    return sample_pg(rngmod.chain_keys(key, n_chains), model, sampler, n_iterations,
+                     trajectory_storage, device)
 
 
 def smc_ensemble(key: rngmod.Key, model, sampler: SMC, n_runs: int,
                  store_states: bool = True, device=None) -> SMCSample:
     """``n_runs`` independent SMC sweeps on ``device`` (None: the GPU), e.g.
-    for the variance of the log-evidence, stacked on a leading run axis."""
-    runs = [sample_smc(rngmod.fold_in(key, i), model, sampler, store_states, device)
-            for i in range(n_runs)]
-    return SMCSample(
-        trajectories=(torch.stack([r.trajectories for r in runs])
-                      if runs[0].trajectories is not None else None),
-        weights=torch.stack([r.weights for r in runs]),
-        log_evidence=torch.stack([r.log_evidence for r in runs]),
-        diagnostics={k: torch.stack([r.diagnostics[k] for r in runs])
-                     for k in runs[0].diagnostics},
-    )
+    for the variance of the log-evidence, stacked on a leading run axis.  Run
+    ``i`` is ``sample_smc(fold_in(key, i), ...)``; all run as one batch."""
+    return sample_smc(rngmod.chain_keys(key, n_runs), model, sampler, store_states, device)
 
 
 def sharded_chains_pg(

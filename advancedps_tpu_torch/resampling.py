@@ -68,12 +68,16 @@ def randcat_gumbel(key: rngmod.Key, log_weights: torch.Tensor, gids=None) -> tor
     ``torch.argmax`` breaks ties at the first occurrence, as ``jnp.argmax``.
     A uniform of 0 gives a Gumbel of −inf and excludes its slot from this
     draw, an O(2^-24) perturbation.
+
+    For chains, ``key`` is a :class:`~advancedps_tpu_torch.rng.KeyBatch` of
+    words ``[C, 1]`` and ``log_weights`` ``[C, N]``: one draw a row, ``[C]``,
+    row ``c`` that of chain ``c``'s key.
     """
     if gids is None:
-        gids = torch.arange(log_weights.shape[0], device=log_weights.device)
+        gids = torch.arange(log_weights.shape[-1], device=log_weights.device)
     u = rngmod.pos_uniform(key, gids)
     z = log_weights - torch.log(-torch.log(u))
-    return torch.argmax(z).to(torch.int32)
+    return torch.argmax(z, dim=-1).to(torch.int32)
 
 
 def resample_systematic(key: rngmod.Key, weights: torch.Tensor, n: int) -> torch.Tensor:

@@ -13,6 +13,17 @@ draws run the cipher on int64 tensors masked to 32 bits: torch's uint32
 coverage is thin, on CUDA too.  Components that are sampled particle by
 particle get one key per particle (:func:`particle_keys`), an int64 tensor of
 two words each, and draw from it with :mod:`advancedps_tpu_torch.random`.
+
+Independent chains run as one batch: a :class:`KeyBatch` holds the words of
+many keys as int64 tensors, and every function here that takes a key takes
+one, its words broadcast against the ids (words ``[C, 1]`` against ids
+``[N]`` give ``[C, N]`` draws, row ``c`` bitwise what chain ``c``'s
+:class:`Key` draws).  :func:`chain_keys` makes the batch ``fold_in(key, c)``
+and :func:`step_key_table` derives a sweep's step keys for every stream, step
+and chain in one tensor cipher on the host (:func:`uniform` of those keys
+gives the systematic offsets).
+Under :func:`torch.func.vmap` over the chain axis a :class:`StepRng` carries
+one chain's words as 0-dim tensors, so a model's draws are those of its chain.
 """
 
 from __future__ import annotations
@@ -32,7 +43,10 @@ __all__ = [
     "DRAW",
     "INIT",
     "Key",
+    "KeyBatch",
     "key",
+    "chain_keys",
+    "step_key_table",
     "fold_in",
     "step_key",
     "uniform",
@@ -72,6 +86,35 @@ class Key:
                 raise ValueError(f"key words must be uint32, got {self.k0}, {self.k1}")
 
 
+@dataclass(frozen=True)
+class KeyBatch:
+    """Threefry keys as int64 tensors of uint32 words, ``k0`` and ``k1`` of one
+    shape: a batch of chains' keys (``[C]``), shaped to broadcast against ids
+    (``[C, 1]``), or one chain's words under ``vmap`` (0-dim).  The sweep
+    makes no host read of words on the card."""
+
+    k0: torch.Tensor
+    k1: torch.Tensor
+
+    @property
+    def device(self) -> torch.device:
+        return self.k0.device
+
+    def __len__(self) -> int:
+        return self.k0.shape[0]
+
+    def key(self, c: int) -> Key:
+        """Chain ``c``'s key as host integers (a device-to-host read)."""
+        return Key(int(self.k0[c]), int(self.k1[c]))
+
+    def to(self, device) -> "KeyBatch":
+        return KeyBatch(self.k0.to(device), self.k1.to(device))
+
+    def column(self) -> "KeyBatch":
+        """Words ``[C, 1]``: broadcast against ids ``[N]`` to ``[C, N]``."""
+        return KeyBatch(self.k0[..., None], self.k1[..., None])
+
+
 def key(seed: int) -> Key:
     """The key ``jax.random.key(seed)`` makes: words ``(seed >> 32, seed & 0xFFFFFFFF)``."""
     seed = int(seed)
@@ -105,25 +148,56 @@ def threefry2x32(k0, k1, c0, c1, rounds: int = 20):
     return x0, x1
 
 
-def fold_in(k: Key, data: int) -> Key:
-    """``jax.random.fold_in``: the cipher of ``k`` at counter ``(0, data)``."""
+def fold_in(k, data: int):
+    """``jax.random.fold_in``: the cipher of ``k`` at counter ``(0, data)``.
+    A :class:`KeyBatch` folds every key of the batch with ``data``."""
+    if isinstance(k, KeyBatch):
+        return KeyBatch(*threefry2x32(k.k0, k.k1, 0, int(data) & _MASK))
     return Key(*threefry2x32(k.k0, k.k1, 0, int(data) & _MASK))
 
 
-def step_key(k: Key, tag: int, t: int) -> Key:
+def step_key(k, tag: int, t: int):
     """Key for stream ``tag`` at sweep step ``t``."""
     return fold_in(fold_in(k, tag), t)
 
 
-def uniform(k: Key) -> float:
-    """The float32 scalar ``jax.random.uniform(k)`` as a Python float.
+def _unit_of_bits(b0, b1):
+    """``jax.random.uniform``'s float of the words ``(b0, b1)``, as an int64
+    tensor of float32 bits."""
+    return ((b0 ^ b1) >> 9) | 0x3F800000
+
+
+def uniform(k):
+    """The float32 scalar ``jax.random.uniform(k)`` as a Python float; for a
+    :class:`KeyBatch`, a float32 tensor of the batch's shape.
 
     ``b0 ^ b1`` at counter ``(0, 0)``; its top 23 bits become the mantissa of
     a float in ``[1, 2)``, minus 1.  The subtraction is exact in float32.
     """
     b0, b1 = threefry2x32(k.k0, k.k1, 0, 0)
-    bits = ((b0 ^ b1) >> 9) | 0x3F800000
+    bits = _unit_of_bits(b0, b1)
+    if isinstance(k, KeyBatch):
+        return bits.to(torch.int32).view(torch.float32) - 1.0
     return struct.unpack("<f", struct.pack("<I", bits))[0] - 1.0
+
+
+def chain_keys(k: Key, n_chains: int) -> KeyBatch:
+    """The batch ``fold_in(k, c)`` for ``c < n_chains`` (on the CPU): JAX's
+    ``vmap(lambda i: fold_in(key, i))(arange(n_chains))``."""
+    w = fold_in_ids(k, torch.arange(n_chains))
+    return KeyBatch(w[:, 0].contiguous(), w[:, 1].contiguous())
+
+
+def step_key_table(keys: KeyBatch, tags, n_steps: int):
+    """Every step key of a sweep at once: words ``[len(tags), n_steps, C]``,
+    entry ``(s, t, c)`` the words of ``step_key(keys[c], tags[s], t)``, from
+    one tensor cipher on the keys' device (the host, for a batch from
+    :func:`chain_keys`).  Returns ``(k0, k1)``."""
+    tag = torch.tensor([int(g) & _MASK for g in tags], dtype=torch.int64,
+                       device=keys.device)[:, None]
+    a0, a1 = threefry2x32(keys.k0[None, :], keys.k1[None, :], 0, tag)  # [S, C]
+    t = torch.arange(n_steps, dtype=torch.int64, device=keys.device)[None, :, None]
+    return threefry2x32(a0[:, None, :], a1[:, None, :], 0, t)
 
 
 def _as_counter(gids: torch.Tensor) -> torch.Tensor:
@@ -202,6 +276,8 @@ def particle_keys(k: Key, tag: int, t: int, n: int, device=None) -> torch.Tensor
 class StepRng:
     """Per-(stream, step) randomness handed to a sweep kernel: ``key`` is
     already folded with (tag, t); ``gids`` are the global particle ids.
+    ``key`` may be a :class:`KeyBatch` whose words broadcast against
+    ``gids``: under a ``vmap`` over chains, one chain's 0-dim words.
 
     The counted draws (:meth:`uniform`, :meth:`normal`, :meth:`normal_pair`,
     :meth:`normals`) are the vectorized components' path; :meth:`particle_keys`

@@ -72,8 +72,8 @@ class SSMKernel(SweepKernel):
         logw = self._obs_logw(0, x0)
         if self._markov:
             return x0, logw
-        buf = torch.zeros((x0.shape[0], self.num_steps) + tuple(x0.shape[1:]),
-                          dtype=x0.dtype, device=x0.device)
+        # new_zeros of x0: under vmap over chains the buffer is each chain's own.
+        buf = x0.new_zeros((x0.shape[0], self.num_steps) + tuple(x0.shape[1:]))
         buf[:, 0] = x0
         return (x0, buf), logw
 

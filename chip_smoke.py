@@ -33,7 +33,12 @@ final line:
    versions' tolerances, nondecreasing, two calls bitwise equal); B4 over
    leaves at 1M (leaves [N], [N, 2], [N, 100] and an int32 [N] in one launch,
    nine leaves in two, unaligned rows; whole, guarded and windowed) bitwise
-   its plain version and B4 a leaf;
+   its plain version and B4 a leaf; and the kernels with the chain axis (B1,
+   B6 in both modes, B4 and B4 over leaves) at C x N = 8 x 1M, 64 x 16,384,
+   1 x 1M and 7 x 100,003, for n = N and the guard case: within their
+   batched plain versions' tolerances (B4 bitwise), each row bitwise the
+   one-chain kernel on that row, the rows of chains whose flag is off kept by
+   the sweep's ``where``, and B4 on a chain that lies past 2**31 words;
 4. the SMC flagship (stationary LGSSM a=0.9, q=0.32, r=1.0, T=100,
    N=1,000,000, resampling at ESS ≤ N/2) through ``sample`` with each fused
    scheme — systematic, stratified, multinomial, and multinomial with the
@@ -71,7 +76,9 @@ final line:
    least time they take at the card's memory rate (a move counting only the
    rows that own a slot: B3, B4, and B4 over leaves at 1 + 2 + 100 + 1 words
    a row and on the GP-SSM's state; B4 also on phase 9's ``[100k, 50]``
-   generic state, beside B2 + ``index_select``).  The inputs are the same
+   generic state, beside B2 + ``index_select``); the kernels with the chain
+   axis at 8 x 1M, and B1 and B4 with it at 8 x 1M and 64 x 16,384 beside C
+   launches of the one-chain kernel.  The inputs are the same
    tensors on every call, as in the sweep, where each was written by the step
    before: they sit in the 50 MB L2, so the readings are L2-warm.  A second
    window takes each kernel L2-cold, on 128 MB of copies of its inputs in
@@ -83,16 +90,17 @@ final line:
    columns, and the median of 5 systematic sweeps under each;
 8. the model families at N=1M, T=100 through ``sample`` with no device named
    (systematic at ESS ≤ N/2): the stochastic-volatility model (a=0.9, q=0.5),
-   the Lévy SSM (state [N, 2], 64 jumps, dt=0.5) and the GP-SSM (state
-   (x [N], history [N, 100])): finite logZ, B1 and the decode + move on every
+   the Lévy SSM (state [N, 2], 64 jumps, dt=0.5; T = 25, ``LEVY_STEPS``) and
+   the GP-SSM (state (x [N], history [N, 100])): finite logZ, B1 and the decode + move on every
    firing (B4 over leaves ⌈leaves / 8⌉ times for the GP-SSM), the sweep time
    (median of 3; one for Lévy), launches a step and the device busy share of
    a profiled sweep; PGAS (2 iterations, replay) and the sharded sweep (K = 4)
    of each model at 1M, with their launch counts; then the
    statistical contracts at the JAX tests' sizes: the SV PGAS update rate
-   (N=20, T=60, 150 iterations: mean > (1 − 1/N) − 0.1, PG's early third 0.3
-   below PGAS's), GP-SSM PG (N=20, T=100, 5 iterations) and Lévy PGAS
-   (N=50, T=200, 2 iterations), replay against dense storage within 1e-5 and
+   (N=20, T=60, 100 iterations, the JAX test's 150 cut: mean > (1 − 1/N) −
+   0.1, PG's early third 0.3 below PGAS's), GP-SSM PG (N=20, T=100, 3
+   iterations) and Lévy PGAS
+   (N=50, T=100, 2 iterations), replay against dense storage within 1e-5 and
    1e-4;
 9. the generic front-end, chain checkpoints and a mesh spanning processes:
    the LGSSM as a ``GenericModel`` program of T = 50 sample sites and 50
@@ -105,18 +113,34 @@ final line:
    same sweep), PG with dense storage (3 iterations, finite), and B4 on one
    firing of the ``[100k, 50]`` state beside B2 + ``index_select`` (read in
    phase 7, before any profiled sweep); the two
-   analytic −2·log 2 tests at their CPU sizes, a multivariate site whose
+   analytic −2·log 2 tests at their CPU sizes (PG's 100 iterations cut to 20),
+   a multivariate site whose
    parameters lie on the CPU, a program that branches on a sampled value
    (by ``if`` and by ``.item()``) refused as mis-aligned, and a CPU sweep
    over parameters on the card, bitwise one over CPU parameters; a PGAS chain at 1M with replay storage
    checkpointed after 2 iterations and resumed for 2, bitwise the 4
    uninterrupted ones; and a child process that joins a process group as one
    NCCL rank (one card allows no more) with a K = 4 mesh, whose systematic
-   sharded sweep at 1M must be bitwise phase 5's one-controller sweep.
+   sharded sweep at 1M must be bitwise phase 5's one-controller sweep;
+10. independent chains as one batch on a leading chain axis, at the
+   flagship's width: ``smc_ensemble`` of 8 systematic runs at 1M (each run's
+   |logZ − Kalman| < 0.1; runs 0 and 7 against the one-chain sweep of their
+   key, bitwise or within the flip contract of the sharded sweep; launches
+   per firing step; the launches and busy share of one profiled sweep at 1
+   chain, 8 chains of 1M and 64 of 16,384, the batched sweep's launches under
+   1.5 x one chain's and not growing with C; its time beside 8 one-chain
+   sweeps), stratified and multinomial ensembles of 4 x 1M, ``sample_chains``
+   PGAS with replay storage for 64 chains of 16,384 (3 iterations: the RMS
+   z-score of the pooled chain means against the RTS smoother < 3; chains 0,
+   1, 2 and 63 run one at a time with ``sample_pg`` of their key, held
+   against the batch and timed as the loop of one-chain calls beside its
+   chain-iterations/s; a profiled iteration) and for 4
+   chains at 1M (2 iterations), and a GP-SSM ensemble of 4 x 65,536 (B4 over
+   leaves with the chain axis).
 
 Each launch count is read from the run of its own path, the counts set to 0
 just before it.  The last lines are the kernels' JSON record (launches summed
-over the runs of phases 4-6, 8 and 9, and per sweep and per PGAS iteration by scheme),
+over the runs of phases 4-6 and 8-10, and per sweep and per PGAS iteration by path),
 the card, and ``{"ok": true, "device": {...}}``.
 Imports no JAX: the card's machine has none.
 """
@@ -161,6 +185,17 @@ SWEEPS = 5  # timed sweeps per scheme
 PGAS_ITERS, PGAS_WARM, PGAS_CHAINS = 8, 4, 6  # bench_pgas.py:34-38, 96-114
 SHARDED_PGAS_ITERS = 3
 CHAIN_ITERS = 3
+#: The SV PGAS update-rate contract's iterations: the JAX test runs 150; cut to
+#: 100 (2 chains of ~0.33 s an iteration on a slow host) for the script's time
+#: limit once phase 10 came in.
+SV_RATE_ITERS = 100
+#: Steps of phase 8's Lévy runs at 1M (the flagship's T = 100 cut: a sweep at
+#: T = 100 is ~25 s, device-bound, and the three runs took 220-240 s) and of
+#: its replay = dense check at N = 50 (the JAX test's T = 200 cut).
+LEVY_STEPS, LEVY_CHECK_STEPS = 25, 100
+#: Iterations of phase 9's analytic PG(10) evidence (the CPU test's 100 cut:
+#: every iteration's logZ is the exact −2·log 2).
+ANALYTIC_PG_ITERS = 20
 # The generic program of profiling/bench_generic.py: particles, observes, sites.
 NG, TG, SG = 100_000, 50, 50
 NCCL_CHILD_TIMEOUT_S = 300
@@ -177,7 +212,28 @@ REPLACES = {
     "prefix_sum": f"{TPU_FILE}:325",
     "count_le_sorted_bs": f"{TPU_FILE}:476",
     "count_le_sorted": f"{TPU_FILE}:516",
+    # The chain axis: under the JAX package's vmap each pallas_call gains a
+    # grid axis, so these replace the same functions over [C, N].
+    "extents_from_logw_chains": f"{TPU_FILE}:237",
+    "scaled_prefix_from_logw_chains": f"{TPU_FILE}:325",
+    "prefix_sum_chains": f"{TPU_FILE}:325",
+    "decode_move_chains": f"{TPU_FILE}:728",
+    "decode_move_leaves_chains": f"{TPU_FILE}:728",
 }
+#: The chain axis (phases 3, 7 and 10): phase 3's sizes (C, N) of the
+#: chain-axis kernels (100,003 no multiple of a tile), the flagship ensemble's
+#: runs, the runs of the other schemes' ensembles, the PGAS chains of modest N
+#: and their iterations, the chains of the loop they are timed beside, the
+#: PGAS chains at the flagship's N, and the GP-SSM ensemble.
+CHAIN_SIZES = ((8, N), (64, 16_384), (1, N), (7, 100_003))
+ENSEMBLE_RUNS = 8
+SCHEME_RUNS = 4
+MANY_CHAINS, MANY_N, MANY_ITERS = 64, 16_384, 3
+#: The PGAS chains run one at a time beside the batch: held against it and
+#: timed as the loop of one-chain calls that the batch replaces.
+LOOP_CHAINS = (0, 1, 2, MANY_CHAINS - 1)
+WIDE_CHAINS, WIDE_ITERS = 4, 2
+GP_RUNS, GP_N = 4, 65_536
 #: The multinomial paths as they ran on the B7 and B8 kernels of before the
 #: redesign (H100 80GB HBM3, same seeds): the flagship's |logZ − Kalman| to the
 #: six decimals printed, and the two logZ of the 2-iteration PGAS chain.
@@ -186,7 +242,9 @@ EARLIER_MULTINOMIAL_PGAS_LOGZ = [-161.53640747070312, -161.53016662597656]
 #: Wrappers whose call is one device-side launch by design: the single-pass
 #: scan (no reset pass, no memset), the tile decode, and the decode + move on it.
 SINGLE_LAUNCH = ("extents_from_logw", "scaled_prefix_from_logw", "prefix_sum", "decode_ancestors",
-                 "decode_move", "decode_move_leaves")
+                 "decode_move", "decode_move_leaves", "extents_from_logw_chains",
+                 "scaled_prefix_from_logw_chains", "prefix_sum_chains", "decode_move_chains",
+                 "decode_move_leaves_chains")
 #: Device-side launches a call may make at most, where that is not 1: B5 is a
 #: scatter and a single-pass scan, with no memset.
 MOST_LAUNCHES = {"decode_ancestors_dense": 2}
@@ -216,6 +274,15 @@ PER_FIRING = {
 PER_VERSION = {ver: {"extents_from_logw": 1, **move} for ver, move in DECODE_MOVE.items()}
 #: Turns of the move versions' A/B in phase 7.
 VERSION_TURNS = (6, 1, 0, 0, 1, 6)
+#: Kernel launches per step of a batched sweep (C chains) on which some chain
+#: fires, by scheme: one launch for all chains, but B7 once a chain.
+def per_firing_chains(scheme: str, chains: int, leaves: int = 1) -> dict:
+    move = ({"decode_move_chains": 1} if leaves == 1
+            else {"decode_move_leaves_chains": -(-leaves // 8)})
+    return {**{"systematic": {"extents_from_logw_chains": 1},
+               "stratified": {"scaled_prefix_from_logw_chains": 1},
+               "multinomial": {"prefix_sum_chains": 1, "scaled_prefix_from_logw_chains": 1,
+                               "count_le_sorted_bs": chains}}[scheme], **move}
 
 
 def fail(msg: str):
@@ -460,6 +527,115 @@ def extents_of(anc: torch.Tensor) -> torch.Tensor:
 
 def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+
+
+def chain_case(c: int, n: int, gen: torch.Generator):
+    """Log-weights ``[c, n]`` with their ``(m, s1)`` and offsets ``u [c]``."""
+    logw = torch.randn(c, n, generator=gen, device="cuda") * 2.0
+    m = torch.amax(logw, -1)
+    s1 = torch.sum(torch.exp(logw - m[:, None]), -1)
+    return logw, m, s1, torch.rand(c, generator=gen, device="cuda")
+
+
+def chain_kernel_checks(ops, gen, err):
+    """Phase 3's chain-axis kernels: B1, B6 (both modes), B4 and B4 over
+    leaves at each of CHAIN_SIZES, for n = N and the guard case, against
+    their batched plain versions (B1 within the one-chain tolerance, B6
+    within 1 ulp, B4 bitwise), each row bitwise the one-chain kernel on that
+    row, chains whose flag is off kept by the sweep's ``where``, and B4 on a
+    chain whose rows lie past 2**31 words."""
+    t0 = time.perf_counter()
+    for c, n in CHAIN_SIZES:
+        logw, m, s1, u = chain_case(c, n, gen)
+        e = torch.exp(logw - m[:, None])
+        x = torch.randn(c, n, generator=gen, device="cuda")
+        leaves = [x, torch.randn(c, n, 3, generator=gen, device="cuda"),
+                  torch.randint(-2**31, 2**31 - 1, (c, n), generator=gen, device="cuda",
+                                dtype=torch.int32)]
+        if c * n <= 2 * N:
+            leaves.append(torch.randn(c, n, 100, generator=gen, device="cuda"))
+        u_host = u.tolist()
+        iota = torch.arange(n, dtype=torch.int32, device="cuda")
+        for nd in (n, n - 1):
+            label = f"chain axis C={c} N={n} n={nd}"
+            f = ops.extents_from_logw_chains(logw, m, s1, u, nd)
+            f_ref = ops.extents_from_logw_chains_ref(logw, m, s1, u, nd)
+            diff = (f.long() - f_ref.long()).abs()
+            check(int(diff.max()) <= 1 and int((diff > 0).sum()) <= max(2, 1e-3 * f.numel()),
+                  f"{label}: B1 differs from its plain version by {int(diff.max())} in "
+                  f"{int((diff > 0).sum())}")
+            check(bool((f[:, 1:] >= f[:, :-1]).all()), f"{label}: B1 rows not nondecreasing")
+            err["extents_from_logw_chains"] = max(err["extents_from_logw_chains"],
+                                                  float(diff.max()))
+            scale = nd / s1
+            p = ops.scaled_prefix_from_logw_chains(logw, m, scale)
+            ps = ops.prefix_sum_chains(e)
+            for name, got, want in (
+                    ("scaled_prefix_from_logw_chains", p,
+                     ops.scaled_prefix_chains_ref(logw, m, scale, True)),
+                    ("prefix_sum_chains", ps, ops.scaled_prefix_chains_ref(e, None, None, False))):
+                check(max_ulps(got, want) <= 1, f"{label}: {name} {max_ulps(got, want)} ulps")
+                err[name] = max(err[name], max_abs(got, want))
+            a, mv = ops.decode_move_chains(f, x, n, guard=nd)
+            ra, rmv = ops.decode_move_chains_ref(f, x, n, guard=nd)
+            check(torch.equal(a, ra) and torch.equal(bits(mv), bits(rmv)),
+                  f"{label}: B4 differs from its plain version")
+            err["decode_move_chains"] = max(err["decode_move_chains"], max_abs(a, ra),
+                                            max_abs(mv, rmv))
+            al, mvs = ops.decode_move_leaves_chains(f, leaves, n, guard=nd)
+            rl, rmvs = ops.decode_move_leaves_chains_ref(f, leaves, n, guard=nd)
+            check(torch.equal(al, rl) and all(torch.equal(word_bits(g), word_bits(w))
+                                              for g, w in zip(mvs, rmvs)),
+                  f"{label}: B4 over leaves differs from its plain version")
+            check(torch.equal(al, a) and torch.equal(bits(mvs[0]), bits(mv)),
+                  f"{label}: B4 over leaves differs from B4")
+            err["decode_move_leaves_chains"] = max(
+                err["decode_move_leaves_chains"], max_abs(al, rl),
+                *(max_abs(g.float(), w.float()) for g, w in zip(mvs, rmvs)))
+            del rl, rmvs, rmv
+            for r in range(c):
+                one_f = ops.extents_from_logw(logw[r], m[r], s1[r], u_host[r], nd)
+                one_p = ops.scaled_prefix_from_logw(logw[r], m[r], scale[r])
+                one_ps = ops.prefix_sum(e[r])
+                one_a, one_mv = ops.decode_move(f[r], x[r], n, guard=nd)
+                one_al, one_mvs = ops.decode_move_leaves(f[r], [v[r] for v in leaves], n, guard=nd)
+                check(torch.equal(f[r], one_f) and torch.equal(bits(p[r]), bits(one_p))
+                      and torch.equal(bits(ps[r]), bits(one_ps)),
+                      f"{label}: row {r} of B1 or B6 differs from the one-chain kernel")
+                check(torch.equal(a[r], one_a) and torch.equal(bits(mv[r]), bits(one_mv))
+                      and torch.equal(al[r], one_al)
+                      and all(torch.equal(word_bits(g[r]), word_bits(w))
+                              for g, w in zip(mvs, one_mvs)),
+                      f"{label}: row {r} of B4 differs from the one-chain kernel")
+            # The chains whose flag is off keep their ancestors (the identity)
+            # and rows by the sweep's where; the others take the kernel's.
+            flags = torch.arange(c, device="cuda") % 2 == 0
+            anc_k = torch.where(flags[:, None], a, iota)
+            rows_k = torch.where(flags[:, None], mv, x)
+            for r in range(c):
+                on = bool(flags[r])
+                check(torch.equal(anc_k[r], a[r] if on else iota)
+                      and torch.equal(bits(rows_k[r]), bits(mv[r] if on else x[r])),
+                      f"{label}: chain {r} (flag {on}) not kept by the where")
+            del f_ref, p, ps, a, mv, al, mvs
+        del logw, e, x, leaves
+        torch.cuda.empty_cache()
+    # Chain 2 of a [3, N, 768] state lies 2 * N * 768 > 2**31 words in.
+    c, d = 3, 768
+    logw, m, s1, u = chain_case(c, N, gen)
+    f = ops.extents_from_logw_chains(logw, m, s1, u, N - 1)
+    v = torch.randn(c, N, d, generator=gen, device="cuda")
+    a, mv = ops.decode_move_chains(f, v, N, guard=N - 1)
+    one_a, one_mv = ops.decode_move(f[2], v[2], N, guard=N - 1)
+    check(torch.equal(a[2], one_a) and torch.equal(bits(mv[2]), bits(one_mv)),
+          "B4 with the chain axis past 2**31 words differs from the one-chain kernel")
+    del v, mv, one_mv
+    torch.cuda.empty_cache()
+    print(f"chain axis: B1, B6 (both modes), B4 and B4 over leaves at C x N = "
+          f"{', '.join(f'{c} x {n}' for c, n in CHAIN_SIZES)}, n = N and the guard: within the "
+          f"plain versions' tolerances (B4 bitwise), each row bitwise the one-chain kernel, "
+          f"chains whose flag is off kept; B4 on chain 2 of [3, {N}, {d}] (past 2**31 words) "
+          f"bitwise the one-chain kernel; {time.perf_counter() - t0:.1f}s", flush=True)
 
 
 def check_decode_forms(ops, f, n, vs, label, err):
@@ -868,6 +1044,7 @@ def main():
               f"(thresholds, one value, one tile, heavy ties, ns != nt unaligned, below/above/"
               f"inf, one entry); B7 = plain on unsorted thresholds with NaN", flush=True)
     torch.cuda.synchronize()
+    chain_kernel_checks(ops, gen, err)
 
     # ---- 4. the SMC flagship with each fused scheme, through sample
     model = apt.models.stationary_lgssm(A, Q, R)
@@ -1299,20 +1476,57 @@ def main():
             (f, *wide_leaves)),
     }
 
+    # The kernels with the chain axis at the flagship ensemble's 8 x 1M: B4
+    # over leaves on 1 + 2 + 1 words a row.
+    C = ENSEMBLE_RUNS
+    cl, cm, cs1, cu = chain_case(C, N, gen)
+    cscale = N / cs1
+    cg = -torch.log1p(-torch.rand(C, N + 1, generator=gen, device="cuda"))
+    cf = ops.extents_from_logw_chains(cl, cm, cs1, cu, N)
+    cx = torch.randn(C, N, generator=gen, device="cuda")
+    c_leaves = (cx, torch.randn(C, N, 2, generator=gen, device="cuda"),
+                torch.randint(0, 1 << 30, (C, N), generator=gen, device="cuda", dtype=torch.int32))
+    measured.update({
+        "extents_from_logw_chains": (
+            lambda lw: ops.extents_from_logw_chains_ref(lw, cm, cs1, cu, N),
+            lambda lw: ops.extents_from_logw_chains(lw, cm, cs1, cu, N), None, (cl,)),
+        "scaled_prefix_from_logw_chains": (
+            lambda lw: ops.scaled_prefix_chains_ref(lw, cm, cscale, True),
+            lambda lw: ops.scaled_prefix_from_logw_chains(lw, cm, cscale), None, (cl,)),
+        "prefix_sum_chains": (
+            lambda g_: ops.scaled_prefix_chains_ref(g_, None, None, False), ops.prefix_sum_chains,
+            None, (cg,)),
+        "decode_move_chains": (
+            lambda f_, v: ops.decode_move_chains_ref(f_, v, N),
+            lambda f_, v: ops.decode_move_chains(f_, v, N), None, (cf, cx)),
+        "decode_move_leaves_chains": (
+            lambda f_, *ls: ops.decode_move_leaves_chains_ref(f_, list(ls), N),
+            lambda f_, *ls: ops.decode_move_leaves_chains(f_, list(ls), N), None,
+            (cf, *c_leaves)),
+    })
+
     def turns(readings):
         return ", ".join(f"{r:.4f}" for r in readings)
 
     # A move reads only the rows that own a slot: the rows of the others are
     # bytes it need not move, so its bound counts this run's owner rows.
     owners = int(torch.unique(anc).numel())
-    gathered = {"move_rows": (x,), "decode_move": (x,), "decode_move_leaves": wide_leaves}
+    c_anc = ops.decode_move_chains(cf, cx, N)[0]
+    owners_c = sum(int(torch.unique(c_anc[r]).numel()) for r in range(C))
+    # name -> (rows moved, rows in all, rows that own a slot)
+    gathered = {"move_rows": ((x,), N, owners), "decode_move": ((x,), N, owners),
+                "decode_move_leaves": (wide_leaves, N, owners),
+                "decode_move_chains": ((cx,), C * N, owners_c),
+                "decode_move_leaves_chains": (c_leaves, C * N, owners_c)}
     timing = {}
     for name, (plain, kernel_fn, library, inputs) in measured.items():
         call_ms, plain_call_ms, readings = plain_vs_kernel(lambda: plain(*inputs),
                                                            lambda: kernel_fn(*inputs))
         outputs = kernel_fn(*inputs)
         moved = nbytes(*inputs) + nbytes(*(outputs if isinstance(outputs, tuple) else (outputs,)))
-        moved -= sum(nbytes(v) // N for v in gathered.get(name, ())) * (N - owners)
+        if name in gathered:
+            vs, rows_all, own = gathered[name]
+            moved -= sum(nbytes(v) // rows_all for v in vs) * (rows_all - own)
         # The same call on copies of its inputs taken in turn, 128 MB of them:
         # by the time a copy comes round again the 50 MB L2 has lost it.
         copies = [tuple(a.clone() for a in inputs) for _ in range(-(-COLD_BYTES // moved))]
@@ -1332,13 +1546,14 @@ def main():
         row["l2_bound_ms"] = moved / L2_BYTES_PER_S * 1e3
         timing[name] = row
         if name in gathered:
-            row["owner_rows"] = owners
+            row["owner_rows"] = gathered[name][2]
         lib_txt = "no single call" if library is None else f"{row['library_ms']:.5f} ms"
-        print(f"kernel {name} at 1M: {launches_per_call} launch(es) a call, device "
+        at = f"{C} x 1M" if name.endswith("_chains") else "1M"
+        print(f"kernel {name} at {at}: {launches_per_call} launch(es) a call, device "
               f"{row['device_ms']:.5f} ms L2-warm, "
               f"{row['cold_device_ms']:.5f} ms L2-cold, plain {row['plain_ms']:.5f} ms, library "
               f"{lib_txt}; bound {row['bound_ms']:.5f} ms ({moved} bytes at 3.35 TB/s"
-              f"{f', {owners} owner rows' if name in gathered else ''}), share "
+              f"{f', {gathered[name][2]} owner rows' if name in gathered else ''}), share "
               f"{row['bound_share']:.4f} warm, {row['cold_bound_share']:.4f} cold; per call by "
               f"events, host included: {call_ms:.4f} ms, plain {plain_call_ms:.4f} ms (plain, "
               f"kernel, kernel, plain: {turns(readings)}) {tag}", flush=True)
@@ -1374,6 +1589,29 @@ def main():
               f"{device_ms(plain):.5f} ms; per call by events {k_ms:.4f} ms, plain {p_ms:.4f} ms "
               f"({turns(readings)}) {tag}", flush=True)
     del f_16m
+    # B1 and B4 with the chain axis at 8 x 1M and 64 x 16,384 beside C
+    # launches of the one-chain kernel on the same rows, device time and bound.
+    for c_, n_ in ((ENSEMBLE_RUNS, N), (MANY_CHAINS, MANY_N)):
+        lw_, m_, s1_, u_ = chain_case(c_, n_, gen)
+        u_list = u_.tolist()
+        f_ = ops.extents_from_logw_chains(lw_, m_, s1_, u_, n_)
+        x_ = torch.randn(c_, n_, generator=gen, device="cuda")
+        a_ = ops.decode_move_chains(f_, x_, n_)[0]
+        own_ = sum(int(torch.unique(a_[r]).numel()) for r in range(c_))
+        b1 = device_ms(lambda: ops.extents_from_logw_chains(lw_, m_, s1_, u_, n_))
+        b1_loop = device_ms(lambda: [ops.extents_from_logw(lw_[r], m_[r], s1_[r], u_list[r], n_)
+                                     for r in range(c_)])
+        b4 = device_ms(lambda: ops.decode_move_chains(f_, x_, n_))
+        b4_loop = device_ms(lambda: [ops.decode_move(f_[r], x_[r], n_) for r in range(c_)])
+        b1_bytes = nbytes(lw_, f_, m_, s1_, u_)
+        b4_bytes = nbytes(f_, a_, x_) + 4 * own_
+        print(f"chain axis C={c_} N={n_}: B1 device {b1:.5f} ms against {c_} one-chain launches "
+              f"{b1_loop:.5f} ms, bound {b1_bytes / HBM_BYTES_PER_S * 1e3:.5f} ms ({b1_bytes} "
+              f"bytes); B4 device {b4:.5f} ms against {c_} one-chain launches {b4_loop:.5f} ms, "
+              f"bound {b4_bytes / HBM_BYTES_PER_S * 1e3:.5f} ms ({b4_bytes} bytes, {own_} owner "
+              f"rows) {tag}", flush=True)
+        del lw_, f_, x_, a_
+    del cl, cg, cf, cx, c_leaves, c_anc
     # One firing's move of the GP-SSM's tree state (phase 8) at 1M: x [N] and
     # the history [N, T], 101 words a row, through B4 over leaves.
     gp_state = (x, wide_leaves[2])
@@ -1502,16 +1740,17 @@ def main():
         return (wall * 1e3, sum(e.self_device_time_total for e in rows) / 1e3,
                 sum(e.count for e in rows), out)
 
-    # (label, model, leaves of its state): the SV model (a = 0.9, q = 0.5,
-    # scalar state), the Lévy SSM (state [N, 2], a budget of 64 jumps, dt =
-    # 0.5) and the GP-SSM (state (x [N], history [N, T])).
-    model_set = (("stochastic volatility", apt.models.stochastic_volatility_ssm(a=0.9, q=0.5), 1),
-                 ("Lévy", apt.models.levy_ssm(dt=0.5), 1),
-                 ("GP-SSM", apt.models.gp_ssm(num_steps=T), 2))
+    # (label, model, leaves of its state, steps): the SV model (a = 0.9, q =
+    # 0.5, scalar state), the Lévy SSM (state [N, 2], a budget of 64 jumps, dt
+    # = 0.5; LEVY_STEPS) and the GP-SSM (state (x [N], history [N, T])).
+    model_set = (("stochastic volatility", apt.models.stochastic_volatility_ssm(a=0.9, q=0.5), 1,
+                  T),
+                 ("Lévy", apt.models.levy_ssm(dt=0.5), 1, LEVY_STEPS),
+                 ("GP-SSM", apt.models.gp_ssm(num_steps=T), 2, T))
     t_models = time.perf_counter()
-    for label, model, leaves in model_set:
+    for label, model, leaves, steps in model_set:
         model = model.to("cuda")
-        _, ys_m = apt.simulate(apt.rng.key(60), model, T)
+        _, ys_m = apt.simulate(apt.rng.key(60), model, steps)
         traced_m = apt.TracedSSM(model, ys_m)
         kernel_m = apt.SSMKernel(traced_m)
         per_firing = {"extents_from_logw": 1,
@@ -1545,12 +1784,12 @@ def main():
                 times.append(time.perf_counter() - t0)
             wall, busy, kernels, _ = profile_one(lambda: apt.sweep(
                 apt.rng.key(61), kernel_m, N, systematic, store_states=False, device="cuda"))
-        print(f"model [{label}] N={N} T={T}: SMC logZ {log_z:.6f}, firings {fires}, launches "
+        print(f"model [{label}] N={N} T={steps}: SMC logZ {log_z:.6f}, firings {fires}, launches "
               f"{launches}; sweep {statistics.median(times) * 1e3:.3f} ms (median of "
               f"{len(times)}{', profiled' if levy else ''}: "
               f"{', '.join(f'{t * 1e3:.3f}' for t in times)}); profiled sweep: wall {wall:.3f} ms, "
               f"device busy {busy:.3f} ms ({busy / wall:.4f} of wall), {kernels} device-side "
-              f"launches ({kernels / T:.1f} a step) {tag}", flush=True)
+              f"launches ({kernels / steps:.1f} a step) {tag}", flush=True)
 
         # PGAS with replay storage, 2 iterations (the first without a
         # reference, the second on the first's trajectory; every step
@@ -1560,7 +1799,8 @@ def main():
                                                    trajectory_storage="replay"))
         check(bool(torch.isfinite(chain.log_evidence).all())
               and bool(torch.isfinite(chain.trajectory).all()), f"{label}: PGAS not finite")
-        check(launches == expected(per_firing, 2 * (T - 1)), f"{label}: PGAS launches {launches}")
+        check(launches == expected(per_firing, 2 * (steps - 1)),
+              f"{label}: PGAS launches {launches}")
         mesh.reset_counts()
         res, launches = drive(lambda: parallel.sharded_sweep(apt.rng.key(61), kernel_m, N,
                                                              systematic, mesh, store_states=False))
@@ -1589,11 +1829,12 @@ def main():
         return (chain.trajectory.diff(dim=0).abs() > 0).double().mean(0)
 
     (pgas_rate, pg_rate), _ = drive(lambda: (
-        update_rate(apt.sample(apt.rng.key(71), sv_traced, apt.PGAS(20), 150)),
-        update_rate(apt.sample(apt.rng.key(71), sv_traced, apt.PG(20, 1.0), 150))))
+        update_rate(apt.sample(apt.rng.key(71), sv_traced, apt.PGAS(20), SV_RATE_ITERS)),
+        update_rate(apt.sample(apt.rng.key(71), sv_traced, apt.PG(20, 1.0), SV_RATE_ITERS))))
     theory = 1.0 - 1.0 / 20
     early = slice(0, 20)
-    print(f"SV PGAS update rate N=20 T=60, 150 iterations: mean {float(pgas_rate.mean()):.4f} "
+    print(f"SV PGAS update rate N=20 T=60, {SV_RATE_ITERS} iterations: mean "
+          f"{float(pgas_rate.mean()):.4f} "
           f"(phase 8 so far {time.perf_counter() - t_models:.1f}s) "
           f"(1 - 1/N = {theory}); early third PG {float(pg_rate[early].mean()):.4f} against "
           f"PGAS {float(pgas_rate[early].mean()):.4f}", flush=True)
@@ -1601,12 +1842,12 @@ def main():
     check(float(pg_rate[early].mean()) < float(pgas_rate[early].mean()) - 0.3,
           "SV: PG's early update rate is not 0.3 below PGAS's")
     for label, model, n_p, steps, sampler, tol, iters in (
-            ("GP-SSM PG", apt.models.gp_ssm(num_steps=T), 20, T, apt.PG, 1e-5, 5),
+            ("GP-SSM PG", apt.models.gp_ssm(num_steps=T), 20, T, apt.PG, 1e-5, 3),
             # One particle and N particles sum a step's 64 masked jumps in
             # different orders on the card: hence the looser bound.  Two
             # iterations (the second conditional on the first), ~13 s each
             # for each storage on a slow host: the script's time limit.
-            ("Lévy PGAS", apt.models.levy_ssm(dt=0.5), 50, 200, apt.PGAS, 1e-4, 2)):
+            ("Lévy PGAS", apt.models.levy_ssm(dt=0.5), 50, LEVY_CHECK_STEPS, apt.PGAS, 1e-4, 2)):
         model = model.to("cuda")
         _, ys_x = apt.simulate(apt.rng.key(72), model, steps)
         tr_x = apt.TracedSSM(model, ys_x)
@@ -1623,6 +1864,11 @@ def main():
     generic_phase(apt, ops, drive, expected, profile_one, tag, traced, kernel, systematic, auto,
                   generic_b4, main_launches)
     print(f"phases 1-9 took {time.perf_counter() - t_script:.1f}s", flush=True)
+    chain_sweeps, chain_iterations = chains_phase(apt, ops, drive, expected, profile_one, tag,
+                                                  traced, kernel, systematic, kf_ll, sm)
+    per_sweep.update(chain_sweeps)
+    per_pgas_iteration.update(chain_iterations)
+    print(f"phases 1-10 took {time.perf_counter() - t_script:.1f}s", flush=True)
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
          "launches": main_launches[name], "max_abs_err": err[name],
@@ -1769,7 +2015,7 @@ def generic_phase(apt, ops, drive, expected, profile_one, tag, traced, kernel, s
     bm = apt.GenericModel(bernoulli_model)
     exact = -2.0 * math.log(2.0)
     smc_b = apt.sample(apt.rng.key(100), bm, apt.SMC(100))
-    pg_b = apt.sample(apt.rng.key(100), bm, apt.PG(10), 100)
+    pg_b = apt.sample(apt.rng.key(100), bm, apt.PG(10), ANALYTIC_PG_ITERS)
     smc_rel = abs(float(smc_b.log_evidence) - exact) / abs(exact)
     pg_err = abs(float(pg_b.log_evidence.double().mean()) - exact)
     check(smc_rel <= 1e-6, f"analytic SMC evidence: relative error {smc_rel} > 1e-6")
@@ -1820,7 +2066,7 @@ def generic_phase(apt, ops, drive, expected, profile_one, tag, traced, kernel, s
           "a CPU sweep over parameters on the card differs from one over CPU parameters")
     pg_mean = float(pg_b.log_evidence.double().mean())
     print(f"analytic evidence on the card: SMC(100) logZ {float(smc_b.log_evidence):.9f} "
-          f"(relative error {smc_rel:.3e}), PG(10) x 100 mean {pg_mean:.9f} "
+          f"(relative error {smc_rel:.3e}), PG(10) x {ANALYTIC_PG_ITERS} mean {pg_mean:.9f} "
           f"(|err| {pg_err:.3e}), exact {exact:.9f}; a [3] site with CPU parameters: logZ "
           f"{float(smc_v.log_evidence):.6f}; value-dependent programs (if, .item()) refused "
           f"as mis-aligned; a CPU sweep over card parameters bitwise the CPU one", flush=True)
@@ -1878,6 +2124,252 @@ def generic_phase(apt, ops, drive, expected, profile_one, tag, traced, kernel, s
           f"launches {got['launches']}; sweep {got['sweep_s'] * 1e3:.3f} ms, child process "
           f"{child_s:.1f}s {tag}", flush=True)
     print(f"phase 9 took {time.perf_counter() - t_phase:.1f}s", flush=True)
+
+
+def dlogz_bound(n: int) -> float:
+    """The flip contract's bound on |ΔlogZ| at n particles: 0.05 at 1M (the
+    sharded sweep's), scaled as the Monte Carlo noise that follows the first
+    flip, by sqrt(1M / n): 0.39 at 16,384, 0.20 at 65,536."""
+    return 0.05 * math.sqrt(N / n)
+
+
+def flip_contract(anc, resampled, log_z, one):
+    """A chain of a batched sweep (its ``ancestors [T, N]``, flags and logZ)
+    against the one-chain sweep ``one`` of its key: the first step whose
+    ancestors differ (T if none), the largest difference of the extents the
+    two decodes inverted there, whether the flags agree up to it, and
+    |ΔlogZ|.  On the card torch may split a row of ``[C, N]`` across blocks
+    otherwise than an ``[N]`` vector, so Σe may differ by an ulp and move an
+    extent at a stratum boundary by one: the sharded sweep's contract."""
+    steps = anc.shape[0]
+    flips = (anc != one.ancestors).sum(1)
+    first = int(torch.argmax((flips > 0).int())) if bool(flips.any()) else steps
+    off = 0 if first == steps else int(
+        (extents_of(anc[first]) - extents_of(one.ancestors[first])).abs().max())
+    flags = torch.equal(resampled[:first + 1], one.resampled[:first + 1])
+    return first, off, flags, abs(float(log_z) - float(one.log_evidence))
+
+
+def chains_phase(apt, ops, drive, expected, profile_one, tag, traced, kernel, systematic, kf_ll,
+                 sm):
+    """Phase 10: independent chains as one batch on a leading chain axis, at
+    the flagship LGSSM's full width (the module docstring).  Returns the
+    launches per batched sweep and per batched PGAS iteration, by path."""
+    from advancedps_tpu_torch import parallel
+
+    t_phase = time.perf_counter()
+    per_sweep, per_iteration = {}, {}
+
+    # ---- 10a. an ensemble of 8 systematic runs at 1M, log-evidence only
+    C = ENSEMBLE_RUNS
+    key = apt.rng.key(200)
+    ens, launches = drive(lambda: parallel.smc_ensemble(key, traced, apt.SMC(N), C,
+                                                        store_states=False))
+    lz = ens.log_evidence.double().cpu()
+    fired = int(ens.diagnostics["resampled"].any(0).sum())
+    errs = (lz - kf_ll).abs()
+    print(f"ensemble [systematic] {C} runs x N={N} T={T}: logZ {lz.tolist()}, |logZ - kalman| "
+          f"max {float(errs.max()):.6f}, steps on which some run fired {fired}, launches "
+          f"{ {k: v for k, v in launches.items() if v} } {tag}", flush=True)
+    check(bool((errs < 0.1).all()), f"ensemble: |logZ - kalman| {errs.tolist()}, not all < 0.1")
+    check(launches == expected(per_firing_chains("systematic", C), fired),
+          f"ensemble: launches {launches}")
+    per_sweep[f"systematic, {C} chains"] = {k: v for k, v in launches.items() if v}
+    keys = apt.rng.chain_keys(key, C)
+    # Launches and busy share of one sweep: one chain, 8 chains at 1M (the
+    # ensemble's own sweep, whose genealogy is held against the one-chain
+    # sweeps below), and 64 chains of 16,384.
+    prof = {}
+    for label, fn in (
+            ("1 chain x 1M", lambda: apt.sweep(apt.rng.fold_in(key, 0), kernel, N, systematic,
+                                               store_states=False, device="cuda")),
+            (f"{C} chains x 1M", lambda: apt.sweep(keys, kernel, N, systematic,
+                                                   store_states=False)),
+            (f"{MANY_CHAINS} chains x {MANY_N}", lambda: apt.sweep(
+                apt.rng.chain_keys(key, MANY_CHAINS), kernel, MANY_N, systematic,
+                store_states=False))):
+        wall, busy, launched, res = profile_one(fn)
+        prof[label] = launched
+        if label.startswith(f"{C} "):
+            batched = res
+        print(f"profiled sweep [{label}] T={T}: wall {wall:.3f} ms, device busy {busy:.3f} ms "
+              f"({busy / wall:.4f} of wall), {launched} device-side launches, steps with a "
+              f"firing {int(res.resampled.reshape(-1, T).any(0).sum())} {tag}", flush=True)
+    l1, l8, l64 = prof.values()
+    print(f"launches of one sweep: {l8 / l1:.4f} x one chain's at C={C}, C={MANY_CHAINS} against "
+          f"C={C} {l64 / l8:.4f}", flush=True)
+    check(l8 < 1.5 * l1, f"a batched sweep of {C} chains launches {l8}, 1.5 x one chain's {l1} "
+          f"or more")
+    check(abs(l64 - l8) <= 0.1 * l8, f"launches grow with C: {l8} at C={C}, {l64} at "
+          f"C={MANY_CHAINS}")
+    check(torch.equal(batched.log_evidence, ens.log_evidence),
+          "ensemble: the batched sweep differs from smc_ensemble")
+    for c in (0, C - 1):
+        one = apt.sweep(apt.rng.fold_in(key, c), kernel, N, systematic, store_states=False,
+                        device="cuda")
+        first, off, flags, dlz = flip_contract(batched.ancestors[c], batched.resampled[c],
+                                               batched.log_evidence[c], one)
+        print(f"ensemble run {c} against sample_smc(fold_in(key, {c})): bitwise "
+              f"{first == T and torch.equal(batched.log_evidence[c], one.log_evidence)}, first "
+              f"flip at step {first}, extents off by {off}, flags equal to it {flags}, "
+              f"|dlogZ| {dlz:.3e}", flush=True)
+        check(off <= 1 and flags and dlz < 0.05, f"ensemble run {c}: not within the flip "
+              f"contract (first {first}, off {off}, flags {flags}, |dlogZ| {dlz})")
+    del batched, res
+    # The batched sweep's time beside 8 one-chain sweeps, in turns.
+    times = {"batched": [], "one chain": []}
+    for i in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        float(apt.sweep(apt.rng.chain_keys(apt.rng.key(210 + i), C), kernel, N, systematic,
+                        store_states=False).log_evidence[0])
+        times["batched"].append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        float(apt.sweep(apt.rng.key(210 + i), kernel, N, systematic, store_states=False,
+                        device="cuda").log_evidence)
+        times["one chain"].append(time.perf_counter() - t0)
+    med = {k: statistics.median(v) for k, v in times.items()}
+    print(f"ensemble time, {C} runs x N={N}: batched sweep median {med['batched'] * 1e3:.3f} ms "
+          f"({', '.join(f'{t * 1e3:.3f}' for t in times['batched'])}); one-chain sweep median "
+          f"{med['one chain'] * 1e3:.3f} ms, x {C} = {C * med['one chain'] * 1e3:.3f} ms; "
+          f"ratio {med['batched'] / (C * med['one chain']):.4f} (in turns) {tag}", flush=True)
+
+    # ---- 10b. stratified and multinomial ensembles, 4 runs at 1M
+    for label, fn in (("stratified", apt.resample_stratified),
+                      ("multinomial", apt.resample_multinomial)):
+        smp = apt.SMC(N, apt.ResampleWithESSThreshold(fn))
+        e_, launches = drive(lambda: parallel.smc_ensemble(key, traced, smp, SCHEME_RUNS,
+                                                           store_states=False))
+        lz_ = e_.log_evidence.double().cpu()
+        fired = int(e_.diagnostics["resampled"].any(0).sum())
+        one = apt.sample_smc(apt.rng.fold_in(key, 0), traced, smp, store_states=False,
+                             device="cuda")
+        dlz = abs(float(lz_[0]) - float(one.log_evidence))
+        print(f"ensemble [{label}] {SCHEME_RUNS} runs x N={N}: |logZ - kalman| "
+              f"{[round(abs(v - kf_ll), 6) for v in lz_.tolist()]}, run 0 against the one-chain "
+              f"run |dlogZ| {dlz:.3e}, steps with a firing {fired}, launches "
+              f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+        check(bool(((lz_ - kf_ll).abs() < 0.1).all()), f"ensemble {label}: |logZ - kalman| >= 0.1")
+        check(dlz < 0.05, f"ensemble {label}: run 0 |dlogZ| {dlz} against the one-chain run")
+        check(launches == expected(per_firing_chains(label, SCHEME_RUNS), fired),
+              f"ensemble {label}: launches {launches}")
+        per_sweep[f"{label}, {SCHEME_RUNS} chains"] = {k: v for k, v in launches.items() if v}
+
+    # ---- 10c. PGAS, 64 chains of 16,384, replay storage, as one batch
+    pg = apt.PGAS(MANY_N)
+    key_c = apt.rng.key(220)
+    t0 = time.perf_counter()
+    chains, launches = drive(lambda: parallel.sample_chains(
+        key_c, traced, pg, MANY_ITERS, MANY_CHAINS, trajectory_storage="replay"))
+    first_s = time.perf_counter() - t0
+    check(tuple(chains.trajectory.shape) == (MANY_CHAINS, MANY_ITERS, T)
+          and bool(torch.isfinite(chains.trajectory).all()), "PGAS chains: shape or not finite")
+    check(launches == expected(per_firing_chains("systematic", MANY_CHAINS),
+                               MANY_ITERS * (T - 1)), f"PGAS chains: launches {launches}")
+    per_iteration[f"systematic, {MANY_CHAINS} chains"] = {
+        k: v // MANY_ITERS for k, v in launches.items() if v}
+    traj = chains.trajectory.double().cpu()
+    cmeans = traj.mean(1)  # each chain's mean over its iterations
+    est = cmeans.mean(0)
+    sd = sm.variances.sqrt()
+    se = torch.maximum(cmeans.std(0, unbiased=True) / math.sqrt(MANY_CHAINS),
+                       sd / math.sqrt(MANY_CHAINS * MANY_ITERS))
+    zrms = float((((est - sm.means) / se) ** 2).mean().sqrt())
+    print(f"PGAS {MANY_CHAINS} chains x N={MANY_N} x {MANY_ITERS} iterations (replay), one batch: "
+          f"RMS z-score of the pooled chain means vs RTS smoother {zrms:.4f}; first call "
+          f"{first_s:.3f}s; launches {launches} {tag}", flush=True)
+    check(zrms < 3.0, f"PGAS chains: RMS z-score {zrms} >= 3")
+    it0 = apt.sweep(apt.rng.fold_in(apt.rng.chain_keys(key_c, MANY_CHAINS), 0), kernel, MANY_N,
+                    pg.resampler, store_states=False)
+    loop_s = 0.0
+    for c in LOOP_CHAINS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one = apt.sample(apt.rng.fold_in(key_c, c), traced, pg, MANY_ITERS,
+                         trajectory_storage="replay", device="cuda")
+        float(one.log_evidence[-1])
+        loop_s += time.perf_counter() - t0
+        same = [torch.equal(one.trajectory[i], chains.trajectory[c, i])
+                and torch.equal(one.log_evidence[i], chains.log_evidence[c, i])
+                for i in range(MANY_ITERS)]
+        one0 = apt.sweep(apt.rng.fold_in(apt.rng.fold_in(key_c, c), 0), kernel, MANY_N,
+                         pg.resampler, store_states=False, device="cuda")
+        first, off, flags, dlz = flip_contract(it0.ancestors[c], it0.resampled[c],
+                                               it0.log_evidence[c], one0)
+        print(f"PGAS chain {c} against sample_pg(fold_in(key, {c})): iterations bitwise {same}; "
+              f"iteration 0's sweep: first flip at step {first}, extents off by {off}, flags "
+              f"equal to it {flags}, |dlogZ| {dlz:.3e}", flush=True)
+        check(all(same) or (off <= 1 and flags and dlz < dlogz_bound(MANY_N)),
+              f"PGAS chain {c}: neither bitwise nor within the flip contract (|dlogZ| bound "
+              f"{dlogz_bound(MANY_N):.3f} at N={MANY_N})")
+    del it0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = parallel.sample_chains(apt.rng.key(221), traced, pg, MANY_ITERS, MANY_CHAINS,
+                                   trajectory_storage="replay")
+    float(again.log_evidence[0, 0])
+    batched_s = time.perf_counter() - t0
+    print(f"PGAS N={MANY_N} T={T} replay: {MANY_CHAINS} chains as one batch "
+          f"{MANY_CHAINS * MANY_ITERS / batched_s:.3f} chain-iterations/s "
+          f"({batched_s:.3f}s for {MANY_ITERS} iterations); the loop of one-chain calls on "
+          f"chains {list(LOOP_CHAINS)} {len(LOOP_CHAINS) * MANY_ITERS / loop_s:.3f} "
+          f"chain-iterations/s ({loop_s:.3f}s); ratio "
+          f"{(MANY_CHAINS / batched_s) / (len(LOOP_CHAINS) / loop_s):.3f} "
+          f"{tag}", flush=True)
+    profiled_it = profile_one(lambda: apt.step_pg(
+        apt.rng.fold_in(apt.rng.chain_keys(apt.rng.key(222), MANY_CHAINS), 1), traced, pg,
+        apt.PGState(again.trajectory[:, -1]), "replay"))
+    print(f"profiled PGAS iteration, {MANY_CHAINS} chains x {MANY_N} (replay): wall "
+          f"{profiled_it[0]:.3f} ms, device busy {profiled_it[1]:.3f} ms "
+          f"({profiled_it[1] / profiled_it[0]:.4f} of wall), {profiled_it[2]} device-side "
+          f"launches {tag}", flush=True)
+    del chains, again
+
+    # ---- 10d. PGAS, 4 chains at 1M, replay storage, 2 iterations
+    t0 = time.perf_counter()
+    wide, launches = drive(lambda: parallel.sample_chains(
+        apt.rng.key(230), traced, apt.PGAS(N), WIDE_ITERS, WIDE_CHAINS,
+        trajectory_storage="replay"))
+    wide_s = time.perf_counter() - t0
+    lz_w = wide.log_evidence.double().cpu()
+    print(f"PGAS {WIDE_CHAINS} chains x N={N} x {WIDE_ITERS} iterations (replay), one batch: "
+          f"logZ {lz_w.tolist()}; {wide_s:.3f}s; launches {launches} {tag}", flush=True)
+    check(bool(torch.isfinite(wide.trajectory).all()) and bool(torch.isfinite(lz_w).all()),
+          "PGAS chains at 1M: not finite")
+    check(float((lz_w - sm.log_likelihood).abs().max()) < 1.0,
+          "PGAS chains at 1M: |logZ - kalman| >= 1")
+    check(launches == expected(per_firing_chains("systematic", WIDE_CHAINS),
+                               WIDE_ITERS * (T - 1)), f"PGAS chains at 1M: launches {launches}")
+    per_iteration[f"systematic, {WIDE_CHAINS} chains x 1M"] = {
+        k: v // WIDE_ITERS for k, v in launches.items() if v}
+    del wide
+
+    # ---- 10e. a GP-SSM ensemble, 4 runs of 65,536: B4 over leaves with the
+    # chain axis moves x [C, N] and the history [C, N, T]
+    gp = apt.models.gp_ssm(num_steps=T).to("cuda")
+    _, ys_gp = apt.simulate(apt.rng.key(60), gp, T)
+    traced_gp = apt.TracedSSM(gp, ys_gp)
+    t0 = time.perf_counter()
+    e_gp, launches = drive(lambda: parallel.smc_ensemble(
+        apt.rng.key(240), traced_gp, apt.SMC(GP_N), GP_RUNS, store_states=False))
+    gp_s = time.perf_counter() - t0
+    fired = int(e_gp.diagnostics["resampled"].any(0).sum())
+    one = apt.sample_smc(apt.rng.fold_in(apt.rng.key(240), 0), traced_gp, apt.SMC(GP_N),
+                         store_states=False, device="cuda")
+    dlz = abs(float(e_gp.log_evidence[0]) - float(one.log_evidence))
+    print(f"GP-SSM ensemble {GP_RUNS} runs x N={GP_N} T={T}: logZ "
+          f"{e_gp.log_evidence.tolist()}, run 0 against the one-chain run |dlogZ| {dlz:.3e}, "
+          f"steps with a firing {fired}, {gp_s:.3f}s, launches "
+          f"{ {k: v for k, v in launches.items() if v} } {tag}", flush=True)
+    check(bool(torch.isfinite(e_gp.log_evidence).all()), "GP-SSM ensemble: logZ not finite")
+    check(dlz < dlogz_bound(GP_N), f"GP-SSM ensemble: run 0 |dlogZ| {dlz} against the one-chain "
+          f"run, over {dlogz_bound(GP_N):.3f}")
+    check(fired > 0 and launches == expected(per_firing_chains("systematic", GP_RUNS, 2), fired),
+          f"GP-SSM ensemble: launches {launches}")
+    per_sweep[f"GP-SSM, {GP_RUNS} chains"] = {k: v for k, v in launches.items() if v}
+    print(f"phase 10 took {time.perf_counter() - t_phase:.1f}s", flush=True)
+    return per_sweep, per_iteration
 
 
 def _checkpointed_chain(apt, traced, pgas, key):

@@ -233,8 +233,15 @@ def test_cpu_path_counts_no_launches():
     ops.count_le_sorted_bs(s[:64], thr)
     ops.count_le_sorted(s[:64], thr)
     ops.decode_move_leaves(f, [torch.zeros(64), torch.zeros(64, 3, dtype=torch.int32)], 64)
-    assert len(ops.KERNEL_WRAPPERS) == 10
-    assert [w.launches for w in ops.KERNEL_WRAPPERS] == [0] * 10
+    # The kernels with the chain axis.
+    fc = ops.extents_from_logw_chains(torch.zeros(2, 64), torch.zeros(2), torch.full((2,), 64.0),
+                                      torch.full((2,), 0.5), 64)
+    ops.scaled_prefix_from_logw_chains(torch.zeros(2, 64), torch.zeros(2), torch.ones(2))
+    ops.prefix_sum_chains(torch.ones(2, 65))
+    ops.decode_move_chains(fc, torch.zeros(2, 64), 64)
+    ops.decode_move_leaves_chains(fc, [torch.zeros(2, 64), torch.zeros(2, 64, 3)], 64)
+    assert len(ops.KERNEL_WRAPPERS) == 15
+    assert [w.launches for w in ops.KERNEL_WRAPPERS] == [0] * 15
 
 
 # --- B6: the scaled prefix ----------------------------------------------------
