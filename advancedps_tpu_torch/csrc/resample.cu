@@ -248,13 +248,21 @@
 // that the cooperative launch cannot deadlock is unchanged.  B4 and B4 over
 // leaves take the chain as blockIdx.y and offset their extents, rows, outputs
 // and owners by the row's stride in 64 bits (C * N * d words pass 2^31 on a
-// GP-SSM's [N, 100] history), each block decoding and moving as before.  The
-// one-chain entries are the same kernels instantiated without the chain axis,
-// where the chain index is the constant 0: the scan and B4 sit at their
-// register caps (64 and 32 a thread), and with the chain offsets compiled in,
-// one chain's B1 and B6 took 0.0153 ms at 1M against 0.0110 (chip_smoke.py
-// phase 7) and B4 0.0073-0.0075 against 0.0067 (profiling/torch_kernels_ab.py,
-// in turns with the one-chain kernels; H100 80GB HBM3 at 700 W).
+// GP-SSM's [N, 100] history), each block decoding and moving as before.  B2,
+// B3, B7 and B8 take the chain as blockIdx.y in the same way, one guard (the
+// shared drawn count) for all chains; B7 and B8 read row c of s at c * lds,
+// so the engine's S[:, :n] (rows of n + 1) goes in as it lies, with no copy.
+// B5's scatter takes the chain as blockIdx.y, its marks rows of a multiple of
+// four words so that every row's 16-byte accesses stay aligned, and its scan
+// numbers its tiles chain-major with a look-back scratch a row, as B1's does:
+// still two launches for all chains, and every row's marks zero again after
+// them.  The one-chain entries are the same kernels instantiated without the
+// chain axis, where the chain index is the constant 0: the scan and B4 sit at
+// their register caps (64 and 32 a thread), and with the chain offsets
+// compiled in, one chain's B1 and B6 took 0.0153 ms at 1M against 0.0110
+// (chip_smoke.py phase 7) and B4 0.0073-0.0075 against 0.0067
+// (profiling/torch_kernels_ab.py, in turns with the one-chain kernels; H100
+// 80GB HBM3 at 700 W).
 //
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -280,6 +288,7 @@ constexpr int kMergeTile = 4096;           // merged entries per B8 block (16 KB
 constexpr int kDecodeMoveTile = kDecodeTile;  // output slots per B4 block: B2's tile
 constexpr int kDecodeMoveBlocks = 8;       // B4 blocks an SM: 32 registers a thread
 constexpr int kDenseTile = kTile;          // slots per tile of B5's scan
+constexpr int64_t kMaxChains = 65535;      // chains of one launch: gridDim.y, or a scan's rows
 
 struct Add {
   template <typename T>
@@ -848,11 +857,17 @@ __device__ __forceinline__ void store_slots(T* __restrict__ dst, int kx, int nk,
   }
 }
 
-// ---- B2: one block per kDecodeTile consecutive output slots.
+// ---- B2: one block per kDecodeTile consecutive output slots; with kChains,
+// of chain blockIdx.y, whose extents and counts lie one row's stride into f
+// and anc (see "The chain axis").
+template <bool kChains>
 __global__ void __launch_bounds__(kDecodeThreads)
-decode_tile_kernel(const int* __restrict__ f, int64_t m, int guard, int64_t start,
-                   int64_t n_out, int* __restrict__ anc) {
+decode_tile_kernel(const int* __restrict__ f_all, int64_t m, int guard, int64_t start,
+                   int64_t n_out, int* __restrict__ anc_all) {
   __shared__ DecodeTile sh;
+  const int64_t c = kChains ? blockIdx.y : 0;
+  const int* __restrict__ f = f_all + c * m;
+  int* __restrict__ anc = anc_all + c * n_out;
   const int64_t k0 = (int64_t)blockIdx.x * kDecodeTile;
   const int nk = (int)(n_out - k0 < kDecodeTile ? n_out - k0 : kDecodeTile);
   int cnt[kDecodeItems];
@@ -992,10 +1007,16 @@ decode_move_leaves_kernel(const int* __restrict__ f_all, int64_t m, int guard, i
 }
 
 // ---- B5 pass 1: run ends write one more than their row at their extent
-// (see "B5 counting").  marks is zero on entry.
+// (see "B5 counting").  marks is zero on entry.  With kChains, chain
+// blockIdx.y's extents are row c of f and its marks row c of marks, whose rows
+// lie ldm (a multiple of 4) apart.
+template <bool kChains>
 __global__ void __launch_bounds__(kMoveThreads)
-dense_run_ends_kernel(const int* __restrict__ f, int64_t m, int guard, int64_t n_out,
-                      int* __restrict__ marks) {
+dense_run_ends_kernel(const int* __restrict__ f_all, int64_t m, int guard, int64_t n_out,
+                      int* __restrict__ marks_all, int64_t ldm) {
+  const int64_t c = kChains ? blockIdx.y : 0;
+  const int* __restrict__ f = f_all + c * m;
+  int* __restrict__ marks = marks_all + c * ldm;
   const int64_t j = (int64_t)blockIdx.x * kMoveThreads + threadIdx.x;
   if (j >= m) return;
   const int fj = extent_at(f, j, m, guard);
@@ -1006,14 +1027,26 @@ dense_run_ends_kernel(const int* __restrict__ f, int64_t m, int guard, int64_t n
 // ---- B5 pass 2: anc = the inclusive running max of marks over n_out slots, in
 // one pass (see "B5 counting"); marks (16-byte aligned) is left zero again.
 // Block b takes tiles b, b + gridDim.x, ... of a cooperative launch, as
-// prefix_scan_kernel does; `slots` and `epoch` as there.
+// prefix_scan_kernel does; `scratch` and `epoch` as there.  With kChains,
+// `nchains` rows, their tiles numbered chain-major and each row looking back
+// through its own part of the scratch, as prefix_scan_kernel's rows do; the
+// marks of row c lie c * ldm words in.  Without it the chain is the constant
+// 0.
+template <bool kChains>
 __global__ void __launch_bounds__(kThreads, 4)
-dense_scan_kernel(int* __restrict__ marks, int64_t n_out, ulonglong2* __restrict__ slots,
-                  int64_t cap, unsigned long long epoch, int ntiles, int* __restrict__ anc) {
+dense_scan_kernel(int* __restrict__ marks_all, int64_t ldm, int64_t n_out,
+                  ulonglong2* __restrict__ scratch, int64_t cap, unsigned long long epoch,
+                  int ntiles, int nchains, int* __restrict__ anc_all) {
   __shared__ int smem[32];
   __shared__ int carry_s;
-  const bool vec_out = aligned16(anc);
-  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+  const int all_tiles = kChains ? ntiles * nchains : ntiles;  // < 2^31: the entry checks
+  for (int g = blockIdx.x; g < all_tiles; g += gridDim.x) {
+    const int c = kChains ? g / ntiles : 0;
+    const int tile = kChains ? g - c * ntiles : g;
+    int* __restrict__ marks = marks_all + (int64_t)c * ldm;
+    int* __restrict__ anc = anc_all + (int64_t)c * n_out;
+    ulonglong2* slots = scratch + (int64_t)c * 2 * scan_slots(cap);  // B1's stride a chain
+    const bool vec_out = aligned16(anc);
     const int64_t first = (int64_t)tile * kDenseTile + (int64_t)threadIdx.x * kItems;
     const bool whole = first + kItems <= n_out;
     int v[kItems];
@@ -1045,8 +1078,8 @@ dense_scan_kernel(int* __restrict__ marks, int64_t n_out, ulonglong2* __restrict
     int carry = block_exclusive_scan(run, 0, Max(), smem, &tile_max);
     if (threadIdx.x < 32) {
       const int own = __shfl_sync(kFullWarp, tile_max, 0);
-      const int c = warp_lookback(slots, cap, epoch, tile, own, 0, Max());
-      if (threadIdx.x == 0) carry_s = c;
+      const int before = warp_lookback(slots, cap, epoch, tile, own, 0, Max());
+      if (threadIdx.x == 0) carry_s = before;
     }
     __syncthreads();
     carry = max(carry, carry_s);
@@ -1069,10 +1102,18 @@ dense_scan_kernel(int* __restrict__ marks, int64_t n_out, ulonglong2* __restrict
 
 // ---- B3: one thread per output element (slot k, column c).  Values move as
 // 32-bit words, so the copy is bitwise.  Slots whose ancestor is m (past the
-// drawn population) move 0; the clipped ancestor m-1 is written beside.
-__global__ void move_rows_kernel(const int* __restrict__ anc, int64_t n_out, int64_t m,
-                                 const uint32_t* __restrict__ v, int64_t d,
-                                 uint32_t* __restrict__ out, int* __restrict__ anc_clipped) {
+// drawn population) move 0; the clipped ancestor m-1 is written beside.  With
+// kChains, of chain blockIdx.y: its ancestors, rows, output and clipped
+// ancestors lie one chain's stride into each array.
+template <bool kChains>
+__global__ void move_rows_kernel(const int* __restrict__ anc_all, int64_t n_out, int64_t m,
+                                 const uint32_t* __restrict__ v_all, int64_t d,
+                                 uint32_t* __restrict__ out_all, int* __restrict__ clipped_all) {
+  const int64_t ch = kChains ? blockIdx.y : 0;
+  const int* __restrict__ anc = anc_all + ch * n_out;
+  const uint32_t* __restrict__ v = v_all + ch * m * d;
+  uint32_t* __restrict__ out = out_all + ch * n_out * d;
+  int* __restrict__ anc_clipped = clipped_all + ch * n_out;
   const int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= n_out * d) return;
   const int64_t k = e / d;
@@ -1087,10 +1128,18 @@ __global__ void move_rows_kernel(const int* __restrict__ anc, int64_t n_out, int
 // search").  Item i of thread x is threshold i * kCountThreads + x of the
 // tile: a warp's lanes hold neighbouring thresholds, so their loads and stores
 // coalesce and their probes of the staged run fall on neighbouring entries,
-// in different banks.
+// in different banks.  With kChains, of chain blockIdx.y: its s is row c of
+// rows `lds` apart (a slice of a wider array needs no copy), its t and out row
+// c of [nchains, nt]; a row of s that is not 16-byte aligned is staged by
+// 4-byte copies.
+template <bool kChains>
 __global__ void __launch_bounds__(kCountThreads)
-count_le_tile_kernel(const float* __restrict__ s, int ns, const float* __restrict__ t,
-                     int64_t nt, int* __restrict__ out) {
+count_le_tile_kernel(const float* __restrict__ s_all, int ns, int64_t lds,
+                     const float* __restrict__ t_all, int64_t nt, int* __restrict__ out_all) {
+  const int64_t c = kChains ? blockIdx.y : 0;
+  const float* __restrict__ s = s_all + c * lds;
+  const float* __restrict__ t = t_all + c * nt;
+  int* __restrict__ out = out_all + c * nt;
   __shared__ __align__(16) float run_s[kCountStage + 4];
   __shared__ float warp_min[kCountThreads / 32], warp_max[kCountThreads / 32];
   __shared__ int bound[2];
@@ -1132,8 +1181,9 @@ count_le_tile_kernel(const float* __restrict__ s, int ns, const float* __restric
     for (int w = 1; w < kCountThreads / 32; ++w) {
       v = warp == 0 ? fminf(v, warp_min[w]) : fmaxf(v, warp_max[w]);
     }
-    const int64_t c = warp_partition_point(0, ns, [&](int64_t i) { return !(__ldg(s + i) > v); });
-    if (lane == 0) bound[warp] = (int)c;
+    const int64_t below =
+        warp_partition_point(0, ns, [&](int64_t i) { return !(__ldg(s + i) > v); });
+    if (lane == 0) bound[warp] = (int)below;
   }
   __syncthreads();
 
@@ -1175,10 +1225,17 @@ __device__ int merge_split_warp(const float* __restrict__ s, int ns,
 // t[j0, j0 + nj), lie between the splits of its first and last diagonal, which
 // its first two warps find.  Every s entry before i0 is <= t_j0 and every one
 // from i1 on is above the run's last threshold, so each count is i0 plus the
-// count within the staged run of s, found as B7 finds it.
+// count within the staged run of s, found as B7 finds it.  With kChains, of
+// chain blockIdx.y, its rows as B7's: the merge tiles run over ns + nt of each
+// chain.
+template <bool kChains>
 __global__ void __launch_bounds__(kMergeThreads)
-count_le_merge_kernel(const float* __restrict__ s, int ns, const float* __restrict__ t,
-                      int64_t nt, int* __restrict__ out) {
+count_le_merge_kernel(const float* __restrict__ s_all, int ns, int64_t lds,
+                      const float* __restrict__ t_all, int64_t nt, int* __restrict__ out_all) {
+  const int64_t c = kChains ? blockIdx.y : 0;
+  const float* __restrict__ s = s_all + c * lds;
+  const float* __restrict__ t = t_all + c * nt;
+  int* __restrict__ out = out_all + c * nt;
   __shared__ __align__(16) float run_s[kMergeTile + 4];
   __shared__ int split[2];
   const int64_t total = (int64_t)ns + nt;
@@ -1292,18 +1349,25 @@ int aps_decode_geometry(int which) {
                       : -1;
 }
 
+// B2 with the chain axis.  f int32[nchains, m], anc int32[nchains, n_out];
+// chain c is B2 on row c with the same guard and window, bit for bit.
+// 1 <= nchains <= kMaxChains.
+int aps_decode_ancestors_chains(const int* f, int64_t nchains, int64_t m, int guard,
+                                int64_t start, int64_t n_out, int* anc, void* stream) {
+  if (nchains < 1 || nchains > kMaxChains) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const dim3 grid(blocks_for(n_out, kDecodeTile), (unsigned)nchains);
+  auto kernel = nchains == 1 ? decode_tile_kernel<false> : decode_tile_kernel<true>;
+  kernel<<<grid, kDecodeThreads, 0, s>>>(f, m, guard, start, n_out, anc);
+  return (int)cudaGetLastError();
+}
+
 // B2.  f int32[m] nondecreasing (f[m-1] read as guard), m < 2^31; anc
 // int32[n_out] in [0, m], the counts of slots start .. start + n_out - 1.
 int aps_decode_ancestors(const int* f, int64_t m, int guard, int64_t start, int64_t n_out,
                          int* anc, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  decode_tile_kernel<<<blocks_for(n_out, kDecodeTile), kDecodeThreads, 0, s>>>(
-      f, m, guard, start, n_out, anc);
-  return (int)cudaGetLastError();
+  return aps_decode_ancestors_chains(f, 1, m, guard, start, n_out, anc, stream);
 }
-
-// The most chains one launch of B4 with the chain axis takes (gridDim.y).
-constexpr int64_t kMaxChains = 65535;
 
 // B4 with the chain axis.  f int32[nchains, m], v 32-bit words [nchains, m, d],
 // out [nchains, n_out, d], anc_clipped int32[nchains, n_out]; chain c is B4 on
@@ -1374,38 +1438,73 @@ int aps_decode_move_leaves_chains(const int* f, int64_t nchains, int64_t m, int 
   return (int)cudaGetLastError();
 }
 
-// B5.  f int32[m] >= 0, nondecreasing (f[m-1] read as guard); anc
-// int32[n_out], n_out >= 1; marks int32[>= n_out], 16-byte aligned, zero on
-// entry and zero again when the launches have run; scratch, cap and epoch as
-// for B1, cap >= ceil(n_out / aps_decode_geometry(3)).
-int aps_decode_ancestors_dense(const int* f, int64_t m, int guard, int64_t n_out, int* marks,
-                               void* scratch, int64_t cap, uint64_t epoch, int* anc,
-                               void* stream) {
-  static int resident[64] = {};
+// B5 with the chain axis.  f int32[nchains, m] >= 0, each row nondecreasing
+// (its last entry read as guard); anc int32[nchains, n_out], n_out >= 1; marks
+// int32 rows ldm apart (ldm >= n_out, a multiple of 4), nchains * ldm words,
+// 16-byte aligned, zero on entry and zero again when the launches have run;
+// scratch, cap and epoch as for B1 with the chain axis, cap >= ceil(n_out /
+// aps_decode_geometry(3)).  Chain c is B5 on row c, bit for bit.  Two launches
+// for all chains.  1 <= nchains <= kMaxChains.
+int aps_decode_ancestors_dense_chains(const int* f, int64_t nchains, int64_t m, int guard,
+                                      int64_t n_out, int* marks, int64_t ldm, void* scratch,
+                                      int64_t cap, uint64_t epoch, int* anc, void* stream) {
+  static int resident[64] = {}, resident_chains[64] = {};
   cudaStream_t s = (cudaStream_t)stream;
   const int64_t tiles = (n_out + kDenseTile - 1) / kDenseTile;
   // Refused before anything is marked: a scatter with no scan behind it would
   // leave the marks set.
-  if (tiles > cap || epoch == 0) return (int)cudaErrorInvalidValue;
-  dense_run_ends_kernel<<<blocks_for(m, kMoveThreads), kMoveThreads, 0, s>>>(
-      f, m, guard, n_out, marks);
+  if (tiles > cap || epoch == 0 || nchains < 1 || nchains > kMaxChains || ldm < n_out ||
+      (ldm & 3) != 0 || tiles * nchains >= (int64_t)1 << 31) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const dim3 scatter_grid(blocks_for(m, kMoveThreads), (unsigned)nchains);
+  auto scatter = nchains == 1 ? dense_run_ends_kernel<false> : dense_run_ends_kernel<true>;
+  scatter<<<scatter_grid, kMoveThreads, 0, s>>>(f, m, guard, n_out, marks, ldm);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   int ntiles = (int)tiles;
+  int nch = (int)nchains;
   ulonglong2* slots = (ulonglong2*)scratch;
   unsigned long long ep = epoch;
-  void* args[] = {&marks, &n_out, &slots, &cap, &ep, &ntiles, &anc};
-  return launch_scan((const void*)dense_scan_kernel, resident, tiles, cap, ep, args, s);
+  void* args[] = {&marks, &ldm, &n_out, &slots, &cap, &ep, &ntiles, &nch, &anc};
+  if (nchains == 1) {
+    return launch_scan((const void*)dense_scan_kernel<false>, resident, tiles, cap, ep, args, s);
+  }
+  return launch_scan((const void*)dense_scan_kernel<true>, resident_chains, tiles, cap, ep, args,
+                     s, nchains);
+}
+
+// B5.  f int32[m] >= 0, nondecreasing (f[m-1] read as guard); anc
+// int32[n_out], n_out >= 1; marks int32[>= n_out rounded up to a multiple of
+// 4], 16-byte aligned, zero on entry and zero again when the launches have
+// run; scratch, cap and epoch as for B1, cap >= ceil(n_out /
+// aps_decode_geometry(3)).
+int aps_decode_ancestors_dense(const int* f, int64_t m, int guard, int64_t n_out, int* marks,
+                               void* scratch, int64_t cap, uint64_t epoch, int* anc,
+                               void* stream) {
+  return aps_decode_ancestors_dense_chains(f, 1, m, guard, n_out, marks, (n_out + 3) & ~(int64_t)3,
+                                           scratch, cap, epoch, anc, stream);
+}
+
+// B3 with the chain axis.  anc int32[nchains, n_out] in [0, m]; v 32-bit words
+// [nchains, m, d]; out [nchains, n_out, d]; anc_clipped int32[nchains, n_out].
+// Chain c is B3 on row c, bit for bit.  1 <= nchains <= kMaxChains.
+int aps_move_rows_chains(const int* anc, int64_t nchains, int64_t n_out, int64_t m, const void* v,
+                         int64_t d, void* out, int* anc_clipped, void* stream) {
+  if (nchains < 1 || nchains > kMaxChains || d < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const dim3 grid(blocks_for(n_out * d, kMoveThreads), (unsigned)nchains);
+  auto kernel = nchains == 1 ? move_rows_kernel<false> : move_rows_kernel<true>;
+  kernel<<<grid, kMoveThreads, 0, s>>>(anc, n_out, m, (const uint32_t*)v, d, (uint32_t*)out,
+                                       anc_clipped);
+  return (int)cudaGetLastError();
 }
 
 // B3.  anc int32[n_out] in [0, m]; v 32-bit words [m, d]; out [n_out, d];
 // anc_clipped int32[n_out].
 int aps_move_rows(const int* anc, int64_t n_out, int64_t m, const void* v, int64_t d,
                   void* out, int* anc_clipped, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  move_rows_kernel<<<blocks_for(n_out * d, kMoveThreads), kMoveThreads, 0, s>>>(
-      anc, n_out, m, (const uint32_t*)v, d, (uint32_t*)out, anc_clipped);
-  return (int)cudaGetLastError();
+  return aps_move_rows_chains(anc, 1, n_out, m, v, d, out, anc_clipped, stream);
 }
 
 // The geometry of B7 and B8: 0 kCountTile, 1 kCountStage, 2 kMergeTile.
@@ -1413,13 +1512,42 @@ int aps_count_le_geometry(int which) {
   return which == 0 ? kCountTile : which == 1 ? kCountStage : which == 2 ? kMergeTile : -1;
 }
 
+// B7 with the chain axis.  Row c of s is float32[ns] at s + c * lds,
+// nondecreasing (lds >= ns where nchains > 1), ns < 2^31; t and out float32
+// and int32 [nchains, nt], nt >= 1.  Chain c is B7 on row c, bit for bit.
+// 1 <= nchains <= kMaxChains.
+int aps_count_le_sorted_bs_chains(const float* s, int64_t nchains, int64_t ns, int64_t lds,
+                                  const float* t, int64_t nt, int* out, void* stream) {
+  if (nchains < 1 || nchains > kMaxChains || ns >= (int64_t)1 << 31 ||
+      (nchains > 1 && lds < ns)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t st = (cudaStream_t)stream;
+  const dim3 grid(blocks_for(nt, kCountTile), (unsigned)nchains);
+  auto kernel = nchains == 1 ? count_le_tile_kernel<false> : count_le_tile_kernel<true>;
+  kernel<<<grid, kCountThreads, 0, st>>>(s, (int)ns, lds, t, nt, out);
+  return (int)cudaGetLastError();
+}
+
 // B7.  s float32[ns] nondecreasing, ns < 2^31; t float32[nt]; out int32[nt],
 // nt >= 1.
 int aps_count_le_sorted_bs(const float* s, int64_t ns, const float* t, int64_t nt,
                            int* out, void* stream) {
+  return aps_count_le_sorted_bs_chains(s, 1, ns, ns, t, nt, out, stream);
+}
+
+// B8 with the chain axis: rows as for B7 with the chain axis, each row of s
+// and of t nondecreasing.
+int aps_count_le_sorted_chains(const float* s, int64_t nchains, int64_t ns, int64_t lds,
+                               const float* t, int64_t nt, int* out, void* stream) {
+  if (nchains < 1 || nchains > kMaxChains || ns >= (int64_t)1 << 31 ||
+      (nchains > 1 && lds < ns)) {
+    return (int)cudaErrorInvalidValue;
+  }
   cudaStream_t st = (cudaStream_t)stream;
-  count_le_tile_kernel<<<blocks_for(nt, kCountTile), kCountThreads, 0, st>>>(s, (int)ns, t, nt,
-                                                                             out);
+  const dim3 grid(blocks_for(ns + nt, kMergeTile), (unsigned)nchains);
+  auto kernel = nchains == 1 ? count_le_merge_kernel<false> : count_le_merge_kernel<true>;
+  kernel<<<grid, kMergeThreads, 0, st>>>(s, (int)ns, lds, t, nt, out);
   return (int)cudaGetLastError();
 }
 
@@ -1427,10 +1555,7 @@ int aps_count_le_sorted_bs(const float* s, int64_t ns, const float* t, int64_t n
 // out int32[nt], nt >= 1.
 int aps_count_le_sorted(const float* s, int64_t ns, const float* t, int64_t nt, int* out,
                         void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  count_le_merge_kernel<<<blocks_for(ns + nt, kMergeTile), kMergeThreads, 0, st>>>(
-      s, (int)ns, t, nt, out);
-  return (int)cudaGetLastError();
+  return aps_count_le_sorted_chains(s, 1, ns, ns, t, nt, out, stream);
 }
 
 }  // extern "C"

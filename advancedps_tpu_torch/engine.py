@@ -406,9 +406,8 @@ def _fused_extents_chains(scheme, rs: rngmod.KeyBatch, u, logw, m, s1, n_resampl
                                                            device=logw.device)))
     S = ops.prefix_sum_chains(g)
     thr = ops.scaled_prefix_from_logw_chains(logw, m, S[:, n_resample] / s1)
-    # B7 (or B8) once a chain.
-    return torch.stack([ops.count_le_sorted_auto(S[c, :n_resample], thr[c])
-                        for c in range(logw.shape[0])])
+    # B7 (or B8) once for all chains, on the rows of S as they lie.
+    return ops.count_le_sorted_auto_chains(S[:, :n_resample], thr)
 
 
 def _snapshot_fn(kernel, state):

@@ -51,6 +51,12 @@ _SIGNATURES = {
     "aps_count_le_sorted_bs": (_P, _I64, _P, _I64, _P, _P),
     "aps_count_le_sorted": (_P, _I64, _P, _I64, _P, _P),
     "aps_count_le_geometry": (_I32,),
+    "aps_decode_ancestors_chains": (_P, _I64, _I64, _I32, _I64, _I64, _P, _P),
+    "aps_move_rows_chains": (_P, _I64, _I64, _I64, _P, _I64, _P, _P, _P),
+    "aps_decode_ancestors_dense_chains": (_P, _I64, _I64, _I32, _I64, _P, _I64, _P, _I64, _U64,
+                                          _P, _P),
+    "aps_count_le_sorted_bs_chains": (_P, _I64, _I64, _I64, _P, _I64, _P, _P),
+    "aps_count_le_sorted_chains": (_P, _I64, _I64, _I64, _P, _I64, _P, _P),
 }
 
 

@@ -31,12 +31,18 @@ from two more primitives:
   (:data:`COUNT_LE_SORTED`).
 
 Independent chains run as a batch along a leading chain axis (``[C, N]``
-log-weights, ``[C, N, ...]`` rows): :func:`extents_from_logw_chains` (B1),
+log-weights, ``[C, N, ...]`` rows), and every kernel has a form for it, one
+launch (two for B5) for all C chains, row ``c`` bitwise the one-chain kernel
+on that row: :func:`extents_from_logw_chains` (B1),
+:func:`decode_ancestors_chains` (B2), :func:`move_rows_chains` (B3),
+:func:`decode_move_chains` and :func:`decode_move_leaves_chains` (B4),
+:func:`decode_ancestors_dense_chains` (B5),
 :func:`scaled_prefix_from_logw_chains` and :func:`prefix_sum_chains` (B6),
-:func:`decode_move_chains` and :func:`decode_move_leaves_chains` (B4) are one
-launch for all C chains, row ``c`` bitwise the one-chain kernel on that row;
-:func:`resample_move_f_chains` is the batched decode + move (B4 under version
-1, the one-chain kernels once a chain under 6 and 0).
+:func:`count_le_sorted_bs_chains` (B7) and :func:`count_le_sorted_chains` (B8),
+picked by :func:`count_le_sorted_auto_chains`.
+:func:`resample_move_f_chains` is the batched decode + move under each move
+version.  The windowed forms of B2 and B4 serve the sharded exchange, which
+runs its chains in turn, and keep one chain.
 
 :func:`resample_move_f` is the decode + move the sweep runs on a firing;
 :data:`MOVE_VERSION` picks B4 (1, the default), B2 + B3 (6) or B5 + a gather
@@ -76,6 +82,16 @@ __all__ = [
     "decode_move_chains_ref",
     "decode_move_leaves_chains",
     "decode_move_leaves_chains_ref",
+    "decode_ancestors_chains",
+    "decode_ancestors_chains_ref",
+    "move_rows_chains",
+    "resample_move_chains_ref",
+    "decode_ancestors_dense_chains",
+    "decode_ancestors_dense_chains_ref",
+    "count_le_sorted_bs_chains",
+    "count_le_sorted_chains",
+    "count_le_sorted_chains_ref",
+    "count_le_sorted_auto_chains",
     "resample_move_f_chains",
     "MAX_CHAINS",
     "extents_from_prefix",
@@ -122,7 +138,8 @@ __all__ = [
 #: Extents are computed in float32; larger counts are not exact there.
 MAX_N = 1 << 24
 
-#: Chains one launch of B4 with the chain axis takes (its grid's second axis).
+#: Chains one launch of a kernel with the chain axis takes (the grid's second
+#: axis; a scan's rows).
 MAX_CHAINS = 65535
 
 #: B4 counts the words of one block's rows in an int32.
@@ -209,7 +226,8 @@ def _guard_of(n_out: int, guard: Optional[int], start: int) -> int:
 
 
 def _guarded(f, guard: int):
-    return torch.cat([f[:-1], torch.full((1,), guard, dtype=f.dtype, device=f.device)])
+    """``f`` with its last extent (each row's, for ``[C, M]``) set to ``guard``."""
+    return torch.cat([f[..., :-1], torch.full_like(f[..., -1:], guard)], dim=-1)
 
 
 def decode_ancestors_ref(f, n_out: int, guard: Optional[int] = None,
@@ -292,22 +310,42 @@ def _rows_of(v, anc):
     return v[torch.arange(v.shape[0], device=v.device)[:, None], anc.long()]
 
 
+def decode_ancestors_chains_ref(f, n_out: int, guard: Optional[int] = None) -> torch.Tensor:
+    """:func:`decode_ancestors_ref` row by row: ``f [C, M]``, every row's
+    ``f[c, M−1]`` read as the one ``guard``; int32 ``[C, n_out]``."""
+    fg = _guarded(f, _guard_of(n_out, guard, 0))
+    k = torch.arange(n_out, dtype=f.dtype, device=f.device).expand(f.shape[0], n_out)
+    return torch.searchsorted(fg, k.contiguous(), right=True).to(torch.int32)
+
+
+def decode_ancestors_dense_chains_ref(f, n_out: int, guard: Optional[int] = None) -> torch.Tensor:
+    """:func:`decode_ancestors_dense_ref` row by row: each row's run ends
+    scattered into its own row of marks, then ``cummax`` along the row."""
+    g = _guarded(f, _guard_of(n_out, guard, 0))
+    run_end = torch.ones_like(g, dtype=torch.bool)
+    run_end[:, :-1] = g[:, :-1] < g[:, 1:]
+    chain, row = (run_end & (g >= 0) & (g < n_out)).nonzero(as_tuple=True)
+    buf = torch.zeros((f.shape[0], n_out), dtype=torch.int32, device=f.device)
+    buf[chain, g[chain, row].long()] = (row + 1).to(torch.int32)
+    return torch.cummax(buf, 1).values
+
+
+def resample_move_chains_ref(anc, v):
+    """:func:`resample_move_ref` row by row: ``anc [C, n]``, ``v [C, M, ...]``."""
+    m = v.shape[1]
+    clipped = torch.clamp(anc, max=m - 1)
+    past = (anc >= m).reshape(anc.shape + (1,) * (v.dim() - 2))
+    return clipped, torch.where(past, torch.zeros((), dtype=v.dtype, device=v.device),
+                                _rows_of(v, clipped))
+
+
 def decode_move_leaves_chains_ref(f, leaves, n_out: int, guard: Optional[int] = None):
     """:func:`decode_move_leaves_ref` row by row: ``f [C, M]``, each leaf
     ``[C, M, ...]``; returns ``(anc [C, n_out] clipped to M−1, [moved leaf
     [C, n_out, ...], ...])``."""
-    m = f.shape[1]
-    g = _guard_of(n_out, guard, 0)
-    fg = torch.cat([f[:, :-1], torch.full_like(f[:, -1:], g)], dim=1).contiguous()
-    k = torch.arange(n_out, dtype=f.dtype, device=f.device).expand(f.shape[0], n_out)
-    anc = torch.searchsorted(fg, k.contiguous(), right=True).to(torch.int32)
-    clipped = torch.clamp(anc, max=m - 1)
-    moved = []
-    for v in leaves:
-        past = (anc >= m).reshape(anc.shape + (1,) * (v.dim() - 2))
-        moved.append(torch.where(past, torch.zeros((), dtype=v.dtype, device=v.device),
-                                 _rows_of(v, clipped)))
-    return clipped, moved
+    anc = decode_ancestors_chains_ref(f, n_out, guard)
+    moved = [resample_move_chains_ref(anc, v)[1] for v in leaves]
+    return torch.clamp(anc, max=f.shape[1] - 1), moved
 
 
 def decode_move_chains_ref(f, v, n_out: int, guard: Optional[int] = None):
@@ -319,6 +357,11 @@ def decode_move_chains_ref(f, v, n_out: int, guard: Optional[int] = None):
 def count_le_sorted_ref(s, t) -> torch.Tensor:
     """``#{k : s_k ≤ t_j}`` for each ``t_j``: ``searchsorted(s, t, right=True)``."""
     return torch.searchsorted(s, t, right=True).to(torch.int32)
+
+
+def count_le_sorted_chains_ref(s, t) -> torch.Tensor:
+    """:func:`count_le_sorted_ref` row by row: ``s [C, ns]``, ``t [C, nt]``."""
+    return torch.searchsorted(s.contiguous(), t, right=True).to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -410,13 +453,14 @@ def _scan_scratch(device: torch.device, length: int, chains: int = 1):
     return entry[2], entry[0], entry[3]
 
 
-def _dense_marks(device: torch.device, n_out: int) -> torch.Tensor:
-    """B5's zeroed marks for ``n_out`` slots on the current stream of
-    ``device``, grown (and zeroed anew) when too short."""
+def _dense_marks(device: torch.device, words: int) -> torch.Tensor:
+    """B5's zeroed marks, ``words`` int32 words at least (``n_out`` slots,
+    or C rows of them), on the current stream of ``device``, grown (and
+    zeroed anew) when too short."""
     key = (device.index, torch.cuda.current_stream(device).cuda_stream)
     marks = _DENSE_MARKS.get(key)
-    if marks is None or marks.numel() < n_out:
-        marks = torch.zeros(max(1 << 20, 1 << (n_out - 1).bit_length()), dtype=torch.int32,
+    if marks is None or marks.numel() < words:
+        marks = torch.zeros(max(1 << 20, 1 << (words - 1).bit_length()), dtype=torch.int32,
                             device=device)
         _DENSE_MARKS[key] = marks
     return marks
@@ -756,6 +800,91 @@ def decode_move_leaves_chains(f, leaves, n_out: int, guard: Optional[int] = None
     return anc_clipped, outs
 
 
+def decode_ancestors_chains(f, n_out: int, guard: Optional[int] = None) -> torch.Tensor:
+    """B2 with the chain axis: ``f`` int32 ``[C, M]`` extents; returns int32
+    ``[C, n_out]``, row ``c`` bitwise :func:`decode_ancestors` of ``f[c]``
+    with the same ``guard`` (``n_out`` if not given).  One launch, the chain
+    on the grid's second axis."""
+    _check_chain_rows(f, [])
+    g = _guard_of(n_out, guard, 0)
+    if _on_cpu(f):
+        return decode_ancestors_chains_ref(f, n_out, g)
+    c, m = f.shape
+    anc = torch.empty((c, n_out), dtype=torch.int32, device=f.device)
+    if n_out == 0:
+        return anc
+    lib = _build.library()
+    with torch.cuda.device(f.device):
+        rc = lib.aps_decode_ancestors_chains(_ptr(f), c, m, g, 0, int(n_out), _ptr(anc),
+                                             _stream(f.device))
+    _raise_on(rc, "decode_ancestors_chains")
+    decode_ancestors_chains.launches += 1
+    return anc
+
+
+def decode_ancestors_dense_chains(f, n_out: int, guard: Optional[int] = None) -> torch.Tensor:
+    """B5 with the chain axis: ``f`` int32 ``[C, M]`` nonnegative extents;
+    returns int32 ``[C, n_out]``, row ``c`` bitwise
+    :func:`decode_ancestors_dense` of ``f[c]`` with the same ``guard``.  Two
+    launches for all chains: the scatter, with the chain on the grid's second
+    axis, into a row of marks a chain, and one max-scan whose tiles run
+    chain-major, each row looking back only at its own tiles; the marks are
+    zero again after it."""
+    _check_chain_rows(f, [])
+    g = _guard_of(n_out, guard, 0)
+    if _on_cpu(f):
+        return decode_ancestors_dense_chains_ref(f, n_out, g)
+    c, m = f.shape
+    anc = torch.empty((c, n_out), dtype=torch.int32, device=f.device)
+    if n_out == 0:
+        return anc
+    ldm = -(-n_out // 4) * 4  # rows of marks 16-byte aligned
+    lib = _build.library()
+    with torch.cuda.device(f.device):
+        marks = _dense_marks(f.device, c * ldm)
+        scratch, cap, epoch = _scan_scratch(f.device, n_out, c)
+        rc = lib.aps_decode_ancestors_dense_chains(
+            _ptr(f), c, m, g, int(n_out), _ptr(marks), ldm, _ptr(scratch), cap, epoch,
+            _ptr(anc), _stream(f.device),
+        )
+        if rc != 0:  # the marks may be left set: the next call takes new ones
+            _DENSE_MARKS.clear()
+    _raise_on(rc, "decode_ancestors_dense_chains")
+    decode_ancestors_dense_chains.launches += 1
+    return anc
+
+
+def move_rows_chains(anc, v):
+    """B3 with the chain axis: ``anc`` int32 ``[C, n]`` with values in ``[0,
+    M]``, ``v`` float32 or int32 ``[C, M]`` or ``[C, M, D]``; returns ``(anc
+    clipped to M−1, moved [C, n, ...])``, chain ``c`` bitwise
+    :func:`move_rows` of ``(anc[c], v[c])``.  One launch."""
+    _check(anc, "anc", torch.int32, ndims=(2,))
+    c, n_out = anc.shape
+    if not 1 <= c <= MAX_CHAINS:
+        raise ValueError(f"anc must have 1 to {MAX_CHAINS} chains, got {c}")
+    _check(v, "v", WORD_DTYPES, ndims=(2, 3))
+    if v.shape[0] != c or v.shape[1] == 0:
+        raise ValueError(f"v has shape {tuple(v.shape)}: want {c} chains of at least one row")
+    d = 1 if v.dim() == 2 else v.shape[2]
+    if not 1 <= d <= MAX_DECODE_MOVE_D:
+        raise ValueError(f"v must have 1 to {MAX_DECODE_MOVE_D} columns, got {d}")
+    if _on_cpu(anc, v):
+        return resample_move_chains_ref(anc, v)
+    m = v.shape[1]
+    out = torch.empty((c, n_out) + tuple(v.shape[2:]), dtype=v.dtype, device=v.device)
+    anc_clipped = torch.empty_like(anc)
+    if n_out == 0:
+        return anc_clipped, out
+    lib = _build.library()
+    with torch.cuda.device(v.device):
+        rc = lib.aps_move_rows_chains(_ptr(anc), c, n_out, m, _ptr(v), d, _ptr(out),
+                                      _ptr(anc_clipped), _stream(v.device))
+    _raise_on(rc, "move_rows_chains")
+    move_rows_chains.launches += 1
+    return anc_clipped, out
+
+
 def _scaled_prefix(wrapper, x, m, scale, use_exp: bool) -> torch.Tensor:
     """B6 on ``x``'s device: the plain version on the CPU, else the kernel,
     counted on ``wrapper``."""
@@ -889,6 +1018,60 @@ def count_le_sorted_auto(s, t) -> torch.Tensor:
     return (count_le_sorted if COUNT_LE_SORTED == "merge" else count_le_sorted_bs)(s, t)
 
 
+def _count_le_chains(wrapper, entry: str, s, t) -> torch.Tensor:
+    """B7/B8 with the chain axis: the plain version on the CPU, else the
+    kernel behind the C entry ``entry``, counted on ``wrapper``."""
+    _check(t, "t", torch.float32, ndims=(2,))
+    if not isinstance(s, torch.Tensor) or s.dtype != torch.float32 or s.dim() != 2:
+        raise TypeError("s must be a float32 tensor [C, ns]")
+    c, ns = s.shape
+    if t.shape[0] != c:
+        raise ValueError(f"t has shape {tuple(t.shape)}, s has {c} chains")
+    if not 1 <= c <= MAX_CHAINS:
+        raise ValueError(f"s must have 1 to {MAX_CHAINS} chains, got {c}")
+    if ns >= 1 << 31:
+        raise ValueError(f"s must hold fewer than 2**31 values a chain, got {ns}")
+    if (ns > 1 and s.stride(1) != 1) or (c > 1 and s.stride(0) < ns):
+        raise ValueError("s must be rows of consecutive values, each row after the one before")
+    if _on_cpu(s, t):
+        return count_le_sorted_chains_ref(s, t)
+    out = torch.empty(t.shape, dtype=torch.int32, device=t.device)
+    if t.numel() == 0:
+        return out
+    lib = _build.library()
+    with torch.cuda.device(t.device):
+        rc = getattr(lib, entry)(_ptr(s), c, ns, s.stride(0), _ptr(t), t.shape[1], _ptr(out),
+                                 _stream(t.device))
+    _raise_on(rc, wrapper.__name__)
+    wrapper.launches += 1
+    return out
+
+
+def count_le_sorted_bs_chains(s, t) -> torch.Tensor:
+    """B7 with the chain axis: ``s`` float32 ``[C, ns]``, each row
+    nondecreasing, whose rows may lie further apart than ``ns`` (a slice
+    ``S[:, :n]`` of a wider array goes in as it lies), ``t`` float32 ``[C,
+    nt]``; row ``c`` is :func:`count_le_sorted_bs` of ``(s[c], t[c])``, bit
+    for bit.  One launch, the chain on the grid's second axis."""
+    return _count_le_chains(count_le_sorted_bs_chains, "aps_count_le_sorted_bs_chains", s, t)
+
+
+def count_le_sorted_chains(s, t) -> torch.Tensor:
+    """B8 with the chain axis: rows as :func:`count_le_sorted_bs_chains`, each
+    row of ``t`` nondecreasing too; row ``c`` is :func:`count_le_sorted` of
+    ``(s[c], t[c])``.  One launch."""
+    return _count_le_chains(count_le_sorted_chains, "aps_count_le_sorted_chains", s, t)
+
+
+def count_le_sorted_auto_chains(s, t) -> torch.Tensor:
+    """:func:`count_le_sorted_auto` for C chains: B7 with the chain axis
+    unless :data:`COUNT_LE_SORTED` is ``"merge"``."""
+    if COUNT_LE_SORTED not in ("bs", "merge"):
+        raise ValueError(f"COUNT_LE_SORTED must be 'bs' or 'merge', got {COUNT_LE_SORTED!r}")
+    return (count_le_sorted_chains if COUNT_LE_SORTED == "merge"
+            else count_le_sorted_bs_chains)(s, t)
+
+
 # ---------------------------------------------------------------------------
 # Decode + move, as the sweep and the sharded exchange call them
 # ---------------------------------------------------------------------------
@@ -975,18 +1158,13 @@ def resample_move_f_chains(f, state, n: int, version: Optional[int] = None,
     """:func:`resample_move_f` for C chains at once: ``f`` int32 ``[C, M]``,
     ``state`` a tensor or tree whose leaves are ``[C, M, ...]``.  Returns
     ``(anc [C, n] clipped to M−1, moved)``, chain ``c`` bitwise
-    :func:`resample_move_f` of row ``c`` under the same version.  Version 1
-    runs B4 (over leaves) with the chain axis, one launch for all chains;
-    versions 6 and 0 run their one-chain kernels once a chain."""
+    :func:`resample_move_f` of row ``c`` under the same version.  Every
+    kernel runs once for all chains: version 1 B4 (over leaves) with the chain
+    axis, 6 B2 and then B3 a 32-bit leaf, 0 B5 and then a gather; a state with
+    no 32-bit leaf is decoded by B2 and gathered under 1 and 6."""
     ver = _resolve_version(version)
-    c = f.shape[0]
-    if ver != 1:
-        outs = [resample_move_f(f[i], tree_map(lambda a, i=i: a[i], state), n, ver, guard_n)
-                for i in range(c)]
-        return (torch.stack([o[0] for o in outs]),
-                tree_map(lambda *xs: torch.stack(xs), *[o[1] for o in outs]))
     leaves, structure = tree_flatten(state)
-    m = f.shape[1]
+    c, m = f.shape
     words = [i for i, a in enumerate(leaves) if a.dtype in WORD_DTYPES]
     moved = [None] * len(leaves)
 
@@ -994,16 +1172,21 @@ def resample_move_f_chains(f, state, n: int, version: Optional[int] = None,
         a = a.contiguous()
         return a if a.dim() == 2 else a.reshape(a.shape[0], a.shape[1], -1)
 
-    if len(words) == 1:
+    if ver == 0:
+        anc = torch.clamp(decode_ancestors_dense_chains(f, n, guard_n), max=m - 1)
+    elif ver == 1 and len(words) == 1:
         anc, mv = decode_move_chains(f, rows(leaves[words[0]]), n, guard_n)
         moved[words[0]] = mv
-    elif words:
+    elif ver == 1 and words:
         anc, mvs = decode_move_leaves_chains(f, [rows(leaves[i]) for i in words], n, guard_n)
         for i, mv in zip(words, mvs):
             moved[i] = mv
-    else:  # no 32-bit leaf: B2 a chain, then every leaf gathered
-        anc = torch.stack([torch.clamp(decode_ancestors(f[i].contiguous(), n, guard=guard_n),
-                                       max=m - 1) for i in range(c)])
+    else:
+        raw = decode_ancestors_chains(f, n, guard_n)
+        anc = torch.clamp(raw, max=m - 1)
+        if ver == 6:
+            for i in words:
+                anc, moved[i] = move_rows_chains(raw, rows(leaves[i]))
     for i, a in enumerate(leaves):
         if moved[i] is None:
             moved[i] = _rows_of(a, anc)
@@ -1070,7 +1253,9 @@ KERNEL_WRAPPERS = (
     extents_from_logw, decode_ancestors, move_rows, decode_move, decode_move_leaves,
     decode_ancestors_dense, scaled_prefix_from_logw, prefix_sum, count_le_sorted_bs,
     count_le_sorted, extents_from_logw_chains, scaled_prefix_from_logw_chains,
-    prefix_sum_chains, decode_move_chains, decode_move_leaves_chains,
+    prefix_sum_chains, decode_move_chains, decode_move_leaves_chains, decode_ancestors_chains,
+    move_rows_chains, decode_ancestors_dense_chains, count_le_sorted_bs_chains,
+    count_le_sorted_chains,
 )
 
 

@@ -5,7 +5,9 @@ where it runs.  :func:`sample_chains` and :func:`smc_ensemble` run the chains
 on one device as one batch along a leading chain axis (the batch of keys
 :func:`~advancedps_tpu_torch.rng.chain_keys`, handed to the drivers of
 :mod:`~advancedps_tpu_torch.inference`), one set of launches a step for all of
-them, as the JAX package ``vmap``s them.  :func:`sharded_chains_pg` runs chains on the rows of a
+them, as the JAX package ``vmap``s them: each resampling kernel runs once a
+firing step for all chains, with the chain on its grid, under every scheme
+and move version.  :func:`sharded_chains_pg` runs chains on the rows of a
 :class:`~advancedps_tpu_torch.parallel.mesh.ChainParticleMesh`, each chain's
 particles sharded along its row; the rows share nothing, and one controller
 runs them in turn.

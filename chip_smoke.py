@@ -34,10 +34,12 @@ final line:
    leaves at 1M (leaves [N], [N, 2], [N, 100] and an int32 [N] in one launch,
    nine leaves in two, unaligned rows; whole, guarded and windowed) bitwise
    its plain version and B4 a leaf; and the kernels with the chain axis (B1,
-   B6 in both modes, B4 and B4 over leaves) at C x N = 8 x 1M, 64 x 16,384,
-   1 x 1M and 7 x 100,003, for n = N and the guard case: within their
-   batched plain versions' tolerances (B4 bitwise), each row bitwise the
-   one-chain kernel on that row, the rows of chains whose flag is off kept by
+   B6 in both modes, B4 and B4 over leaves; B2, B3, B5, B7 and B8) at C x N
+   = 8 x 1M, 64 x 16,384, 1 x 1M and 7 x 100,003, for n = N and the guard
+   case: within their batched plain versions' tolerances (B2-B5, B7 and B8
+   exact or bitwise), each row bitwise the one-chain kernel on that row, B5's
+   marks zero after every call, B7 and B8 on the engine's rows of
+   ``S[:, :n]`` (n + 1 apart), the rows of chains whose flag is off kept by
    the sweep's ``where``, and B4 on a chain that lies past 2**31 words;
 4. the SMC flagship (stationary LGSSM a=0.9, q=0.32, r=1.0, T=100,
    N=1,000,000, resampling at ESS ≤ N/2) through ``sample`` with each fused
@@ -77,8 +79,9 @@ final line:
    rows that own a slot: B3, B4, and B4 over leaves at 1 + 2 + 100 + 1 words
    a row and on the GP-SSM's state; B4 also on phase 9's ``[100k, 50]``
    generic state, beside B2 + ``index_select``); the kernels with the chain
-   axis at 8 x 1M, and B1 and B4 with it at 8 x 1M and 64 x 16,384 beside C
-   launches of the one-chain kernel.  The inputs are the same
+   axis at 8 x 1M (B2, B5, B7 and B8 beside a batched ``searchsorted``, B3
+   beside ``gather``), and B1-B5, B7 and B8 with it at 8 x 1M and 64 x 16,384
+   beside C launches of the one-chain kernel.  The inputs are the same
    tensors on every call, as in the sweep, where each was written by the step
    before: they sit in the 50 MB L2, so the readings are L2-warm.  A second
    window takes each kernel L2-cold, on 128 MB of copies of its inputs in
@@ -129,12 +132,18 @@ final line:
    per firing step; the launches and busy share of one profiled sweep at 1
    chain, 8 chains of 1M and 64 of 16,384, the batched sweep's launches under
    1.5 x one chain's and not growing with C; its time beside 8 one-chain
-   sweeps), stratified and multinomial ensembles of 4 x 1M, ``sample_chains``
+   sweeps), the same ensemble under move versions 6 (B2 + B3) and 0 (B5 + a
+   gather) bitwise the version-1 ensemble, each kernel once a firing step;
+   stratified, multinomial and merge-path multinomial (B8) ensembles of 4 x
+   1M, ``sample_chains``
    PGAS with replay storage for 64 chains of 16,384 (3 iterations: the RMS
    z-score of the pooled chain means against the RTS smoother < 3; chains 0,
    1, 2 and 63 run one at a time with ``sample_pg`` of their key, held
    against the batch and timed as the loop of one-chain calls beside its
-   chain-iterations/s; a profiled iteration) and for 4
+   chain-iterations/s; a profiled iteration), multinomial PGAS for 64 chains
+   of 16,384 (2 iterations: B7 once a step for all chains, its launches a
+   firing step those of the 4-chain ensemble; an iteration timed and profiled
+   in turns with B7 run once a chain, the loop it replaced) and for 4
    chains at 1M (2 iterations), and a GP-SSM ensemble of 4 x 65,536 (B4 over
    leaves with the chain axis).
 
@@ -219,6 +228,11 @@ REPLACES = {
     "prefix_sum_chains": f"{TPU_FILE}:325",
     "decode_move_chains": f"{TPU_FILE}:728",
     "decode_move_leaves_chains": f"{TPU_FILE}:728",
+    "decode_ancestors_chains": f"{TPU_FILE}:972",
+    "move_rows_chains": f"{TPU_FILE}:1090",
+    "decode_ancestors_dense_chains": f"{TPU_FILE}:103",
+    "count_le_sorted_bs_chains": f"{TPU_FILE}:476",
+    "count_le_sorted_chains": f"{TPU_FILE}:516",
 }
 #: The chain axis (phases 3, 7 and 10): phase 3's sizes (C, N) of the
 #: chain-axis kernels (100,003 no multiple of a tile), the flagship ensemble's
@@ -229,6 +243,8 @@ CHAIN_SIZES = ((8, N), (64, 16_384), (1, N), (7, 100_003))
 ENSEMBLE_RUNS = 8
 SCHEME_RUNS = 4
 MANY_CHAINS, MANY_N, MANY_ITERS = 64, 16_384, 3
+#: Iterations of the multinomial PGAS batch of MANY_CHAINS x MANY_N.
+MULTI_ITERS = 2
 #: The PGAS chains run one at a time beside the batch: held against it and
 #: timed as the loop of one-chain calls that the batch replaces.
 LOOP_CHAINS = (0, 1, 2, MANY_CHAINS - 1)
@@ -240,14 +256,16 @@ GP_RUNS, GP_N = 4, 65_536
 EARLIER_MULTINOMIAL_ERR = "0.000238"
 EARLIER_MULTINOMIAL_PGAS_LOGZ = [-161.53640747070312, -161.53016662597656]
 #: Wrappers whose call is one device-side launch by design: the single-pass
-#: scan (no reset pass, no memset), the tile decode, and the decode + move on it.
+#: scan (no reset pass, no memset), the tile decode, and the decode + move on
+#: it; with the chain axis, each kernel once for all chains.
 SINGLE_LAUNCH = ("extents_from_logw", "scaled_prefix_from_logw", "prefix_sum", "decode_ancestors",
                  "decode_move", "decode_move_leaves", "extents_from_logw_chains",
                  "scaled_prefix_from_logw_chains", "prefix_sum_chains", "decode_move_chains",
-                 "decode_move_leaves_chains")
+                 "decode_move_leaves_chains", "decode_ancestors_chains", "move_rows_chains",
+                 "count_le_sorted_bs_chains", "count_le_sorted_chains")
 #: Device-side launches a call may make at most, where that is not 1: B5 is a
-#: scatter and a single-pass scan, with no memset.
-MOST_LAUNCHES = {"decode_ancestors_dense": 2}
+#: scatter and a single-pass scan, with no memset, for one chain or C.
+MOST_LAUNCHES = {"decode_ancestors_dense": 2, "decode_ancestors_dense_chains": 2}
 #: The decode + move kernels of each move version, per firing.
 DECODE_MOVE = {
     6: {"decode_ancestors": 1, "move_rows": 1},
@@ -274,15 +292,22 @@ PER_FIRING = {
 PER_VERSION = {ver: {"extents_from_logw": 1, **move} for ver, move in DECODE_MOVE.items()}
 #: Turns of the move versions' A/B in phase 7.
 VERSION_TURNS = (6, 1, 0, 0, 1, 6)
-#: Kernel launches per step of a batched sweep (C chains) on which some chain
-#: fires, by scheme: one launch for all chains, but B7 once a chain.
-def per_firing_chains(scheme: str, chains: int, leaves: int = 1) -> dict:
-    move = ({"decode_move_chains": 1} if leaves == 1
-            else {"decode_move_leaves_chains": -(-leaves // 8)})
+
+
+def per_firing_chains(scheme: str, leaves: int = 1, version: int = DEFAULT_MOVE) -> dict:
+    """Kernel launches per step of a batched sweep on which some chain fires,
+    by scheme: every kernel once for all chains, whatever C."""
+    move = {1: ({"decode_move_chains": 1} if leaves == 1
+                else {"decode_move_leaves_chains": -(-leaves // 8)}),
+            6: {"decode_ancestors_chains": 1, "move_rows_chains": leaves},
+            0: {"decode_ancestors_dense_chains": 1}}[version]
     return {**{"systematic": {"extents_from_logw_chains": 1},
                "stratified": {"scaled_prefix_from_logw_chains": 1},
                "multinomial": {"prefix_sum_chains": 1, "scaled_prefix_from_logw_chains": 1,
-                               "count_le_sorted_bs": chains}}[scheme], **move}
+                               "count_le_sorted_bs_chains": 1},
+               "multinomial, merge path": {"prefix_sum_chains": 1,
+                                           "scaled_prefix_from_logw_chains": 1,
+                                           "count_le_sorted_chains": 1}}[scheme], **move}
 
 
 def fail(msg: str):
@@ -393,6 +418,12 @@ def nbytes(*tensors) -> int:
     """Bytes of the tensors, lists of tensors counted element by element."""
     return sum(nbytes(*t) if isinstance(t, (list, tuple)) else t.numel() * t.element_size()
                for t in tensors)
+
+
+def clone_as_laid(a: torch.Tensor) -> torch.Tensor:
+    """A copy of ``a`` with its strides: a slice of a wider array stays one."""
+    out = torch.empty_strided(a.shape, a.stride(), dtype=a.dtype, device=a.device)
+    return out.copy_(a)
 
 
 def monotone_extents(m: int, n: int, gen: torch.Generator) -> torch.Tensor:
@@ -636,6 +667,80 @@ def chain_kernel_checks(ops, gen, err):
           f"plain versions' tolerances (B4 bitwise), each row bitwise the one-chain kernel, "
           f"chains whose flag is off kept; B4 on chain 2 of [3, {N}, {d}] (past 2**31 words) "
           f"bitwise the one-chain kernel; {time.perf_counter() - t0:.1f}s", flush=True)
+
+
+def chain_decode_checks(ops, gen, err):
+    """Phase 3's B2, B3, B5, B7 and B8 with the chain axis at each of
+    CHAIN_SIZES, for n = N and the guard case: exact against their batched
+    plain versions (B3 bitwise), each row bitwise the one-chain kernel on that
+    row, B5's marks zero again after every call, and B7 and B8 on the rows of
+    ``S[:, :n]`` as the engine hands them over (rows n + 1 apart, most of them
+    not 16-byte aligned); B7 also on thresholds in random order with NaN."""
+    t0 = time.perf_counter()
+    for c, n in CHAIN_SIZES:
+        logw, m, s1, u = chain_case(c, n, gen)
+        x = torch.randn(c, n, generator=gen, device="cuda")
+        w = torch.randn(c, n, 3, generator=gen, device="cuda")
+        S = ops.prefix_sum_chains(-torch.log1p(-torch.rand(c, n + 1, generator=gen, device="cuda")))
+        for nd in (n, n - 1):
+            label = f"chain axis C={c} N={n} n={nd}"
+            f = ops.extents_from_logw_chains(logw, m, s1, u, nd)
+            a2 = ops.decode_ancestors_chains(f, n, guard=nd)
+            a5 = ops.decode_ancestors_dense_chains(f, n, guard=nd)
+            check(all(int(mk.count_nonzero()) == 0 for mk in ops._DENSE_MARKS.values()),
+                  f"{label}: B5 left marks set")
+            r2 = ops.decode_ancestors_chains_ref(f, n, guard=nd)
+            r5 = ops.decode_ancestors_dense_chains_ref(f, n, guard=nd)
+            err["decode_ancestors_chains"] = max(err["decode_ancestors_chains"], max_abs(a2, r2))
+            err["decode_ancestors_dense_chains"] = max(err["decode_ancestors_dense_chains"],
+                                                       max_abs(a5, r5))
+            check(torch.equal(a2, r2), f"{label}: B2 differs from its plain version")
+            check(torch.equal(a5, r5) and torch.equal(a5, a2),
+                  f"{label}: B5 differs from its plain version or from B2")
+            moved = [(v, ops.move_rows_chains(a2, v)) for v in (x, w)]
+            for v, (ac, mv) in moved:
+                rac, rmv = ops.resample_move_chains_ref(a2, v)
+                err["move_rows_chains"] = max(err["move_rows_chains"], max_abs(ac, rac),
+                                              max_abs(mv, rmv))
+                check(torch.equal(ac, rac) and torch.equal(bits(mv), bits(rmv)),
+                      f"{label}: B3 on {tuple(v.shape)} differs from its plain version")
+            s_ = S[:, :nd]
+            thr = ops.scaled_prefix_from_logw_chains(logw, m, S[:, nd] / s1)
+            t_any = thr[:, torch.randperm(n, generator=gen, device="cuda")].contiguous()
+            t_any[:, ::1000] = math.nan
+            counts = {}
+            for name, fn, t_ in (("count_le_sorted_bs_chains", ops.count_le_sorted_bs_chains, thr),
+                                 ("count_le_sorted_chains", ops.count_le_sorted_chains, thr),
+                                 ("count_le_sorted_bs_chains", ops.count_le_sorted_bs_chains,
+                                  t_any)):
+                got = fn(s_, t_)
+                want = ops.count_le_sorted_chains_ref(s_, t_)
+                err[name] = max(err[name], max_abs(got, want))
+                check(torch.equal(got, want), f"{label}: {name} differs from its plain version")
+                counts.setdefault(name, got)
+            for r in range(c):
+                one = [ops.decode_ancestors(f[r], n, guard=nd),
+                       ops.decode_ancestors_dense(f[r], n, guard=nd)]
+                check(torch.equal(a2[r], one[0]) and torch.equal(a5[r], one[1]),
+                      f"{label}: row {r} of B2 or B5 differs from the one-chain kernel")
+                for v, (ac, mv) in moved:
+                    ac1, mv1 = ops.move_rows(a2[r], v[r])
+                    check(torch.equal(ac[r], ac1) and torch.equal(bits(mv[r]), bits(mv1)),
+                          f"{label}: row {r} of B3 on {tuple(v.shape)} differs from the "
+                          f"one-chain kernel")
+                check(torch.equal(counts["count_le_sorted_bs_chains"][r],
+                                  ops.count_le_sorted_bs(s_[r], thr[r]))
+                      and torch.equal(counts["count_le_sorted_chains"][r],
+                                      ops.count_le_sorted(s_[r], thr[r])),
+                      f"{label}: row {r} of B7 or B8 differs from the one-chain kernel")
+            del f, a2, a5, r2, r5, moved, thr, t_any, counts
+        del logw, x, w, S
+        torch.cuda.empty_cache()
+    print(f"chain axis: B2, B3 (1 and 3 columns), B5, B7 and B8 (B7 also on thresholds in random "
+          f"order with NaN) at C x N = {', '.join(f'{c} x {n}' for c, n in CHAIN_SIZES)}, n = N "
+          f"and the guard: exact against their batched plain versions, each row bitwise the "
+          f"one-chain kernel, B5's marks zero after every call; "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
 
 
 def check_decode_forms(ops, f, n, vs, label, err):
@@ -1045,6 +1150,7 @@ def main():
               f"inf, one entry); B7 = plain on unsorted thresholds with NaN", flush=True)
     torch.cuda.synchronize()
     chain_kernel_checks(ops, gen, err)
+    chain_decode_checks(ops, gen, err)
 
     # ---- 4. the SMC flagship with each fused scheme, through sample
     model = apt.models.stationary_lgssm(A, Q, R)
@@ -1504,6 +1610,43 @@ def main():
             lambda f_, *ls: ops.decode_move_leaves_chains(f_, list(ls), N), None,
             (cf, *c_leaves)),
     })
+    # B2, B3, B5, B7 and B8 with the chain axis at 8 x 1M, each beside the one
+    # batched PyTorch call for its function: searchsorted over the rows (B2,
+    # B5, B7, B8) and gather (B3).  B7 and B8 read the rows of S[:, :N] as the
+    # engine hands them over; the library call gets a contiguous copy.
+    c_raw = ops.decode_ancestors_chains(cf, N)
+    c_idx = torch.clamp(c_raw, max=N - 1).long()
+    cS = ops.prefix_sum_chains(cg)
+    cs_ = cS[:, :N]
+    cs_dense = cs_.contiguous()
+    cthr = ops.scaled_prefix_from_logw_chains(cl, cm, cS[:, N] / cs1)
+    cf_guarded = cf.clone()
+    cf_guarded[:, -1] = N
+    c_slots = torch.arange(N, dtype=torch.int32, device="cuda").expand(C, N).contiguous()
+
+    def chains_decode_library():
+        return torch.searchsorted(cf_guarded, c_slots, right=True, out_int32=True)
+
+    def chains_count_library():
+        return torch.searchsorted(cs_dense, cthr, right=True, out_int32=True)
+
+    measured.update({
+        "decode_ancestors_chains": (
+            lambda f_: ops.decode_ancestors_chains_ref(f_, N),
+            lambda f_: ops.decode_ancestors_chains(f_, N), chains_decode_library, (cf,)),
+        "move_rows_chains": (
+            ops.resample_move_chains_ref, ops.move_rows_chains,
+            lambda: torch.gather(cx, 1, c_idx), (c_raw, cx)),
+        "decode_ancestors_dense_chains": (
+            lambda f_: ops.decode_ancestors_dense_chains_ref(f_, N),
+            lambda f_: ops.decode_ancestors_dense_chains(f_, N), chains_decode_library, (cf,)),
+        "count_le_sorted_bs_chains": (
+            ops.count_le_sorted_chains_ref, ops.count_le_sorted_bs_chains, chains_count_library,
+            (cs_, cthr)),
+        "count_le_sorted_chains": (
+            ops.count_le_sorted_chains_ref, ops.count_le_sorted_chains, chains_count_library,
+            (cs_, cthr)),
+    })
 
     def turns(readings):
         return ", ".join(f"{r:.4f}" for r in readings)
@@ -1517,7 +1660,8 @@ def main():
     gathered = {"move_rows": ((x,), N, owners), "decode_move": ((x,), N, owners),
                 "decode_move_leaves": (wide_leaves, N, owners),
                 "decode_move_chains": ((cx,), C * N, owners_c),
-                "decode_move_leaves_chains": (c_leaves, C * N, owners_c)}
+                "decode_move_leaves_chains": (c_leaves, C * N, owners_c),
+                "move_rows_chains": ((cx,), C * N, owners_c)}
     timing = {}
     for name, (plain, kernel_fn, library, inputs) in measured.items():
         call_ms, plain_call_ms, readings = plain_vs_kernel(lambda: plain(*inputs),
@@ -1529,7 +1673,7 @@ def main():
             moved -= sum(nbytes(v) // rows_all for v in vs) * (rows_all - own)
         # The same call on copies of its inputs taken in turn, 128 MB of them:
         # by the time a copy comes round again the 50 MB L2 has lost it.
-        copies = [tuple(a.clone() for a in inputs) for _ in range(-(-COLD_BYTES // moved))]
+        copies = [tuple(map(clone_as_laid, inputs)) for _ in range(-(-COLD_BYTES // moved))]
         turn = iter(range(10 ** 9))
         warm_ms, launches_per_call = device_ms_and_launches(lambda: kernel_fn(*inputs))
         row = {
@@ -1589,29 +1733,75 @@ def main():
               f"{device_ms(plain):.5f} ms; per call by events {k_ms:.4f} ms, plain {p_ms:.4f} ms "
               f"({turns(readings)}) {tag}", flush=True)
     del f_16m
-    # B1 and B4 with the chain axis at 8 x 1M and 64 x 16,384 beside C
-    # launches of the one-chain kernel on the same rows, device time and bound.
+    # The kernels with the chain axis at 8 x 1M and 64 x 16,384 beside C
+    # launches of the one-chain kernel on the same rows, device time, bound
+    # and, where there is one, the one batched PyTorch call.
     for c_, n_ in ((ENSEMBLE_RUNS, N), (MANY_CHAINS, MANY_N)):
         lw_, m_, s1_, u_ = chain_case(c_, n_, gen)
         u_list = u_.tolist()
         f_ = ops.extents_from_logw_chains(lw_, m_, s1_, u_, n_)
         x_ = torch.randn(c_, n_, generator=gen, device="cuda")
         a_ = ops.decode_move_chains(f_, x_, n_)[0]
+        raw_ = ops.decode_ancestors_chains(f_, n_)
+        idx_ = a_.long()
         own_ = sum(int(torch.unique(a_[r]).numel()) for r in range(c_))
-        b1 = device_ms(lambda: ops.extents_from_logw_chains(lw_, m_, s1_, u_, n_))
-        b1_loop = device_ms(lambda: [ops.extents_from_logw(lw_[r], m_[r], s1_[r], u_list[r], n_)
-                                     for r in range(c_)])
-        b4 = device_ms(lambda: ops.decode_move_chains(f_, x_, n_))
-        b4_loop = device_ms(lambda: [ops.decode_move(f_[r], x_[r], n_) for r in range(c_)])
-        b1_bytes = nbytes(lw_, f_, m_, s1_, u_)
-        b4_bytes = nbytes(f_, a_, x_) + 4 * own_
-        print(f"chain axis C={c_} N={n_}: B1 device {b1:.5f} ms against {c_} one-chain launches "
-              f"{b1_loop:.5f} ms, bound {b1_bytes / HBM_BYTES_PER_S * 1e3:.5f} ms ({b1_bytes} "
-              f"bytes); B4 device {b4:.5f} ms against {c_} one-chain launches {b4_loop:.5f} ms, "
-              f"bound {b4_bytes / HBM_BYTES_PER_S * 1e3:.5f} ms ({b4_bytes} bytes, {own_} owner "
-              f"rows) {tag}", flush=True)
-        del lw_, f_, x_, a_
-    del cl, cg, cf, cx, c_leaves, c_anc
+        Sc_ = ops.prefix_sum_chains(
+            -torch.log1p(-torch.rand(c_, n_ + 1, generator=gen, device="cuda")))
+        sc_ = Sc_[:, :n_]
+        s_dense = sc_.contiguous()
+        thr_ = ops.scaled_prefix_from_logw_chains(lw_, m_, Sc_[:, n_] / s1_)
+        fg_ = f_.clone()
+        fg_[:, -1] = n_
+        slots_ = torch.arange(n_, dtype=torch.int32, device="cuda").expand(c_, n_).contiguous()
+
+        def decode_lib():
+            return torch.searchsorted(fg_, slots_, right=True, out_int32=True)
+
+        def count_lib():
+            return torch.searchsorted(s_dense, thr_, right=True, out_int32=True)
+
+        rows = 4 * c_ * n_  # bytes of one int32 or float32 [C, N]
+        forms = (  # name, the batched call, the loop of one-chain calls, bytes, library call
+            ("B1 extents_from_logw_chains",
+             lambda: ops.extents_from_logw_chains(lw_, m_, s1_, u_, n_),
+             lambda: [ops.extents_from_logw(lw_[r], m_[r], s1_[r], u_list[r], n_)
+                      for r in range(c_)], 2 * rows + nbytes(m_, s1_, u_), None),
+            ("B2 decode_ancestors_chains", lambda: ops.decode_ancestors_chains(f_, n_),
+             lambda: [ops.decode_ancestors(f_[r], n_) for r in range(c_)], 2 * rows, decode_lib),
+            ("B3 move_rows_chains", lambda: ops.move_rows_chains(raw_, x_),
+             lambda: [ops.move_rows(raw_[r], x_[r]) for r in range(c_)], 3 * rows + 4 * own_,
+             lambda: torch.gather(x_, 1, idx_)),
+            ("B4 decode_move_chains", lambda: ops.decode_move_chains(f_, x_, n_),
+             lambda: [ops.decode_move(f_[r], x_[r], n_) for r in range(c_)],
+             3 * rows + 4 * own_, None),
+            ("B5 decode_ancestors_dense_chains", lambda: ops.decode_ancestors_dense_chains(f_, n_),
+             lambda: [ops.decode_ancestors_dense(f_[r], n_) for r in range(c_)], 2 * rows,
+             decode_lib),
+            ("B7 count_le_sorted_bs_chains", lambda: ops.count_le_sorted_bs_chains(sc_, thr_),
+             lambda: [ops.count_le_sorted_bs(sc_[r], thr_[r]) for r in range(c_)], 3 * rows,
+             count_lib),
+            ("B8 count_le_sorted_chains", lambda: ops.count_le_sorted_chains(sc_, thr_),
+             lambda: [ops.count_le_sorted(sc_[r], thr_[r]) for r in range(c_)], 3 * rows,
+             count_lib))
+        for what, batched, loop, moved, library in forms:
+            batched()
+            torch.cuda.synchronize()
+            by_kernel = device_rows(batched, REPS)
+            ms = sum(e.self_device_time_total for e in by_kernel) / REPS / 1e3
+            loop_ms = device_ms(loop)
+            bound = moved / HBM_BYTES_PER_S * 1e3
+            if len(by_kernel) > 1:  # B5: the scatter and the scan
+                print(f"  {what} by kernel: " + ", ".join(
+                    f"{e.key[:40]} {e.self_device_time_total / REPS / 1e3:.5f} ms"
+                    for e in by_kernel), flush=True)
+            lib_txt = "no single call" if library is None else f"{device_ms(library):.5f} ms"
+            own_txt = f", {own_} owner rows" if "move" in what else ""
+            print(f"chain axis C={c_} N={n_}: {what} device {ms:.5f} ms L2-warm against {c_} "
+                  f"one-chain launches {loop_ms:.5f} ms ({loop_ms / ms:.2f}x), library {lib_txt}; "
+                  f"bound {bound:.5f} ms ({moved} bytes{own_txt}), share {bound / ms:.4f} {tag}",
+                  flush=True)
+        del lw_, f_, x_, a_, raw_, idx_, Sc_, sc_, s_dense, thr_, fg_, slots_
+    del cl, cg, cf, cx, c_leaves, c_anc, c_raw, c_idx, cS, cs_, cs_dense, cthr, cf_guarded, c_slots
     # One firing's move of the GP-SSM's tree state (phase 8) at 1M: x [N] and
     # the history [N, T], 101 words a row, through B4 over leaves.
     gp_state = (x, wide_leaves[2])
@@ -2172,7 +2362,7 @@ def chains_phase(apt, ops, drive, expected, profile_one, tag, traced, kernel, sy
           f"max {float(errs.max()):.6f}, steps on which some run fired {fired}, launches "
           f"{ {k: v for k, v in launches.items() if v} } {tag}", flush=True)
     check(bool((errs < 0.1).all()), f"ensemble: |logZ - kalman| {errs.tolist()}, not all < 0.1")
-    check(launches == expected(per_firing_chains("systematic", C), fired),
+    check(launches == expected(per_firing_chains("systematic"), fired),
           f"ensemble: launches {launches}")
     per_sweep[f"systematic, {C} chains"] = {k: v for k, v in launches.items() if v}
     keys = apt.rng.chain_keys(key, C)
@@ -2235,12 +2425,42 @@ def chains_phase(apt, ops, drive, expected, profile_one, tag, traced, kernel, sy
           f"{med['one chain'] * 1e3:.3f} ms, x {C} = {C * med['one chain'] * 1e3:.3f} ms; "
           f"ratio {med['batched'] / (C * med['one chain']):.4f} (in turns) {tag}", flush=True)
 
-    # ---- 10b. stratified and multinomial ensembles, 4 runs at 1M
+    # The same ensemble under move versions 6 (B2 + B3) and 0 (B5 + a
+    # gather), each kernel once a firing step for all chains: bitwise the
+    # version-1 ensemble.
+    for ver in (6, 0):
+        ops.MOVE_VERSION = ver
+        try:
+            e_v, launches = drive(lambda: parallel.smc_ensemble(key, traced, apt.SMC(N), C,
+                                                                store_states=False))
+        finally:
+            ops.MOVE_VERSION = DEFAULT_MOVE
+        fired_v = int(e_v.diagnostics["resampled"].any(0).sum())
+        same = (torch.equal(e_v.log_evidence, ens.log_evidence)
+                and torch.equal(e_v.weights, ens.weights)
+                and torch.equal(e_v.diagnostics["resampled"], ens.diagnostics["resampled"]))
+        print(f"ensemble [systematic, move version {ver}] {C} runs x N={N}: bitwise the version "
+              f"{DEFAULT_MOVE} ensemble (logZ, weights, flags) {same}, launches "
+              f"{ {k: v for k, v in launches.items() if v} } {tag}", flush=True)
+        check(same, f"ensemble under move version {ver} differs from version {DEFAULT_MOVE}")
+        check(launches == expected(per_firing_chains("systematic", version=ver), fired_v),
+              f"ensemble under move version {ver}: launches {launches}")
+        per_sweep[f"systematic, {C} chains, move version {ver}"] = {
+            k: v for k, v in launches.items() if v}
+
+    # ---- 10b. stratified and multinomial (B7, and B8 by the merge path)
+    # ensembles, 4 runs at 1M
+    per_step, by_count = {}, {}
     for label, fn in (("stratified", apt.resample_stratified),
-                      ("multinomial", apt.resample_multinomial)):
+                      ("multinomial", apt.resample_multinomial),
+                      ("multinomial, merge path", apt.resample_multinomial)):
         smp = apt.SMC(N, apt.ResampleWithESSThreshold(fn))
-        e_, launches = drive(lambda: parallel.smc_ensemble(key, traced, smp, SCHEME_RUNS,
-                                                           store_states=False))
+        ops.COUNT_LE_SORTED = "merge" if "merge" in label else "bs"
+        try:
+            e_, launches = drive(lambda: parallel.smc_ensemble(key, traced, smp, SCHEME_RUNS,
+                                                               store_states=False))
+        finally:
+            ops.COUNT_LE_SORTED = "bs"
         lz_ = e_.log_evidence.double().cpu()
         fired = int(e_.diagnostics["resampled"].any(0).sum())
         one = apt.sample_smc(apt.rng.fold_in(key, 0), traced, smp, store_states=False,
@@ -2252,9 +2472,18 @@ def chains_phase(apt, ops, drive, expected, profile_one, tag, traced, kernel, sy
               f"{ {k: v for k, v in launches.items() if v} }", flush=True)
         check(bool(((lz_ - kf_ll).abs() < 0.1).all()), f"ensemble {label}: |logZ - kalman| >= 0.1")
         check(dlz < 0.05, f"ensemble {label}: run 0 |dlogZ| {dlz} against the one-chain run")
-        check(launches == expected(per_firing_chains(label, SCHEME_RUNS), fired),
+        check(launches == expected(per_firing_chains(label), fired),
               f"ensemble {label}: launches {launches}")
         per_sweep[f"{label}, {SCHEME_RUNS} chains"] = {k: v for k, v in launches.items() if v}
+        per_step[label] = sum(launches.values()) / fired
+        by_count[label] = e_
+    # B7 and B8 give the same counts, so the two multinomial ensembles are one.
+    check(torch.equal(by_count["multinomial"].log_evidence,
+                      by_count["multinomial, merge path"].log_evidence)
+          and torch.equal(by_count["multinomial"].weights,
+                          by_count["multinomial, merge path"].weights),
+          "multinomial ensembles on B7 and B8 with the chain axis differ")
+    del by_count
 
     # ---- 10c. PGAS, 64 chains of 16,384, replay storage, as one batch
     pg = apt.PGAS(MANY_N)
@@ -2265,7 +2494,7 @@ def chains_phase(apt, ops, drive, expected, profile_one, tag, traced, kernel, sy
     first_s = time.perf_counter() - t0
     check(tuple(chains.trajectory.shape) == (MANY_CHAINS, MANY_ITERS, T)
           and bool(torch.isfinite(chains.trajectory).all()), "PGAS chains: shape or not finite")
-    check(launches == expected(per_firing_chains("systematic", MANY_CHAINS),
+    check(launches == expected(per_firing_chains("systematic"),
                                MANY_ITERS * (T - 1)), f"PGAS chains: launches {launches}")
     per_iteration[f"systematic, {MANY_CHAINS} chains"] = {
         k: v // MANY_ITERS for k, v in launches.items() if v}
@@ -2326,6 +2555,70 @@ def chains_phase(apt, ops, drive, expected, profile_one, tag, traced, kernel, sy
           f"launches {tag}", flush=True)
     del chains, again
 
+    # ---- 10c'. multinomial PGAS, 64 chains of 16,384, replay storage: B7
+    # once a step for all chains.  Its time in turns with the same iteration
+    # where B7 runs once a chain (the loop this replaces), and the launches of
+    # a profiled iteration of each.
+    pg_m = apt.PGAS(MANY_N, resampler=apt.resample_multinomial)
+    key_m = apt.rng.key(225)
+    t0 = time.perf_counter()
+    chains_m, launches = drive(lambda: parallel.sample_chains(
+        key_m, traced, pg_m, MULTI_ITERS, MANY_CHAINS, trajectory_storage="replay"))
+    first_s = time.perf_counter() - t0
+    lz_m = chains_m.log_evidence.double().cpu()
+    check(bool(torch.isfinite(chains_m.trajectory).all()) and bool(torch.isfinite(lz_m).all()),
+          "multinomial PGAS chains: not finite")
+    check(float((lz_m - sm.log_likelihood).abs().max()) < 1.0,
+          "multinomial PGAS chains: |logZ - kalman| >= 1")
+    check(launches == expected(per_firing_chains("multinomial"), MULTI_ITERS * (T - 1)),
+          f"multinomial PGAS chains: launches {launches}")
+    per_iteration[f"multinomial, {MANY_CHAINS} chains"] = {
+        k: v // MULTI_ITERS for k, v in launches.items() if v}
+    per_step[f"multinomial PGAS, {MANY_CHAINS} chains"] = sum(launches.values()) / (
+        MULTI_ITERS * (T - 1))
+    print(f"PGAS [multinomial] {MANY_CHAINS} chains x N={MANY_N} x {MULTI_ITERS} iterations "
+          f"(replay), one batch: logZ range [{float(lz_m.min()):.4f}, {float(lz_m.max()):.4f}]; "
+          f"first call {first_s:.3f}s; launches {launches} {tag}", flush=True)
+    print(f"resampling launches a firing step, multinomial: "
+          f"{ {k: v for k, v in per_step.items() if 'multinomial' in k} }", flush=True)
+    check(per_step["multinomial"] == per_step[f"multinomial PGAS, {MANY_CHAINS} chains"],
+          f"multinomial launches a firing step grow with C: {per_step}")
+    state_m = apt.PGState(chains_m.trajectory[:, -1])
+
+    def per_chain_counts(s_, t_):
+        """The loop this PR replaced: B7 (or B8) once a chain."""
+        return torch.stack([ops.count_le_sorted_auto(s_[c], t_[c]) for c in range(s_.shape[0])])
+
+    def multinomial_iteration(i):
+        return apt.step_pg(apt.rng.fold_in(apt.rng.chain_keys(apt.rng.key(226), MANY_CHAINS), i),
+                           traced, pg_m, state_m, "replay")[0]
+
+    batched_chains = ops.count_le_sorted_auto_chains
+    iter_s = {"batched": [], "once a chain": []}
+    for i, form in enumerate(("batched", "once a chain", "once a chain", "batched")):
+        ops.count_le_sorted_auto_chains = batched_chains if form == "batched" else per_chain_counts
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            float(multinomial_iteration(i).log_evidence[0])
+            iter_s[form].append(time.perf_counter() - t0)
+            if i < 2:
+                wall, busy, launched, _ = profile_one(lambda: multinomial_iteration(10 + i))
+                print(f"profiled multinomial PGAS iteration [{form}], {MANY_CHAINS} chains x "
+                      f"{MANY_N} (replay): wall {wall:.3f} ms, device busy {busy:.3f} ms "
+                      f"({busy / wall:.4f} of wall), {launched} device-side launches {tag}",
+                      flush=True)
+        finally:
+            ops.count_le_sorted_auto_chains = batched_chains
+    rate = {form: MANY_CHAINS * len(v) / sum(v) for form, v in iter_s.items()}
+    print(f"PGAS [multinomial] N={MANY_N} T={T} replay, {MANY_CHAINS} chains: "
+          f"{rate['batched']:.3f} chain-iterations/s with B7 once a step for all chains, "
+          f"{rate['once a chain']:.3f} with B7 once a chain (in turns: "
+          f"{', '.join(f'{t:.3f}' for t in iter_s['batched'])} s and "
+          f"{', '.join(f'{t:.3f}' for t in iter_s['once a chain'])} s an iteration); ratio "
+          f"{rate['batched'] / rate['once a chain']:.4f} {tag}", flush=True)
+    del chains_m, state_m
+
     # ---- 10d. PGAS, 4 chains at 1M, replay storage, 2 iterations
     t0 = time.perf_counter()
     wide, launches = drive(lambda: parallel.sample_chains(
@@ -2339,7 +2632,7 @@ def chains_phase(apt, ops, drive, expected, profile_one, tag, traced, kernel, sy
           "PGAS chains at 1M: not finite")
     check(float((lz_w - sm.log_likelihood).abs().max()) < 1.0,
           "PGAS chains at 1M: |logZ - kalman| >= 1")
-    check(launches == expected(per_firing_chains("systematic", WIDE_CHAINS),
+    check(launches == expected(per_firing_chains("systematic"),
                                WIDE_ITERS * (T - 1)), f"PGAS chains at 1M: launches {launches}")
     per_iteration[f"systematic, {WIDE_CHAINS} chains x 1M"] = {
         k: v // WIDE_ITERS for k, v in launches.items() if v}
@@ -2365,7 +2658,7 @@ def chains_phase(apt, ops, drive, expected, profile_one, tag, traced, kernel, sy
     check(bool(torch.isfinite(e_gp.log_evidence).all()), "GP-SSM ensemble: logZ not finite")
     check(dlz < dlogz_bound(GP_N), f"GP-SSM ensemble: run 0 |dlogZ| {dlz} against the one-chain "
           f"run, over {dlogz_bound(GP_N):.3f}")
-    check(fired > 0 and launches == expected(per_firing_chains("systematic", GP_RUNS, 2), fired),
+    check(fired > 0 and launches == expected(per_firing_chains("systematic", 2), fired),
           f"GP-SSM ensemble: launches {launches}")
     per_sweep[f"GP-SSM, {GP_RUNS} chains"] = {k: v for k, v in launches.items() if v}
     print(f"phase 10 took {time.perf_counter() - t_phase:.1f}s", flush=True)

@@ -7,9 +7,11 @@ Each ROOT is a checkout holding ``advancedps_tpu_torch/`` (the working tree,
 or a ``git archive`` of another commit unpacked under a git-ignored
 directory).  For each in the order given, a child process builds that
 checkout's kernels and reads, on the same inputs (a fixed seed, N = 1M), the
-device time of B1 ``extents_from_logw``, B6 ``scaled_prefix_from_logw`` and
-``prefix_sum`` and B4 ``decode_move`` from ``torch.profiler``'s device rows
-over a window of calls.  Prints one JSON line a root, then the card's name and
+device time of B1 ``extents_from_logw``, B2 ``decode_ancestors``, B3
+``move_rows``, B4 ``decode_move``, B5 ``decode_ancestors_dense``, B6
+``scaled_prefix_from_logw`` and ``prefix_sum``, and B7 ``count_le_sorted_bs``
+and B8 ``count_le_sorted`` on the multinomial scheme's thresholds from
+``torch.profiler``'s device rows over a window of calls.  Prints one JSON line a root, then the card's name and
 power limit.  Name the roots as parent, change, change, parent to read both
 versions in turns.
 """
@@ -39,11 +41,19 @@ def measure(root: str) -> dict:
     e = torch.exp(logw - m)
     f = ops.extents_from_logw(logw, m, s1, 0.37, N)
     x = torch.randn(N, generator=gen, device="cuda")
+    anc = ops.decode_ancestors(f, N)
+    S = ops.prefix_sum(-torch.log1p(-torch.rand(N + 1, generator=gen, device="cuda")))
+    thr = ops.scaled_prefix_from_logw(logw, m, S[N] / s1)
     calls = {
         "extents_from_logw": lambda: ops.extents_from_logw(logw, m, s1, 0.37, N),
+        "decode_ancestors": lambda: ops.decode_ancestors(f, N),
+        "move_rows": lambda: ops.move_rows(anc, x),
+        "decode_move": lambda: ops.decode_move(f, x, N),
+        "decode_ancestors_dense": lambda: ops.decode_ancestors_dense(f, N),
         "scaled_prefix_from_logw": lambda: ops.scaled_prefix_from_logw(logw, m, N / s1),
         "prefix_sum": lambda: ops.prefix_sum(e),
-        "decode_move": lambda: ops.decode_move(f, x, N),
+        "count_le_sorted_bs": lambda: ops.count_le_sorted_bs(S[:N], thr),
+        "count_le_sorted": lambda: ops.count_le_sorted(S[:N], thr),
     }
     out = {}
     for name, fn in calls.items():

@@ -402,16 +402,39 @@ def test_generic_chains_are_the_loop_of_single_chains():
         assert torch.equal(ch.log_evidence[c], one.log_evidence)
 
 
+class _Float64Kernel(_TreeKernel):
+    """:class:`_TreeKernel`'s dynamics on a state with no 32-bit leaf: a
+    float64 value and an int64 id, both gathered by the decoded ancestors."""
+
+    def init(self, rng, ref0, ref_mask):
+        x = rng.normal(0).double()
+        state = apt.inject_ref(ref_mask, ref0, {"x": x, "id": rng.gids.to(torch.int64)})
+        return state, self._score(0, state["x"]).float()
+
+    def step(self, t, rng, state, ref_t, ref_mask):
+        x = A * state["x"] + Q * rng.normal(0).double()
+        new = apt.inject_ref(ref_mask, ref_t, {"x": x, "id": state["id"] + 1000})
+        return new, self._score(t, new["x"]).float()
+
+
 @pytest.mark.parametrize("version", [0, 6])
 def test_batched_sweep_under_the_other_move_versions(monkeypatch, version):
+    """The GP-SSM's tree state, the LGSSM's float32 rows, and a state with
+    no 32-bit leaf (decoded by B2 with the chain axis, then gathered), gated
+    at ESS 0.5 and resampling at every step."""
     monkeypatch.setattr(ops, "MOVE_VERSION", version)
-    m = MODELS["gp_ssm"][0]()
     key = R.key(2)
-    ens = cpu_smc_ensemble(key, m, apt.SMC(128), 2)
-    for c in range(2):
-        one = cpu_sample_smc(R.fold_in(key, c), m, apt.SMC(128))
-        assert torch.equal(ens.log_evidence[c], one.log_evidence)
-        assert torch.equal(ens.trajectories[c], one.trajectories)
+    for m in (MODELS["gp_ssm"][0](), MODELS["lgssm"][0](), _Float64Kernel(_lgssm_ys(12, seed=3))):
+        for threshold in (0.5, 1.0):
+            smp = apt.SMC(128, apt.ResampleWithESSThreshold(apt.resample_systematic, threshold))
+            ens = cpu_smc_ensemble(key, m, smp, 2)
+            if threshold == 1.0:
+                assert bool(ens.diagnostics["resampled"][:, 1:].all())
+            for c in range(2):
+                one = cpu_sample_smc(R.fold_in(key, c), m, smp)
+                assert torch.equal(ens.log_evidence[c], one.log_evidence)
+                for a, b in zip(_leaves(ens.trajectories), _leaves(one.trajectories)):
+                    assert torch.equal(a[c], b)
 
 
 def test_no_resampling_kernel_on_a_step_where_no_chain_fires(monkeypatch):

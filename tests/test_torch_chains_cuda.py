@@ -5,9 +5,10 @@ runs on a GPU machine that has none:
 
     python -m pytest --noconftest -m cuda tests/test_torch_chains_cuda.py
 
-Row ``c`` of each chain-axis kernel is the one-chain kernel on row ``c`` bit
-for bit, and within the one-chain tolerances of the batched plain version;
-a batched ensemble on the card holds the flip contract against the loop.
+Row ``c`` of each chain-axis kernel (B1, B6, B4 and B4 over leaves; B2, B3,
+B5, B7 and B8) is the one-chain kernel on row ``c`` bit for bit, and within
+the one-chain tolerances of the batched plain version; a batched ensemble on
+the card holds the flip contract against the loop.
 """
 
 import pytest
@@ -65,6 +66,43 @@ def test_chain_kernels_rows_are_the_one_chain_kernels(c, n, guarded):
         assert torch.equal(a[r], a1) and torch.equal(mv[r], v1)
         a2, (w2, k2) = ops.decode_move_leaves(f[r].contiguous(), [w[r], k[r]], n, guard=nd)
         assert torch.equal(al[r], a2) and torch.equal(mw[r], w2) and torch.equal(mk[r], k2)
+
+
+@pytest.mark.parametrize("c,n", [(3, 5000), (8, 2048 * 3 + 1), (1, 100_000), (5, 7)])
+@pytest.mark.parametrize("guarded", [False, True])
+def test_decode_move_and_count_chain_rows_are_the_one_chain_kernels(c, n, guarded):
+    """B2, B3, B5, B7 and B8 with the chain axis: exact against their batched
+    plain versions, each row bitwise the one-chain kernel, B5's marks zero
+    after the call, B7 and B8 on rows of s n + 1 apart as the engine's."""
+    g, logw, m, s1, u = _case(c, n, c * n + 1)
+    nd = n - 1 if guarded else n
+    f = ops.extents_from_logw_chains(logw, m, s1, u, nd)
+    a2 = ops.decode_ancestors_chains(f, n, guard=nd)
+    a5 = ops.decode_ancestors_dense_chains(f, n, guard=nd)
+    assert all(int(mk.count_nonzero()) == 0 for mk in ops._DENSE_MARKS.values())
+    assert torch.equal(a2, ops.decode_ancestors_chains_ref(f, n, guard=nd))
+    assert torch.equal(a5, ops.decode_ancestors_dense_chains_ref(f, n, guard=nd))
+    x = torch.randn(c, n, generator=g, device="cuda")
+    w = torch.randn(c, n, 3, generator=g, device="cuda")
+    moved = [(v, ops.move_rows_chains(a2, v)) for v in (x, w)]
+    for v, (ac, mv) in moved:
+        rac, rmv = ops.resample_move_chains_ref(a2, v)
+        assert torch.equal(ac, rac) and torch.equal(mv.view(torch.int32), rmv.view(torch.int32))
+    S = ops.prefix_sum_chains(-torch.log1p(-torch.rand(c, n + 1, generator=g, device="cuda")))
+    s = S[:, :nd]
+    thr = ops.scaled_prefix_from_logw_chains(logw, m, S[:, nd] / s1)
+    b7 = ops.count_le_sorted_bs_chains(s, thr)
+    b8 = ops.count_le_sorted_chains(s, thr)
+    want = ops.count_le_sorted_chains_ref(s, thr)
+    assert torch.equal(b7, want) and torch.equal(b8, want)
+    for r in range(c):
+        assert torch.equal(a2[r], ops.decode_ancestors(f[r], n, guard=nd))
+        assert torch.equal(a5[r], ops.decode_ancestors_dense(f[r], n, guard=nd))
+        for v, (ac, mv) in moved:
+            ac1, mv1 = ops.move_rows(a2[r], v[r])
+            assert torch.equal(ac[r], ac1) and torch.equal(mv[r], mv1)
+        assert torch.equal(b7[r], ops.count_le_sorted_bs(s[r], thr[r]))
+        assert torch.equal(b8[r], ops.count_le_sorted(s[r], thr[r]))
 
 
 def test_batched_ensemble_on_the_card_holds_the_flip_contract():

@@ -240,8 +240,14 @@ def test_cpu_path_counts_no_launches():
     ops.prefix_sum_chains(torch.ones(2, 65))
     ops.decode_move_chains(fc, torch.zeros(2, 64), 64)
     ops.decode_move_leaves_chains(fc, [torch.zeros(2, 64), torch.zeros(2, 64, 3)], 64)
-    assert len(ops.KERNEL_WRAPPERS) == 15
-    assert [w.launches for w in ops.KERNEL_WRAPPERS] == [0] * 15
+    ac = ops.decode_ancestors_chains(fc, 64)
+    ops.move_rows_chains(ac, torch.zeros(2, 64))
+    ops.decode_ancestors_dense_chains(fc, 64)
+    sc = ops.prefix_sum_chains(torch.ones(2, 65))
+    ops.count_le_sorted_bs_chains(sc[:, :64], torch.ones(2, 64))
+    ops.count_le_sorted_chains(sc[:, :64], torch.ones(2, 64))
+    assert len(ops.KERNEL_WRAPPERS) == 20
+    assert [w.launches for w in ops.KERNEL_WRAPPERS] == [0] * 20
 
 
 # --- B6: the scaled prefix ----------------------------------------------------
