@@ -16,7 +16,8 @@ constants against the built library.
 
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 

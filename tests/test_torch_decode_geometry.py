@@ -29,7 +29,8 @@ from pathlib import Path
 
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 

@@ -19,11 +19,12 @@ import tempfile
 
 import numpy as np
 import pytest
-import torch
 
-import advancedps_tpu_torch as apt
-from advancedps_tpu_torch import parallel
-from advancedps_tpu_torch._device import resolve_device
+torch = pytest.importorskip("torch")
+
+import advancedps_tpu_torch as apt  # noqa: E402
+from advancedps_tpu_torch import parallel  # noqa: E402
+from advancedps_tpu_torch._device import resolve_device  # noqa: E402
 
 PARAMS = dict(mu=0.0, sigma0=0.5, a=0.9, b=0.0, q=0.32, h=1.0, r=1.0)
 

@@ -25,7 +25,9 @@ import socket
 import subprocess
 import sys
 
-import torch
+import pytest
+
+torch = pytest.importorskip("torch")
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _NPROC = 2
@@ -99,8 +101,6 @@ def _spawn(rank, port, exchange):
 
 
 def _run_ranks(exchange):
-    import pytest
-
     port = _free_port()
     procs = [_spawn(r, port, exchange) for r in range(_NPROC)]
     outs = []
@@ -125,8 +125,6 @@ def _run_ranks(exchange):
 
 
 def _check(exchange):
-    import pytest
-
     from advancedps_tpu_torch import parallel
 
     a, b = _run_ranks(exchange)
