@@ -41,8 +41,9 @@
 // few megabytes the latency of one block's chain of dependent steps.  At
 // M = n = 1M: B1 and B6 read their input once (4 MB) and write 4 MB in one
 // launch (see "B1/B6 single pass"); B2 reads f once, a tile's owner rows at a
-// time, and writes anc (see "B2 tile decode"); B3 reads anc and the source
-// rows and writes the rows (12 MB at D = 1); B7 and B8 read s and t once each
+// time, and writes anc (see "B2 tile decode"); B3 reads anc and the rows
+// that own a slot and writes the rows and the clipped anc (16 MB at D = 1;
+// see "B3 move"); B7 and B8 read s and t once each
 // into shared memory and write the counts (12 MB; see "B7 tile search" and
 // "B8 merge path"); B4 reads each tile's owner extents once, as B2 does, and
 // the source rows, and writes the clipped anc and the rows (16 MB at D = 1),
@@ -172,6 +173,39 @@
 // would add nothing at 2M merged entries, where every tile is resident at
 // once.
 //
+// B3 move.  What bounds it is bytes: anc read once, the rows that own a
+// slot read once, out and the clipped anc written once (16 MB at 1M, D = 1,
+// uniform weights).  The first kernel took one element (slot, column) a
+// thread: one dependent gather in flight a thread, a 64-bit division of the
+// element index by a d known only at run time, 4-byte loads of anc and
+// stores, and for d > 1 the clipped ancestor written by each row's column-0
+// thread.  At 8 x 1M it reached 0.56 of its bound and lost to torch.gather.
+// Now, for one column, a thread takes kMoveRuns runs of four consecutive
+// slots, its warp's runs side by side: anc comes in as 16-byte streaming
+// loads (__ldcs: read once), the thread's gathers go out together, and out
+// and the clipped ancestors leave as 16-byte streaming stores (__stcs:
+// written once, not read again by this launch).  One, two and four runs a
+// thread read alike at 8 x 1M (0.0449-0.0453 ms); one run was 6% faster for
+// one chain at 1M (0.00386 against 0.0041 ms: twice the blocks in flight)
+// and 3% slower at 64 x 16,384 (profiling/torch_kernels_ab.py, in turns).
+// A row's runs start where anc, out and clipped are all 16-byte aligned (a
+// chain's row of n_out slots lies c * n_out words in, so rows of an odd
+// length start anywhere); the slots before, the ragged tail, and every slot
+// of a row whose three arrays are aligned differently (unaligned slices) go
+// one by one.  For d > 1 columns a
+// warp takes 32 slots: one coalesced load of their ancestors, one store of
+// the clipped ones, then the warp's 32 * d output words, contiguous in out,
+// with consecutive lanes on consecutive words (16-byte words where d is a
+// multiple of four and the rows are aligned), so each source row is read
+// coalesced, four words in flight a lane; the slot of a word is a 32-bit
+// division and its owner comes from the slot's lane by a shuffle.  Index
+// arithmetic inside a chain is 32-bit wherever every slot, word and row
+// offset fits (the entry instantiates a 64-bit form for the rest); the
+// chain's own offset is 64-bit.  At 8 x 1M B3 now takes 0.045 ms (0.70 of
+// its bound, gather 0.051), one chain at 1M 0.0042 (0.93), three columns
+// 0.0093 (index_select 0.0128), the generic program's [100k, 50] 0.011
+// (index_select 0.016).
+//
 // B4 decode, then move.  A block decodes its tile of kDecodeMoveTile slots by
 // the very function B2's kernel calls (decode_tile: the two owners by the
 // 32-way search, the owner run staged with 16-byte cp.async copies and the
@@ -275,6 +309,10 @@ constexpr int kThreads = 256;              // threads per tile block
 constexpr int kItems = 8;                  // consecutive elements per thread
 constexpr int kTile = kThreads * kItems;   // elements per tile
 constexpr int kMoveThreads = 256;          // B3, and B5's scatter
+constexpr int kMoveRuns = 1;               // runs of four slots a B3 thread takes (one column)
+constexpr int kMoveTile = kMoveThreads * kMoveRuns * 4;  // slots a B3 block takes (one column)
+constexpr int kMoveUnroll = 4;             // words in flight a B3 lane (d > 1 columns)
+constexpr int64_t kMaxMoveD = 1 << 19;     // columns B3 and B4 take (MAX_DECODE_MOVE_D)
 constexpr int kDecodeThreads = 256;        // B2
 constexpr int kDecodeItems = 4;            // output slots per B2 thread
 constexpr int kDecodeTile = kDecodeThreads * kDecodeItems;
@@ -1100,28 +1138,148 @@ dense_scan_kernel(int* __restrict__ marks_all, int64_t ldm, int64_t n_out,
   }
 }
 
-// ---- B3: one thread per output element (slot k, column c).  Values move as
-// 32-bit words, so the copy is bitwise.  Slots whose ancestor is m (past the
-// drawn population) move 0; the clipped ancestor m-1 is written beside.  With
-// kChains, of chain blockIdx.y: its ancestors, rows, output and clipped
-// ancestors lie one chain's stride into each array.
-template <bool kChains>
-__global__ void move_rows_kernel(const int* __restrict__ anc_all, int64_t n_out, int64_t m,
-                                 const uint32_t* __restrict__ v_all, int64_t d,
-                                 uint32_t* __restrict__ out_all, int* __restrict__ clipped_all) {
+// ---- B3 (see "B3 move").  Values move as 32-bit words, so the copy is
+// bitwise; a slot whose ancestor is m (past the drawn population) moves 0,
+// and the clipped ancestor min(anc, m - 1) is written beside.  With kChains,
+// of chain blockIdx.y: its ancestors, rows, output and clipped ancestors lie
+// one chain's stride into each array.  I is the index type inside a chain:
+// int where the entry finds every index below 2^31, else int64_t.
+
+// One slot on its own: the ragged edges of a row.
+template <typename I>
+__device__ __forceinline__ void move_slot(const int* __restrict__ anc,
+                                          const uint32_t* __restrict__ v, int m,
+                                          uint32_t* __restrict__ out, int* __restrict__ clipped,
+                                          I k) {
+  const int a = __ldcs(anc + k);
+  __stcs(out + k, a >= 0 && a < m ? __ldg(v + a) : 0u);
+  __stcs(clipped + k, a < m ? a : m - 1);
+}
+
+// One column: each thread takes kMoveRuns runs of four consecutive slots, a
+// warp's runs side by side, so that its 16-byte loads of anc and stores of
+// out and clipped are coalesced and its 4 * kMoveRuns gathers are in flight
+// together.  The runs start `lead` slots into the row, where anc, out and
+// clipped are all 16-byte aligned; the slots before go one by one, as do all
+// of a row whose three arrays are not aligned alike.
+template <bool kChains, typename I>
+__global__ void __launch_bounds__(kMoveThreads)
+move_column_kernel(const int* __restrict__ anc_all, int64_t n_out, int m,
+                   const uint32_t* __restrict__ v_all, uint32_t* __restrict__ out_all,
+                   int* __restrict__ clipped_all) {
   const int64_t ch = kChains ? blockIdx.y : 0;
   const int* __restrict__ anc = anc_all + ch * n_out;
-  const uint32_t* __restrict__ v = v_all + ch * m * d;
+  const uint32_t* __restrict__ v = v_all + ch * m;
+  uint32_t* __restrict__ out = out_all + ch * n_out;
+  int* __restrict__ clipped = clipped_all + ch * n_out;
+  const I n = (I)n_out;
+  const unsigned mis = (unsigned)((uintptr_t)anc >> 2) & 3u;
+  const bool vec = (((uintptr_t)anc | (uintptr_t)out | (uintptr_t)clipped) & 3u) == 0 &&
+                   ((unsigned)((uintptr_t)out >> 2) & 3u) == mis &&
+                   ((unsigned)((uintptr_t)clipped >> 2) & 3u) == mis;
+  const I head = (I)((4u - mis) & 3u);
+  const I lead = !vec ? (I)0 : head < n ? head : n;
+  if (blockIdx.x == 0 && (I)threadIdx.x < lead) {
+    move_slot(anc, v, m, out, clipped, (I)threadIdx.x);
+  }
+  I s[kMoveRuns];
+  int a[kMoveRuns][4];
+#pragma unroll
+  for (int q = 0; q < kMoveRuns; ++q) {
+    s[q] = lead + 4 * ((I)blockIdx.x * (kMoveThreads * kMoveRuns) +
+                       (I)(q * kMoveThreads + threadIdx.x));
+    if (vec && s[q] + 4 <= n) {
+      const int4 w = __ldcs(reinterpret_cast<const int4*>(anc + s[q]));
+      a[q][0] = w.x; a[q][1] = w.y; a[q][2] = w.z; a[q][3] = w.w;
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[q][i] = s[q] + i < n ? __ldcs(anc + s[q] + i) : m;
+    }
+  }
+  uint32_t w[kMoveRuns][4];
+#pragma unroll
+  for (int q = 0; q < kMoveRuns; ++q) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) w[q][i] = a[q][i] >= 0 && a[q][i] < m ? __ldg(v + a[q][i]) : 0u;
+  }
+#pragma unroll
+  for (int q = 0; q < kMoveRuns; ++q) {
+    int c[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) c[i] = a[q][i] < m ? a[q][i] : m - 1;
+    if (vec && s[q] + 4 <= n) {
+      __stcs(reinterpret_cast<uint4*>(out + s[q]), make_uint4(w[q][0], w[q][1], w[q][2], w[q][3]));
+      __stcs(reinterpret_cast<int4*>(clipped + s[q]), make_int4(c[0], c[1], c[2], c[3]));
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (s[q] + i < n) {
+          __stcs(out + s[q] + i, w[q][i]);
+          __stcs(clipped + s[q] + i, c[i]);
+        }
+      }
+    }
+  }
+}
+
+// The words of a warp's rows: word e of the warp's contiguous output run of
+// nk rows of d words (W a 4- or 16-byte word) is word e - i * d of row
+// v[owner], i = e / d, the owner read from lane i by a shuffle.  Consecutive
+// lanes read and write consecutive words, kMoveUnroll of them in flight a
+// lane.  Every lane of the warp runs every shuffle.
+template <typename W, typename I>
+__device__ __forceinline__ void move_warp_rows(const W* __restrict__ v, int d, int m, int a,
+                                               W* __restrict__ dst, int nk) {
+  const int lane = threadIdx.x & 31;
+  const unsigned du = (unsigned)d;
+  const int words = nk * d;  // < 32 * 2^19: the entry caps d
+  for (int e0 = 0; e0 < words; e0 += 32 * kMoveUnroll) {
+    W w[kMoveUnroll];
+#pragma unroll
+    for (int u = 0; u < kMoveUnroll; ++u) {
+      const unsigned e = (unsigned)(e0 + 32 * u + lane);
+      const unsigned i = e / du;
+      const int owner = __shfl_sync(kFullWarp, a, (int)(i & 31u));
+      w[u] = W{};
+      if (e < (unsigned)words && owner >= 0 && owner < m) {
+        w[u] = __ldg(v + (I)owner * d + (I)(e - i * du));
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kMoveUnroll; ++u) {
+      const int e = e0 + 32 * u + lane;
+      if (e < words) __stcs(dst + e, w[u]);
+    }
+  }
+}
+
+// d > 1 columns: a warp takes 32 consecutive slots.  Its lanes read their
+// slots' ancestors in one coalesced load and write the clipped ones in one
+// store; then the warp copies its rows word by word (16-byte words where d is
+// a multiple of four and v and the warp's output are 16-byte aligned).
+template <bool kChains, typename I>
+__global__ void __launch_bounds__(kMoveThreads)
+move_rows_kernel(const int* __restrict__ anc_all, int64_t n_out, int m,
+                 const uint32_t* __restrict__ v_all, int d, uint32_t* __restrict__ out_all,
+                 int* __restrict__ clipped_all) {
+  const int64_t ch = kChains ? blockIdx.y : 0;
+  const int* __restrict__ anc = anc_all + ch * n_out;
+  const uint32_t* __restrict__ v = v_all + ch * m * (int64_t)d;
   uint32_t* __restrict__ out = out_all + ch * n_out * d;
-  int* __restrict__ anc_clipped = clipped_all + ch * n_out;
-  const int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= n_out * d) return;
-  const int64_t k = e / d;
-  const int64_t c = e - k * d;
-  const int a = __ldg(anc + k);
-  const bool inside = a >= 0 && (int64_t)a < m;
-  out[e] = inside ? __ldg(v + (int64_t)a * d + c) : 0u;
-  if (c == 0) anc_clipped[k] = (int64_t)a < m ? a : (int)(m - 1);
+  int* __restrict__ clipped = clipped_all + ch * n_out;
+  const int lane = threadIdx.x & 31;
+  const I k0 = (I)blockIdx.x * kMoveThreads + (I)(threadIdx.x - lane);
+  if (k0 >= (I)n_out) return;  // the whole warp
+  const int nk = (I)n_out - k0 < 32 ? (int)((I)n_out - k0) : 32;
+  const int a = lane < nk ? __ldcs(anc + k0 + lane) : m;
+  if (lane < nk) __stcs(clipped + k0 + lane, a < m ? a : m - 1);
+  uint32_t* __restrict__ dst = out + k0 * d;
+  if ((d & 3) == 0 && aligned16(v) && aligned16(dst)) {
+    move_warp_rows<uint4, I>(reinterpret_cast<const uint4*>(v), d >> 2, m, a,
+                             reinterpret_cast<uint4*>(dst), nk);
+  } else {
+    move_warp_rows<uint32_t, I>(v, d, m, a, dst, nk);
+  }
 }
 
 // ---- B7: one block per kCountTile consecutive thresholds (see "B7 tile
@@ -1375,7 +1533,7 @@ int aps_decode_ancestors(const int* f, int64_t m, int guard, int64_t start, int6
 int aps_decode_move_chains(const int* f, int64_t nchains, int64_t m, int guard, int64_t start,
                            int64_t n_out, const void* v, int64_t d, void* out, int* anc_clipped,
                            void* stream) {
-  if (d < 1 || d > (1 << 19) || nchains < 1 || nchains > kMaxChains) {
+  if (d < 1 || d > kMaxMoveD || nchains < 1 || nchains > kMaxChains) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = (cudaStream_t)stream;
@@ -1425,7 +1583,7 @@ int aps_decode_move_leaves_chains(const int* f, int64_t nchains, int64_t m, int 
   }
   LeafSet set{};
   for (int l = 0; l < count; ++l) {
-    if (d[l] < 1 || d[l] > (1 << 19)) return (int)cudaErrorInvalidValue;
+    if (d[l] < 1 || d[l] > kMaxMoveD) return (int)cudaErrorInvalidValue;
     set.v[l] = (const uint32_t*)v[l];
     set.out[l] = (uint32_t*)out[l];
     set.d[l] = d[l];
@@ -1488,15 +1646,31 @@ int aps_decode_ancestors_dense(const int* f, int64_t m, int guard, int64_t n_out
 
 // B3 with the chain axis.  anc int32[nchains, n_out] in [0, m]; v 32-bit words
 // [nchains, m, d]; out [nchains, n_out, d]; anc_clipped int32[nchains, n_out].
-// Chain c is B3 on row c, bit for bit.  1 <= nchains <= kMaxChains.
+// Chain c is B3 on row c, bit for bit.  1 <= nchains <= kMaxChains,
+// 1 <= m < 2^31, 1 <= d <= 2^19.
 int aps_move_rows_chains(const int* anc, int64_t nchains, int64_t n_out, int64_t m, const void* v,
                          int64_t d, void* out, int* anc_clipped, void* stream) {
-  if (nchains < 1 || nchains > kMaxChains || d < 1) return (int)cudaErrorInvalidValue;
+  if (nchains < 1 || nchains > kMaxChains || d < 1 || d > kMaxMoveD || m < 1 ||
+      m >= (int64_t)1 << 31) {
+    return (int)cudaErrorInvalidValue;
+  }
   cudaStream_t s = (cudaStream_t)stream;
-  const dim3 grid(blocks_for(n_out * d, kMoveThreads), (unsigned)nchains);
-  auto kernel = nchains == 1 ? move_rows_kernel<false> : move_rows_kernel<true>;
-  kernel<<<grid, kMoveThreads, 0, s>>>(anc, n_out, m, (const uint32_t*)v, d, (uint32_t*)out,
-                                       anc_clipped);
+  const bool chains = nchains > 1;
+  // 32-bit indices inside a chain where every slot, word and row offset fits.
+  const bool narrow = (n_out + 2 * kMoveTile) * d < (int64_t)1 << 31 && m * d < (int64_t)1 << 31;
+  const uint32_t* vw = (const uint32_t*)v;
+  uint32_t* ow = (uint32_t*)out;
+  if (d == 1) {
+    const dim3 grid(blocks_for(n_out, kMoveTile), (unsigned)nchains);
+    auto kernel = chains ? (narrow ? move_column_kernel<true, int> : move_column_kernel<true, int64_t>)
+                         : (narrow ? move_column_kernel<false, int> : move_column_kernel<false, int64_t>);
+    kernel<<<grid, kMoveThreads, 0, s>>>(anc, n_out, (int)m, vw, ow, anc_clipped);
+  } else {
+    const dim3 grid(blocks_for(n_out, kMoveThreads), (unsigned)nchains);
+    auto kernel = chains ? (narrow ? move_rows_kernel<true, int> : move_rows_kernel<true, int64_t>)
+                         : (narrow ? move_rows_kernel<false, int> : move_rows_kernel<false, int64_t>);
+    kernel<<<grid, kMoveThreads, 0, s>>>(anc, n_out, (int)m, vw, (int)d, ow, anc_clipped);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -21,7 +21,8 @@ through the kernels of :mod:`advancedps_tpu_torch.ops.resample`:
 then the decode and move of :func:`~advancedps_tpu_torch.ops.resample.resample_move_f`
 (B4, B2 + B3, or B5 + a gather, by ``ops.resample.MOVE_VERSION``).  Any other
 resampler (residual, or a user's) returns its ancestors and the state is
-gathered by them.
+moved by them (:func:`~advancedps_tpu_torch.ops.resample.move_by_ancestors`:
+B3 for the 32-bit leaves, a gather for the others).
 
 The particle state is a tensor or a tree of tensors (a tuple, list or dict,
 each leaf with leading axis N), as the JAX engine moves any pytree: the
@@ -51,7 +52,10 @@ step is one set of launches for all C chains.  The gate reads a ``[C]`` flag
 vector once a step; a step on which no chain fires launches no resampling
 kernel, and on a step where some do, the kernels run over all C and the
 chains that do not fire keep their rows, weights and identity ancestors by a
-``where``, as JAX's ``vmap`` of ``lax.cond`` does.  Chain ``c`` draws what
+``where``, as JAX's ``vmap`` of ``lax.cond`` does.  Residual resampling draws
+for all C chains in one call too (the schemes' chain-batch form, from the
+chains' keys on the device); only a user's resampler, which takes a
+:class:`~advancedps_tpu_torch.rng.Key`, runs once a chain.  Chain ``c`` draws what
 the one-chain sweep with ``keys.key(c)`` draws, and its kernels compute
 bitwise what they compute there; its sweep is bitwise that sweep where torch
 reduces a row of ``[C, N]`` in the order it reduces an ``[N]`` vector.
@@ -74,6 +78,7 @@ from .resampling import (
     multinomial_spacings,
     randcat_gumbel,
     resample_multinomial,
+    resample_residual,
     resample_stratified,
     resample_systematic,
     stratified_extents,
@@ -88,6 +93,7 @@ __all__ = [
     "lineages",
     "reconstruct",
     "replay_trajectory",
+    "propagate_rng",
 ]
 
 #: Schemes whose draw reduces to monotone extents and runs through the kernels.
@@ -96,6 +102,15 @@ _FUSED_SCHEMES = {
     resample_stratified: "stratified",
     resample_multinomial: "multinomial",
 }
+
+
+def propagate_rng(key, t: int, gids) -> rngmod.StepRng:
+    """The :class:`~advancedps_tpu_torch.rng.StepRng` of the propagate stream
+    at step ``t``, as the sweep builds it: ``key`` a
+    :class:`~advancedps_tpu_torch.rng.Key` or a
+    :class:`~advancedps_tpu_torch.rng.KeyBatch`.  A profiler of a step calls
+    this rather than building its own."""
+    return rngmod.StepRng(rngmod.step_key(key, rngmod.PROPAGATE, t), gids)
 
 
 class SweepKernel:
@@ -302,10 +317,10 @@ def sweep(
                         mv[n - 1:] = r
                     tree_map(put_ref, state_rs, ref_row)
             else:
-                anc = resampler.resampler(rs_key, e / s1, n_resample)
+                anc = resampler.resampler(rs_key, e / s1, n_resample).to(torch.int32)
                 if has_ref:
                     anc = torch.cat([anc, ref_anc])
-                state_rs = tree_rows(state, anc.long())
+                _, state_rs = ops.move_by_ancestors(anc, state)
             state = state_rs
             ancestors[t] = anc
             pending = ln_n
@@ -314,7 +329,7 @@ def sweep(
             pending = lse
         resampled[t] = do_rs
 
-        rng_t = rngmod.StepRng(rngmod.step_key(key, rngmod.PROPAGATE, t), gids)
+        rng_t = propagate_rng(key, t, gids)
         state, score = kernel.step(t, rng_t, state, tree_at(ref, t), ref_mask)
         # After a resample the weights restart at 0, so the new weights are the score.
         logw = score if do_rs else logw + score
@@ -463,7 +478,6 @@ def _sweep_chains(keys, kernel, n, resampler, ref, ancestor_sampling, store_stat
         store(0, snap0)
 
     iota = torch.arange(n, dtype=torch.int32, device=device)
-    chains = torch.arange(C, device=device)
     ancestors = torch.empty((C, T, n), dtype=torch.int32, device=device)
     ancestors[:, 0] = iota
     ess_all = torch.empty((C, T), dtype=torch.float32, device=device)
@@ -516,15 +530,20 @@ def _sweep_chains(keys, kernel, n, resampler, ref, ancestor_sampling, store_stat
                         mv[:, n - 1] = r
                     tree_map(put_ref, state_rs, ref_row)
             else:
-                # A resampler with no kernel form: once a chain, with its host key.
-                s = _TABLE_TAGS.index(rngmod.RESAMPLE)
-                rows = []
-                for c in range(C):
-                    rk = rngmod.Key(int(host_words[0][s, t, c]), int(host_words[1][s, t, c]))
-                    a = resampler.resampler(rk, e[c] / s1[c], n_resample)
-                    rows.append(torch.cat([a, ref_anc[c:c + 1]]) if has_ref else a)
-                anc = torch.stack(rows)
-                state_rs = tree_map(lambda a: a[chains[:, None], anc.long()], state)
+                if resampler.resampler is resample_residual:
+                    # One draw for all chains, from their keys on the device.
+                    rk = _table_keys(table, rngmod.RESAMPLE, t).column()
+                    anc = resampler.resampler(rk, e / s1[:, None], n_resample)
+                else:
+                    # A user's resampler takes a Key: once a chain, with its host key.
+                    s = _TABLE_TAGS.index(rngmod.RESAMPLE)
+                    anc = torch.stack([resampler.resampler(
+                        rngmod.Key(int(host_words[0][s, t, c]), int(host_words[1][s, t, c])),
+                        e[c] / s1[c], n_resample) for c in range(C)])
+                anc = anc.to(torch.int32)
+                if has_ref:
+                    anc = torch.cat([anc, ref_anc[:, None]], 1)
+                _, state_rs = ops.move_by_ancestors(anc, state)
             if flags is None:
                 state = state_rs
                 ancestors[:, t] = anc
@@ -657,7 +676,7 @@ def replay_trajectory(key, kernel: SweepKernel, ancestors: torch.Tensor, index, 
     snaps = [snap]
     for t in range(1, T):
         g = slots[t:t + 1]
-        rng_t = rngmod.StepRng(rngmod.step_key(key, rngmod.PROPAGATE, t), g)
+        rng_t = propagate_rng(key, t, g)
         state, _ = kernel.step(t, rng_t, state, tree_at(ref, t), mask_of(g))
         snaps.append(kernel.snapshot(state))
     return tree_map(lambda s: s[:, 0], tree_stack(snaps))

@@ -52,6 +52,9 @@ sharded exchange does.  All of them take the state as one tensor or as a
 tree of tensors (:mod:`advancedps_tpu_torch._tree`): one decode a firing,
 the float32 and int32 leaves moved by the kernels as 32-bit words (so
 bitwise), any other leaf gathered by the clipped ancestors.
+:func:`move_by_ancestors` moves a tensor or a tree by ancestors already drawn
+(version 6's after B2, the residual scheme's, a user resampler's) the same
+way, B3 for the 32-bit leaves, for one chain or C.
 
 Each wrapper takes its plain PyTorch version (``*_ref``, beside it) only when
 its tensors lie on the CPU.  On a CUDA tensor it launches the hand-written
@@ -63,6 +66,7 @@ raises; nothing falls back.  Each wrapper counts its kernel launches in its
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional
 
 import torch
@@ -100,6 +104,7 @@ __all__ = [
     "decode_ancestors_dense",
     "decode_ancestors_dense_ref",
     "move_rows",
+    "move_by_ancestors",
     "resample_move_ref",
     "decode_move",
     "decode_move_ref",
@@ -1084,38 +1089,69 @@ def _resolve_version(version: Optional[int]) -> int:
     return ver
 
 
-def _as_rows(leaf):
-    """A leaf as the contiguous rows a kernel moves: ``[M]``, or ``[M, D]``
-    with the trailing axes flattened."""
-    leaf = leaf.contiguous()
-    return leaf if leaf.dim() == 1 else leaf.reshape(leaf.shape[0], -1)
+def _kernel_rows(leaf, lead: int):
+    """A leaf as the contiguous rows a kernel moves, or None for a leaf no
+    kernel moves (not 32-bit words, or no or more than
+    :data:`MAX_DECODE_MOVE_D` words a row).  ``lead`` is 1 for leaves ``[M,
+    ...]`` (rows ``[M]`` or ``[M, D]``) and 2 for chains' leaves ``[C, M,
+    ...]`` (rows ``[C, M]`` or ``[C, M, D]``): the trailing axes flattened."""
+    if leaf.dtype not in WORD_DTYPES or leaf.dim() < lead:
+        return None
+    if leaf.dim() == lead:
+        return leaf.contiguous()
+    d = math.prod(leaf.shape[lead:])
+    if not 1 <= d <= MAX_DECODE_MOVE_D:
+        return None
+    return leaf.contiguous().reshape(tuple(leaf.shape[:lead]) + (d,))
+
+
+def move_by_ancestors(anc, state):
+    """Move ``state``, a tensor or a tree of tensors, by the ancestors
+    ``anc``: for one chain ``anc`` int32 ``[n]`` and leaves ``[M, ...]``, for
+    C chains ``anc [C, n]`` and leaves ``[C, M, ...]``, values in ``[0, M]``.
+    Every float32 or int32 leaf of at most :data:`MAX_DECODE_MOVE_D` words a
+    row goes through B3 (:func:`move_rows`, or :func:`move_rows_chains`), a
+    bitwise copy with 0 where ``anc == M``; any other leaf is gathered by the
+    ancestors clipped to ``M − 1``.  Returns ``(anc clipped to M − 1,
+    moved)``, ``moved`` of ``state``'s structure with leaves ``[n, ...]`` (or
+    ``[C, n, ...]``)."""
+    lead = anc.dim()
+    move = move_rows_chains if lead == 2 else move_rows
+    leaves, structure = tree_flatten(state)
+    moved = [None] * len(leaves)
+    clipped = None
+    for i, a in enumerate(leaves):
+        rows = _kernel_rows(a, lead)
+        if rows is not None:
+            clipped, mv = move(anc, rows)
+            moved[i] = mv.reshape(tuple(anc.shape) + tuple(a.shape[lead:]))
+    if clipped is None:
+        clipped = torch.clamp(anc, max=leaves[0].shape[lead - 1] - 1) if leaves else anc
+    for i, a in enumerate(leaves):
+        if moved[i] is None:
+            moved[i] = _rows_of(a, clipped) if lead == 2 else a.index_select(0, clipped.long())
+    return clipped, tree_unflatten(structure, moved)
 
 
 def _move_tree(f, state, n_out: int, guard: Optional[int], start: int, ver: int):
-    """Decode once and move every leaf of the tree ``state``: the float32
-    and int32 leaves by the move of version ``ver`` (B4 over leaves for 1,
-    B3 a leaf for 6), the others gathered by the clipped ancestors; version
-    0 (whole population only) gathers every leaf after B5."""
+    """Decode once and move every leaf of the tree ``state``: the leaves a
+    kernel moves by the move of version ``ver`` (B4 over leaves for 1, B3 a
+    leaf for 6), the others gathered by the clipped ancestors; version 0
+    (whole population only) gathers every leaf after B5."""
     leaves, structure = tree_flatten(state)
-    m = f.numel()
-    words = [i for i, a in enumerate(leaves) if a.dtype in WORD_DTYPES]
+    rows = [_kernel_rows(a, 1) for a in leaves]
+    words = [i for i, r in enumerate(rows) if r is not None]
+    if ver == 6 or ver == 1 and not words:
+        return move_by_ancestors(decode_ancestors(f, n_out, guard, start), state)
     moved = [None] * len(leaves)
     if ver == 0:
-        anc = torch.clamp(decode_ancestors_dense(f, n_out, guard=guard), max=m - 1)
-    elif ver == 1 and len(words) == 1:
-        anc, mv = decode_move(f, _as_rows(leaves[words[0]]), n_out, guard, start)
-        moved[words[0]] = mv
-    elif ver == 1 and words:
-        anc, mvs = decode_move_leaves(f, [_as_rows(leaves[i]) for i in words], n_out, guard,
-                                      start)
+        anc = torch.clamp(decode_ancestors_dense(f, n_out, guard=guard), max=f.numel() - 1)
+    elif len(words) == 1:
+        anc, moved[words[0]] = decode_move(f, rows[words[0]], n_out, guard, start)
+    else:
+        anc, mvs = decode_move_leaves(f, [rows[i] for i in words], n_out, guard, start)
         for i, mv in zip(words, mvs):
             moved[i] = mv
-    else:
-        raw = decode_ancestors(f, n_out, guard, start)
-        anc = torch.clamp(raw, max=m - 1)
-        if ver == 6:
-            for i in words:
-                anc, moved[i] = move_rows(raw, _as_rows(leaves[i]))
     for i, a in enumerate(leaves):
         if moved[i] is None:
             moved[i] = a.index_select(0, anc.long())
@@ -1136,9 +1172,10 @@ def resample_move_f(f, state, n: int, version: Optional[int] = None,
     gathers (``pallas_resample.py:1273-1280``); a tree's leaves that are
     gathered take row ``M−1`` there under every version.  ``version`` None
     means :data:`MOVE_VERSION`.  A tree is decoded once: its float32 and
-    int32 leaves go through B4 over leaves in ``⌈leaves / MAX_LEAVES⌉``
-    launches under version 1 (one leaf: :func:`decode_move`), through B3 a
-    leaf under 6, through an ``index_select`` a leaf under 0.
+    int32 leaves of at most :data:`MAX_DECODE_MOVE_D` words a row go through
+    B4 over leaves in ``⌈leaves / MAX_LEAVES⌉`` launches under version 1
+    (one leaf: :func:`decode_move`), through B3 a leaf under 6
+    (:func:`move_by_ancestors`), through an ``index_select`` a leaf under 0.
     """
     ver = _resolve_version(version)
     if is_tree(state):
@@ -1160,33 +1197,25 @@ def resample_move_f_chains(f, state, n: int, version: Optional[int] = None,
     ``(anc [C, n] clipped to M−1, moved)``, chain ``c`` bitwise
     :func:`resample_move_f` of row ``c`` under the same version.  Every
     kernel runs once for all chains: version 1 B4 (over leaves) with the chain
-    axis, 6 B2 and then B3 a 32-bit leaf, 0 B5 and then a gather; a state with
-    no 32-bit leaf is decoded by B2 and gathered under 1 and 6."""
+    axis, 6 B2 and then B3 a 32-bit leaf (:func:`move_by_ancestors`), 0 B5 and
+    then a gather; a state with no leaf a kernel moves is decoded by B2 and
+    gathered under 1 and 6."""
     ver = _resolve_version(version)
     leaves, structure = tree_flatten(state)
     c, m = f.shape
-    words = [i for i, a in enumerate(leaves) if a.dtype in WORD_DTYPES]
+    rows = [_kernel_rows(a, 2) for a in leaves]
+    words = [i for i, r in enumerate(rows) if r is not None]
+    if ver == 6 or ver == 1 and not words:
+        return move_by_ancestors(decode_ancestors_chains(f, n, guard_n), state)
     moved = [None] * len(leaves)
-
-    def rows(a):
-        a = a.contiguous()
-        return a if a.dim() == 2 else a.reshape(a.shape[0], a.shape[1], -1)
-
     if ver == 0:
         anc = torch.clamp(decode_ancestors_dense_chains(f, n, guard_n), max=m - 1)
-    elif ver == 1 and len(words) == 1:
-        anc, mv = decode_move_chains(f, rows(leaves[words[0]]), n, guard_n)
-        moved[words[0]] = mv
-    elif ver == 1 and words:
-        anc, mvs = decode_move_leaves_chains(f, [rows(leaves[i]) for i in words], n, guard_n)
+    elif len(words) == 1:
+        anc, moved[words[0]] = decode_move_chains(f, rows[words[0]], n, guard_n)
+    else:
+        anc, mvs = decode_move_leaves_chains(f, [rows[i] for i in words], n, guard_n)
         for i, mv in zip(words, mvs):
             moved[i] = mv
-    else:
-        raw = decode_ancestors_chains(f, n, guard_n)
-        anc = torch.clamp(raw, max=m - 1)
-        if ver == 6:
-            for i in words:
-                anc, moved[i] = move_rows_chains(raw, rows(leaves[i]))
     for i, a in enumerate(leaves):
         if moved[i] is None:
             moved[i] = _rows_of(a, anc)

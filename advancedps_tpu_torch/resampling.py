@@ -7,6 +7,14 @@ selects ``j`` iff ``u_i ∈ [cum_{j-1}, cum_j)``.  Uniforms are positional
 (:func:`advancedps_tpu_torch.rng.pos_uniform`), so the same key gives the JAX
 package's uniforms bit for bit.
 
+The four schemes also draw for C chains at once, as ``jax.vmap`` of the JAX
+package's draws them: ``key`` a :class:`~advancedps_tpu_torch.rng.KeyBatch`
+column (words ``[C, 1]``, :meth:`~advancedps_tpu_torch.rng.KeyBatch.column`)
+and ``weights [C, N]`` give int32 ``[C, n]``, row ``c`` what chain ``c``'s key
+draws from row ``c`` alone.  The sums and searches then run along the rows;
+the prefix sums go through B6 (:func:`_cumsum`), so that on the card too a
+row's CDF is the same bits alone and in a batch.
+
 The sweep does not call systematic, stratified or multinomial itself: it
 recognises them and runs the same draw as monotone extents through the
 kernels of :mod:`advancedps_tpu_torch.ops.resample` (:func:`stratified_extents`
@@ -14,7 +22,7 @@ and :func:`multinomial_spacings` below build those extents), which agree with
 the searchsorted forms here up to ±1 boundary flips in float32.  Fused
 multinomial draws its uniforms already sorted, a different random variable
 with the same offspring law.  Residual resampling has no kernel form and runs
-as written here.
+as written here; the sweep moves the state by its ancestors through B3.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ import torch
 from . import random as rnd
 from . import rng as rngmod
 from ._device import resolve_device
+from .ops import resample as ops
 
 __all__ = [
     "randcat",
@@ -44,12 +53,28 @@ __all__ = [
 ]
 
 
+def _cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sums of nonnegative ``x`` along its last axis.  A
+    float32 vector or batch of rows goes through B6 (``ops.resample.prefix_sum``
+    or ``prefix_sum_chains``), which sums in double and rounds once: a row's
+    prefix is then the same bits alone or in a batch, and one launch on the
+    card, where torch scans a few long rows in a few blocks.  On the CPU that
+    is bitwise ``torch.cumsum``, which also accumulates float32 in double.
+    Anything else goes to ``torch.cumsum``."""
+    if x.dtype == torch.float32 and (x.dim() == 1 or x.dim() == 2
+                                     and 1 <= x.shape[0] <= ops.MAX_CHAINS):
+        x = x.contiguous()
+        return ops.prefix_sum(x) if x.dim() == 1 else ops.prefix_sum_chains(x)
+    return torch.cumsum(x, -1)
+
+
 def _inverse_cdf(weights: torch.Tensor, us: torch.Tensor) -> torch.Tensor:
     """``idx_i = j`` iff ``u_i ∈ [cum_{j-1}, cum_j)``, clamped to the last index
-    (a float cumsum may end slightly below 1)."""
-    cdf = torch.cumsum(weights, 0)
+    (a float cumsum may end slightly below 1); row by row for ``weights [C,
+    N]`` and ``us [C, n]``."""
+    cdf = _cumsum(weights)
     idx = torch.searchsorted(cdf, us, right=True)
-    return torch.clamp(idx, 0, weights.shape[0] - 1).to(torch.int32)
+    return torch.clamp(idx, 0, weights.shape[-1] - 1).to(torch.int32)
 
 
 def randcat(key, weights: torch.Tensor) -> torch.Tensor:
@@ -81,7 +106,9 @@ def randcat_gumbel(key: rngmod.Key, log_weights: torch.Tensor, gids=None) -> tor
 
 
 def resample_systematic(key: rngmod.Key, weights: torch.Tensor, n: int) -> torch.Tensor:
-    """Systematic resampling: one shared uniform, positions ``(u + k) / n``."""
+    """Systematic resampling: one shared uniform, positions ``(u + k) / n``
+    (a uniform a chain for a :class:`~advancedps_tpu_torch.rng.KeyBatch`
+    column)."""
     u = rngmod.uniform(key)
     us = (u + torch.arange(n, dtype=weights.dtype, device=weights.device)) / n
     return _inverse_cdf(weights, us)
@@ -133,19 +160,21 @@ def resample_residual(key: rngmod.Key, weights: torch.Tensor, n: int) -> torch.T
 
     With ``c = cumsum(floor(n·w))`` the deterministic copies take the slots
     ``k < c[-1]``, slot ``k`` holding ``searchsorted(c, k, right)``; the
-    count of copies is a mask, not a shape.
+    count of copies is a mask, not a shape.  For chains (``weights [C, N]``)
+    the count, the residual total and its guard are one a row, ``[C, 1]``.
     """
     scaled = n * weights
     floors = torch.floor(scaled)
     residuals = scaled - floors
-    counts_cdf = torch.cumsum(floors, 0)
-    n_det = counts_cdf[-1]
+    counts_cdf = _cumsum(floors)
+    n_det = counts_cdf[..., -1:]
 
     slots = torch.arange(n, dtype=weights.dtype, device=weights.device)
-    det_idx = torch.searchsorted(counts_cdf, slots, right=True)
-    det_idx = torch.clamp(det_idx, 0, weights.shape[0] - 1).to(torch.int32)
+    det_idx = torch.searchsorted(
+        counts_cdf, slots.expand(counts_cdf.shape[:-1] + (n,)).contiguous(), right=True)
+    det_idx = torch.clamp(det_idx, 0, weights.shape[-1] - 1).to(torch.int32)
 
-    res_total = torch.sum(residuals)
+    res_total = torch.sum(residuals, -1, keepdim=True)
     # Guard the fully deterministic case (all residuals zero).
     safe = torch.where(res_total > 0, res_total, torch.ones_like(res_total))
     res_idx = resample_multinomial(key, residuals / safe, n)

@@ -40,7 +40,13 @@ final line:
    exact or bitwise), each row bitwise the one-chain kernel on that row, B5's
    marks zero after every call, B7 and B8 on the engine's rows of
    ``S[:, :n]`` (n + 1 apart), the rows of chains whose flag is off kept by
-   the sweep's ``where``, and B4 on a chain that lies past 2**31 words;
+   the sweep's ``where``, and B4 on a chain that lies past 2**31 words; B3
+   on each geometry of ``MOVE_GEOMETRIES`` (one, three and 50 columns; C = 1,
+   8 and 64; n_out no multiple of four, so that a chain's row starts at any
+   alignment; ancestors random and sorted, every seventh past the drawn
+   population; float32 and int32 rows), bitwise its plain version and row by
+   row the one-chain kernel, and for one chain on slices one to three words
+   off 16-byte alignment;
 4. the SMC flagship (stationary LGSSM a=0.9, q=0.32, r=1.0, T=100,
    N=1,000,000, resampling at ESS ≤ N/2) through ``sample`` with each fused
    scheme — systematic, stratified, multinomial, and multinomial with the
@@ -81,7 +87,12 @@ final line:
    generic state, beside B2 + ``index_select``); the kernels with the chain
    axis at 8 x 1M (B2, B5, B7 and B8 beside a batched ``searchsorted``, B3
    beside ``gather``), and B1-B5, B7 and B8 with it at 8 x 1M and 64 x 16,384
-   beside C launches of the one-chain kernel.  The inputs are the same
+   beside C launches of the one-chain kernel; B3 also on three columns at
+   1M and on phase 9's ``[100k, 50]`` state, L2-warm and L2-cold beside
+   ``index_select``; and one residual firing step (the draw for C chains from
+   their keys on the card, then B3 with the chain axis): its device-side
+   launches for C = 1, 4 and 64 at 1M and at 16,384, equal at C = 4 and 64,
+   beside the loop of one-chain draws it replaced at 4 x 1M.  The inputs are the same
    tensors on every call, as in the sweep, where each was written by the step
    before: they sit in the 50 MB L2, so the readings are L2-warm.  A second
    window takes each kernel L2-cold, on 128 MB of copies of its inputs in
@@ -145,7 +156,15 @@ final line:
    firing step those of the 4-chain ensemble; an iteration timed and profiled
    in turns with B7 run once a chain, the loop it replaced) and for 4
    chains at 1M (2 iterations), and a GP-SSM ensemble of 4 x 65,536 (B4 over
-   leaves with the chain axis).
+   leaves with the chain axis); and residual resampling on the chain axis: an
+   ensemble of 4 x 1M (each run's |logZ - Kalman| < 0.1, runs 0 and 3 under
+   the flip contract against their one-chain sweeps, with extents off by at
+   most ``TAIL_OFF`` for its iid tail, B6 twice and B3 once a
+   firing step) and PGAS for 64 chains of 16,384 (2 iterations, replay: the
+   same kernels a firing step, as at C = 4; chains 0, 1, 2 and 63 held against ``sample_pg`` of
+   their key and timed as the loop of one-chain calls beside the batch's
+   chain-iterations/s; the launches of a profiled iteration beside those of
+   the loop it replaced, counted from phase 7's firing steps).
 
 Each launch count is read from the run of its own path, the counts set to 0
 just before it.  The last lines are the kernels' JSON record (launches summed
@@ -297,6 +316,8 @@ VERSION_TURNS = (6, 1, 0, 0, 1, 6)
 def per_firing_chains(scheme: str, leaves: int = 1, version: int = DEFAULT_MOVE) -> dict:
     """Kernel launches per step of a batched sweep on which some chain fires,
     by scheme: every kernel once for all chains, whatever C."""
+    if scheme == "residual":  # B6 for its two prefix sums, B3 a 32-bit leaf
+        return {"prefix_sum_chains": 2, "move_rows_chains": leaves}
     move = {1: ({"decode_move_chains": 1} if leaves == 1
                 else {"decode_move_leaves_chains": -(-leaves // 8)}),
             6: {"decode_ancestors_chains": 1, "move_rows_chains": leaves},
@@ -743,6 +764,70 @@ def chain_decode_checks(ops, gen, err):
           f"{time.perf_counter() - t0:.1f}s", flush=True)
 
 
+#: Phase 3's geometries of B3 (C, M, n_out, D): one column, three and 50;
+#: n_out no multiple of four (a chain's row then starts at another 16-byte
+#: alignment than the one before), and n_out other than M.
+MOVE_GEOMETRIES = ((1, N, N, 1), (1, N, N - 1, 3), (1, NG, NG, SG), (1, N, N + 3, 1),
+                   (8, N, N, 1), (8, N, N - 1, 1), (8, N, N - 3, 3), (8, NG + 3, NG + 3, SG),
+                   (64, MANY_N, MANY_N, 1), (64, MANY_N, MANY_N - 1, 3),
+                   (64, MANY_N, MANY_N - 3, SG))
+
+
+def move_rows_checks(ops, gen, err):
+    """Phase 3's B3 on every geometry of MOVE_GEOMETRIES, with ancestors in
+    random order and sorted (as a decode gives them), every seventh slot past
+    the drawn population (anc == M), float32 and int32 rows: bitwise its plain
+    version, each row of C > 1 bitwise the one-chain kernel; and for one chain
+    anc and v as slices one to three words off 16-byte alignment."""
+    t0 = time.perf_counter()
+    for c, m, n_out, d in MOVE_GEOMETRIES:
+        label = f"B3 C={c} M={m} n_out={n_out} D={d}"
+        anc = torch.randint(0, m + 1, (c, n_out), generator=gen, device="cuda", dtype=torch.int32)
+        anc[:, ::7] = m
+        shape = (c, m) if d == 1 else (c, m, d)
+        for a_ in (anc, torch.sort(anc, dim=1).values):
+            for v in (torch.randn(shape, generator=gen, device="cuda"),
+                      torch.randint(-(1 << 30), 1 << 30, shape, generator=gen, device="cuda",
+                                    dtype=torch.int32)):
+                if c == 1:
+                    got, want = ops.move_rows(a_[0], v[0]), ops.resample_move_ref(a_[0], v[0])
+                    err["move_rows"] = max(err["move_rows"], max_abs(got[0], want[0]))
+                    check(torch.equal(got[0], want[0])
+                          and torch.equal(word_bits(got[1]), word_bits(want[1])),
+                          f"{label}: move_rows differs from its plain version")
+                got = ops.move_rows_chains(a_, v)
+                want = ops.resample_move_chains_ref(a_, v)
+                err["move_rows_chains"] = max(err["move_rows_chains"], max_abs(got[0], want[0]))
+                check(torch.equal(got[0], want[0])
+                      and torch.equal(word_bits(got[1]), word_bits(want[1])),
+                      f"{label}: move_rows_chains differs from its plain version")
+                for r in range(c if c > 1 else 0):
+                    one = ops.move_rows(a_[r], v[r])
+                    check(torch.equal(got[0][r], one[0])
+                          and torch.equal(word_bits(got[1][r]), word_bits(one[1])),
+                          f"{label}: row {r} of move_rows_chains differs from the one-chain "
+                          f"kernel")
+                del got, want
+        if c == 1:
+            flat_a = torch.randint(0, m + 1, (n_out + 3,), generator=gen, device="cuda",
+                                   dtype=torch.int32)
+            flat_v = torch.randn(m * d + 3, generator=gen, device="cuda")
+            for shift in (1, 2, 3):
+                a1 = flat_a[shift:shift + n_out]
+                v1 = flat_v[shift:shift + m * d]
+                v1 = v1 if d == 1 else v1.view(m, d)
+                got, want = ops.move_rows(a1, v1), ops.resample_move_ref(a1, v1)
+                check(torch.equal(got[0], want[0]) and torch.equal(bits(got[1]), bits(want[1])),
+                      f"{label}: move_rows on slices {shift} words off alignment differs from "
+                      f"its plain version")
+        del anc
+        torch.cuda.empty_cache()
+    print(f"B3 at (C, M, n_out, D) = {', '.join(map(str, MOVE_GEOMETRIES))}, ancestors random "
+          f"and sorted, every seventh past the population, float32 and int32 rows: bitwise its "
+          f"plain version and, row by row, the one-chain kernel; one chain also on slices one "
+          f"to three words off alignment; {time.perf_counter() - t0:.1f}s", flush=True)
+
+
 def check_decode_forms(ops, f, n, vs, label, err):
     """B5, the windowed B2 and B4 against their plain versions and against
     the whole-population B2 (+ B3) on extents ``f`` drawn for ``n``
@@ -1151,6 +1236,7 @@ def main():
     torch.cuda.synchronize()
     chain_kernel_checks(ops, gen, err)
     chain_decode_checks(ops, gen, err)
+    move_rows_checks(ops, gen, err)
 
     # ---- 4. the SMC flagship with each fused scheme, through sample
     model = apt.models.stationary_lgssm(A, Q, R)
@@ -1733,6 +1819,8 @@ def main():
               f"{device_ms(plain):.5f} ms; per call by events {k_ms:.4f} ms, plain {p_ms:.4f} ms "
               f"({turns(readings)}) {tag}", flush=True)
     del f_16m
+    b3_reading(ops, "move_rows at 1M, D = 3", anc, xd, tag)
+    residual_step_launches(apt, ops, gen, tag)
     # The kernels with the chain axis at 8 x 1M and 64 x 16,384 beside C
     # launches of the one-chain kernel on the same rows, device time, bound
     # and, where there is one, the one batched PyTorch call.
@@ -2077,6 +2165,85 @@ def main():
         "count": torch.cuda.device_count()}}), flush=True)
 
 
+def b3_reading(ops, what: str, anc: torch.Tensor, v: torch.Tensor, tag: str) -> dict:
+    """B3 on ``(anc, v)``: device time L2-warm and L2-cold (128 MB of copies
+    of its inputs in turn), beside one ``index_select`` by the clipped
+    ancestors, and its bound: ``anc`` read, the rows that own a slot read
+    once, the rows and the clipped ancestors written."""
+    clipped, moved = ops.move_rows(anc, v)
+    owners = int(torch.unique(clipped).numel())
+    nb = nbytes(anc, clipped, moved) + v[0].numel() * v.element_size() * owners
+    copies = [(clone_as_laid(anc), clone_as_laid(v))
+              for _ in range(-(-COLD_BYTES // nbytes(anc, v)))]
+    turn = iter(range(10 ** 9))
+    row = {"device_ms": device_ms(lambda: ops.move_rows(anc, v)),
+           "cold_device_ms": device_ms(lambda: ops.move_rows(*copies[next(turn) % len(copies)])),
+           "library_ms": device_ms(lambda: v.index_select(0, clipped)),
+           "bound_ms": nb / HBM_BYTES_PER_S * 1e3}
+    del copies
+    print(f"kernel {what}: device {row['device_ms']:.5f} ms L2-warm, {row['cold_device_ms']:.5f} "
+          f"ms L2-cold, index_select {row['library_ms']:.5f} ms; bound {row['bound_ms']:.5f} ms "
+          f"({nb} bytes, {owners} owner rows), share {row['bound_ms'] / row['device_ms']:.4f} "
+          f"warm, {row['bound_ms'] / row['cold_device_ms']:.4f} cold {tag}", flush=True)
+    check(row["bound_ms"] <= row["cold_device_ms"], f"{what}: L2-cold device time "
+          f"{row['cold_device_ms']} ms below its bound {row['bound_ms']} ms")
+    return row
+
+
+#: Device-side launches of one residual firing step (the draw and B3), by
+#: chains: read in phase 7, used by phase 10 to count the loop it replaced.
+RESIDUAL_STEP = {}
+
+
+def residual_step_launches(apt, ops, gen, tag):
+    """Phase 7: one residual firing step, C chains drawn in one call from
+    their keys on the card and moved by B3 with the chain axis, for C = 1, 4
+    and 64 at N = 1M and 16,384: device-side launches (equal at C = 4 and
+    64 for each N; torch's own reductions and scans may take one launch more
+    for long rows than for short ones) and device time, with the three
+    kernels that take the most of it, beside the loop it replaced at C = 4 x
+    1M (each chain's draw from its host key, then one gather)."""
+    for c_, n_ in ((SCHEME_RUNS, N), (MANY_CHAINS, N), (1, N), (SCHEME_RUNS, MANY_N),
+                   (MANY_CHAINS, MANY_N), (1, MANY_N)):
+        w_ = torch.softmax(torch.randn(c_, n_, generator=gen, device="cuda") * 2.0, -1)
+        x_ = torch.randn(c_, n_, generator=gen, device="cuda")
+        keys_ = apt.rng.chain_keys(apt.rng.key(300), c_)
+        col = keys_.to("cuda").column()
+
+        def step():
+            return ops.move_by_ancestors(apt.resample_residual(col, w_, n_), x_)
+
+        step()
+        torch.cuda.synchronize()
+        rows = device_rows(step, 5)
+        launched = sum(e.count for e in rows) // 5
+        ms = sum(e.self_device_time_total for e in rows) / 5 / 1e3
+        top = ", ".join(f"{e.key[:50]} {e.self_device_time_total / 5 / 1e3:.4f} ms"
+                        for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:3])
+        RESIDUAL_STEP[c_, n_] = launched
+        loop_txt = ""
+        if (c_, n_) == (SCHEME_RUNS, N):
+            host = [keys_.key(c) for c in range(c_)]
+            chain_ix = torch.arange(c_, device="cuda")[:, None]
+
+            def loop():
+                anc = torch.stack([apt.resample_residual(host[c], w_[c], n_) for c in range(c_)])
+                return x_[chain_ix, anc.long()]
+
+            loop()
+            torch.cuda.synchronize()
+            lrows = device_rows(loop, 2)
+            loop_txt = (f"; the loop of {c_} one-chain draws and a gather "
+                        f"{sum(e.count for e in lrows) // 2} launches, "
+                        f"{sum(e.self_device_time_total for e in lrows) / 2 / 1e3:.5f} ms")
+        print(f"residual firing step, C={c_} N={n_}: {launched} device-side launches, device "
+              f"{ms:.5f} ms (most: {top}){loop_txt} {tag}", flush=True)
+        del w_, x_
+    for n_ in (N, MANY_N):
+        check(RESIDUAL_STEP[SCHEME_RUNS, n_] == RESIDUAL_STEP[MANY_CHAINS, n_],
+              f"a residual firing step's launches grow with C: {RESIDUAL_STEP}")
+
+
 def generic_state_move(ops, tag) -> dict:
     """B4 on one firing of phase 9's generic state ``[NG, SG]``, bitwise its
     plain version, beside B2 + ``index_select``: device times and the bound
@@ -2101,6 +2268,19 @@ def generic_state_move(ops, tag) -> dict:
           f"{row['device_ms']:.5f} ms, B2 + index_select {row['library_ms']:.5f} ms, plain "
           f"{row['plain_ms']:.5f} ms; bound {row['bound_ms']:.5f} ms ({nb} bytes, {owners} "
           f"owner rows) {tag}", flush=True)
+    # B3 on the same firing, bitwise B4's move: with B2 before it, the other
+    # form a dispatch by shape could run on this state.
+    raw = ops.decode_ancestors(f, NG)
+    b3 = ops.move_rows(raw, v)
+    check(torch.equal(b3[0], anc) and torch.equal(word_bits(b3[1]), word_bits(moved)),
+          f"B3 on the [{NG}, {SG}] state differs from B4")
+    b3_row = b3_reading(ops, f"move_rows at {NG // 1000}k, D = {SG} (phase 9's generic state)",
+                        raw, v, tag)
+    row["b3_device_ms"], row["b2_device_ms"] = b3_row["device_ms"], device_ms(
+        lambda: ops.decode_ancestors(f, NG))
+    print(f"  B2 + B3 on the [{NG}, {SG}] state: {row['b2_device_ms']:.5f} + "
+          f"{row['b3_device_ms']:.5f} ms against B4's {row['device_ms']:.5f} ms {tag}",
+          flush=True)
     return row
 
 
@@ -2314,6 +2494,16 @@ def generic_phase(apt, ops, drive, expected, profile_one, tag, traced, kernel, s
           f"launches {got['launches']}; sweep {got['sweep_s'] * 1e3:.3f} ms, child process "
           f"{child_s:.1f}s {tag}", flush=True)
     print(f"phase 9 took {time.perf_counter() - t_phase:.1f}s", flush=True)
+
+
+#: The flip contract's limit on the extents of a scheme whose positions are
+#: iid uniforms, residual's multinomial tail, where evenly spaced positions
+#: (systematic) allow 1: a CDF entry that moves by one float32 ulp (Σe summed
+#: in another order) moves every tail uniform that lies inside that ulp, a
+#: Poisson count of mean ~0.03 at 1M (~0.5M tail uniforms, an ulp of 6e-8
+#: below 1).  Over 1M entries the largest is typically 2-4, and one above 8
+#: has a probability under 1e-13.
+TAIL_OFF = 8
 
 
 def dlogz_bound(n: int) -> float:
@@ -2619,6 +2809,9 @@ def chains_phase(apt, ops, drive, expected, profile_one, tag, traced, kernel, sy
           f"{rate['batched'] / rate['once a chain']:.4f} {tag}", flush=True)
     del chains_m, state_m
 
+    residual_chains(apt, ops, drive, expected, profile_one, tag, traced, kernel, kf_ll, sm,
+                    per_sweep, per_iteration)
+
     # ---- 10d. PGAS, 4 chains at 1M, replay storage, 2 iterations
     t0 = time.perf_counter()
     wide, launches = drive(lambda: parallel.sample_chains(
@@ -2663,6 +2856,116 @@ def chains_phase(apt, ops, drive, expected, profile_one, tag, traced, kernel, sy
     per_sweep[f"GP-SSM, {GP_RUNS} chains"] = {k: v for k, v in launches.items() if v}
     print(f"phase 10 took {time.perf_counter() - t_phase:.1f}s", flush=True)
     return per_sweep, per_iteration
+
+
+def residual_chains(apt, ops, drive, expected, profile_one, tag, traced, kernel, kf_ll, sm,
+                    per_sweep, per_iteration):
+    """Phase 10f: residual resampling on the chain axis.  An ensemble of
+    SCHEME_RUNS runs at 1M (each against Kalman; runs 0 and the last under
+    the flip contract against their one-chain sweeps), and PGAS for
+    MANY_CHAINS chains of MANY_N (MULTI_ITERS iterations, replay): one draw
+    (its two prefix sums by B6) and one B3 a firing step for all chains, as
+    many at C = 4 as at 64; its
+    chain-iterations/s beside the loop of one-chain calls, and the launches
+    of a profiled iteration beside those of the loop it replaced (counted
+    from phase 7's firing steps)."""
+    from advancedps_tpu_torch import parallel
+
+    t0 = time.perf_counter()
+    rs = apt.ResampleWithESSThreshold(apt.resample_residual)
+    key = apt.rng.key(250)
+    ens, launches = drive(lambda: parallel.smc_ensemble(key, traced, apt.SMC(N, rs), SCHEME_RUNS,
+                                                        store_states=False))
+    lz = ens.log_evidence.double().cpu()
+    fired = int(ens.diagnostics["resampled"].any(0).sum())
+    per_step = {"ensemble": sum(launches.values()) / max(fired, 1)}
+    print(f"ensemble [residual] {SCHEME_RUNS} runs x N={N} T={T}: |logZ - kalman| "
+          f"{[round(abs(v - kf_ll), 6) for v in lz.tolist()]}, steps with a firing {fired}, "
+          f"launches { {k: v for k, v in launches.items() if v} } {tag}", flush=True)
+    check(bool(((lz - kf_ll).abs() < 0.1).all()), "ensemble residual: |logZ - kalman| >= 0.1")
+    check(fired > 0 and launches == expected(per_firing_chains("residual"), fired),
+          f"ensemble residual: launches {launches}")
+    per_sweep[f"residual, {SCHEME_RUNS} chains"] = {k: v for k, v in launches.items() if v}
+    batched = apt.sweep(apt.rng.chain_keys(key, SCHEME_RUNS), kernel, N, rs, store_states=False)
+    check(torch.equal(batched.log_evidence, ens.log_evidence),
+          "ensemble residual: the batched sweep differs from smc_ensemble")
+    for c in (0, SCHEME_RUNS - 1):
+        one = apt.sweep(apt.rng.fold_in(key, c), kernel, N, rs, store_states=False, device="cuda")
+        first, off, flags, dlz = flip_contract(batched.ancestors[c], batched.resampled[c],
+                                               batched.log_evidence[c], one)
+        print(f"ensemble [residual] run {c} against its one-chain sweep: bitwise "
+              f"{first == T and torch.equal(batched.log_evidence[c], one.log_evidence)}, first "
+              f"flip at step {first}, extents off by {off} (limit {TAIL_OFF}), flags equal to "
+              f"it {flags}, |dlogZ| {dlz:.3e}", flush=True)
+        check(off <= TAIL_OFF and flags and dlz < 0.05, f"ensemble residual run {c}: not "
+              f"within the flip contract (first {first}, off {off}, flags {flags}, |dlogZ| "
+              f"{dlz})")
+    del batched, ens
+
+    pg = apt.PGAS(MANY_N, resampler=apt.resample_residual)
+    key_p = apt.rng.key(255)
+    chains, launches = drive(lambda: parallel.sample_chains(
+        key_p, traced, pg, MULTI_ITERS, MANY_CHAINS, trajectory_storage="replay"))
+    lz_p = chains.log_evidence.double().cpu()
+    check(bool(torch.isfinite(chains.trajectory).all()) and bool(torch.isfinite(lz_p).all()),
+          "residual PGAS chains: not finite")
+    check(float((lz_p - sm.log_likelihood).abs().max()) < 1.0,
+          "residual PGAS chains: |logZ - kalman| >= 1")
+    check(launches == expected(per_firing_chains("residual"), MULTI_ITERS * (T - 1)),
+          f"residual PGAS chains: launches {launches}")
+    per_iteration[f"residual, {MANY_CHAINS} chains"] = {
+        k: v // MULTI_ITERS for k, v in launches.items() if v}
+    per_step[f"PGAS, {MANY_CHAINS} chains"] = sum(launches.values()) / (MULTI_ITERS * (T - 1))
+    print(f"resampling kernel launches a residual firing step: {per_step}", flush=True)
+    check(per_step["ensemble"] == per_step[f"PGAS, {MANY_CHAINS} chains"],
+          f"residual launches a firing step grow with C: {per_step}")
+    it0 = apt.sweep(apt.rng.fold_in(apt.rng.chain_keys(key_p, MANY_CHAINS), 0), kernel, MANY_N,
+                    pg.resampler, store_states=False)
+    loop_s = 0.0
+    for c in LOOP_CHAINS:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        one = apt.sample(apt.rng.fold_in(key_p, c), traced, pg, MULTI_ITERS,
+                         trajectory_storage="replay", device="cuda")
+        float(one.log_evidence[-1])
+        loop_s += time.perf_counter() - t1
+        same = all(torch.equal(one.trajectory[i], chains.trajectory[c, i])
+                   and torch.equal(one.log_evidence[i], chains.log_evidence[c, i])
+                   for i in range(MULTI_ITERS))
+        one0 = apt.sweep(apt.rng.fold_in(apt.rng.fold_in(key_p, c), 0), kernel, MANY_N,
+                         pg.resampler, store_states=False, device="cuda")
+        first, off, flags, dlz = flip_contract(it0.ancestors[c], it0.resampled[c],
+                                               it0.log_evidence[c], one0)
+        print(f"PGAS [residual] chain {c} against sample_pg(fold_in(key, {c})): iterations "
+              f"bitwise {same}; iteration 0's sweep: first flip at step {first}, extents off by "
+              f"{off}, |dlogZ| {dlz:.3e}", flush=True)
+        check(same or (off <= TAIL_OFF and flags and dlz < dlogz_bound(MANY_N)),
+              f"residual PGAS chain {c}: neither bitwise nor within the flip contract")
+    del it0
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    again = parallel.sample_chains(apt.rng.key(256), traced, pg, MULTI_ITERS, MANY_CHAINS,
+                                   trajectory_storage="replay")
+    float(again.log_evidence[0, 0])
+    batched_s = time.perf_counter() - t1
+    rate, loop_rate = MANY_CHAINS * MULTI_ITERS / batched_s, len(LOOP_CHAINS) * MULTI_ITERS / loop_s
+    print(f"PGAS [residual] N={MANY_N} T={T} replay: {MANY_CHAINS} chains as one batch "
+          f"{rate:.3f} chain-iterations/s ({batched_s:.3f}s for {MULTI_ITERS} iterations); the "
+          f"loop of one-chain calls on chains {list(LOOP_CHAINS)} {loop_rate:.3f} "
+          f"chain-iterations/s ({loop_s:.3f}s); ratio {rate / loop_rate:.3f} {tag}", flush=True)
+    wall, busy, launched, _ = profile_one(lambda: apt.step_pg(
+        apt.rng.fold_in(apt.rng.chain_keys(apt.rng.key(257), MANY_CHAINS), 1), traced, pg,
+        apt.PGState(again.trajectory[:, -1]), "replay"))
+    # The loop: each firing step's batched draw and move in place of C draws
+    # from host keys and a gather (phase 7's counts of one firing step).
+    loop_launches = launched + (T - 1) * (MANY_CHAINS * RESIDUAL_STEP[1, MANY_N]
+                                          - RESIDUAL_STEP[MANY_CHAINS, MANY_N])
+    print(f"profiled residual PGAS iteration, {MANY_CHAINS} chains x {MANY_N} (replay): wall "
+          f"{wall:.3f} ms, device busy {busy:.3f} ms ({busy / wall:.4f} of wall), {launched} "
+          f"device-side launches; the loop it replaced, counted from phase 7's firing steps: "
+          f"~{loop_launches} {tag}", flush=True)
+    del chains, again
+    print(f"phase 10f (residual) took {time.perf_counter() - t0:.1f}s", flush=True)
 
 
 def _checkpointed_chain(apt, traced, pgas, key):

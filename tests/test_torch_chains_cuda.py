@@ -7,8 +7,11 @@ runs on a GPU machine that has none:
 
 Row ``c`` of each chain-axis kernel (B1, B6, B4 and B4 over leaves; B2, B3,
 B5, B7 and B8) is the one-chain kernel on row ``c`` bit for bit, and within
-the one-chain tolerances of the batched plain version; a batched ensemble on
-the card holds the flip contract against the loop.
+the one-chain tolerances of the batched plain version; B3 is bitwise its
+plain version at one, three, four and 50 columns, C = 1, 8 and 64, on rows of
+every alignment and on unaligned slices; a batched ensemble on the card, with
+systematic and with residual resampling, holds the flip contract against the
+loop.
 """
 
 import pytest
@@ -116,6 +119,62 @@ def test_batched_ensemble_on_the_card_holds_the_flip_contract():
     fired = int(res.resampled.any(0).sum())
     assert ops.extents_from_logw_chains.launches == fired > 0
     assert ops.decode_move_chains.launches == fired
+    for c in range(4):
+        one = apt.sweep(R.fold_in(key, c), kernel, 20_000, rs, store_states=False)
+        same = res.ancestors[c] == one.ancestors
+        flips = (~same).sum(1)
+        first = int(torch.argmax((flips > 0).int())) if bool(flips.any()) else 30
+        assert torch.equal(res.resampled[c, :first + 1], one.resampled[:first + 1])
+        assert abs(float(res.log_evidence[c]) - float(one.log_evidence)) < 0.2
+
+
+def _bits(x):
+    return x.view(torch.int32)
+
+
+@pytest.mark.parametrize("c", [1, 8, 64])
+@pytest.mark.parametrize("d", [1, 3, 4, 50])
+def test_move_rows_on_every_geometry_is_the_plain_version(c, d):
+    """B3 with the chain axis at C = 1, 8 and 64 on D columns: bitwise its
+    plain version and, row by row, the one-chain kernel, with slots past the
+    drawn population (anc == M), n_out no multiple of four (every row starts
+    at another alignment) and, for one chain, unaligned slices of anc and v."""
+    g = torch.Generator(device="cuda").manual_seed(c * 100 + d)
+    for m, n_out in ((4099, 4099), (5000, 3), (1, 2047), (2048, 2048 * 3 + 5)):
+        anc = torch.randint(0, m + 1, (c, n_out), generator=g, device="cuda", dtype=torch.int32)
+        anc[:, ::7] = m
+        shape = (c, m) if d == 1 else (c, m, d)
+        v = torch.randn(shape, generator=g, device="cuda")
+        ac, mv = ops.move_rows_chains(anc, v)
+        rac, rmv = ops.resample_move_chains_ref(anc, v)
+        assert torch.equal(ac, rac) and torch.equal(_bits(mv), _bits(rmv)), (m, n_out)
+        for r in range(c):
+            ac1, mv1 = ops.move_rows(anc[r], v[r])
+            assert torch.equal(ac[r], ac1) and torch.equal(_bits(mv[r]), _bits(mv1))
+        ai = torch.randint(0, 1 << 30, shape, generator=g, device="cuda", dtype=torch.int32)
+        assert torch.equal(ops.move_rows_chains(anc, ai)[1], ops.resample_move_chains_ref(anc, ai)[1])
+        flat_a = torch.randint(0, m + 1, (n_out + 3,), generator=g, device="cuda",
+                               dtype=torch.int32)
+        flat_v = torch.randn(m * d + 3, generator=g, device="cuda")
+        for shift in (1, 2, 3):
+            a1 = flat_a[shift:shift + n_out]
+            v1 = flat_v[shift:shift + m * d]
+            v1 = v1 if d == 1 else v1.view(m, d)
+            got, want = ops.move_rows(a1, v1), ops.resample_move_ref(a1, v1)
+            assert torch.equal(got[0], want[0]) and torch.equal(_bits(got[1]), _bits(want[1]))
+
+
+def test_batched_residual_on_the_card_moves_by_b3_and_holds_the_flip_contract():
+    model = apt.models.stationary_lgssm(a=0.9, q=0.32, r=1.0)
+    _, ys = apt.simulate(torch.Generator().manual_seed(0), model, 30)
+    kernel = apt.SSMKernel(apt.TracedSSM(model, ys).to("cuda"))
+    rs = apt.ResampleWithESSThreshold(apt.resample_residual)
+    key = R.key(4)
+    ops.reset_launch_counts()
+    res = apt.sweep(R.chain_keys(key, 4), kernel, 20_000, rs, store_states=False)
+    fired = int(res.resampled.any(0).sum())
+    assert ops.move_rows_chains.launches == fired > 0 and ops.move_rows.launches == 0
+    assert ops.prefix_sum_chains.launches == 2 * fired and ops.prefix_sum.launches == 0
     for c in range(4):
         one = apt.sweep(R.fold_in(key, c), kernel, 20_000, rs, store_states=False)
         same = res.ancestors[c] == one.ancestors
