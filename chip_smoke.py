@@ -64,9 +64,9 @@ final line:
    one), ``auto`` against ``neighbor`` and move version 6 against the
    default 1, bitwise;
 6. PGAS at N=1M, T=100 with replay storage (``bench_pgas.py``'s
-   configuration): the pooled chain means against the RTS smoother (RMS
-   z-score < 3 over 6 chains of 8 iterations, 4 dropped), the final
-   iteration's logZ against Kalman, 99 launches of B1 and B4 per iteration; short
+   configuration): one chain of 8 iterations, the final iteration's logZ
+   against Kalman, 99 launches of B1 and B4 per iteration (the RTS anchor over
+   6 such chains is phase 11's pgas mode); short
    PGAS chains with multinomial (logZ bitwise what the chain on the earlier
    B7 gave) and stratified; replay against dense storage;
    then sharded PGAS (K = 4, replay, ``auto``) and sharded chains on a 2 × 2
@@ -164,11 +164,20 @@ final line:
    same kernels a firing step, as at C = 4; chains 0, 1, 2 and 63 held against ``sample_pg`` of
    their key and timed as the loop of one-chain calls beside the batch's
    chain-iterations/s; the launches of a profiled iteration beside those of
-   the loop it replaced, counted from phase 7's firing steps).
+   the loop it replaced, counted from phase 7's firing steps);
+11. the five modes of ``advancedps_tpu_torch.bench`` at full size through its
+   functions, no device named, each printing its JSON line: ``smc`` (the
+   flagship, 5 timed sweeps), ``pgas`` (N=1M, replay; 2 timed windows of 8
+   iterations, the mode's 5 cut, and its RTS anchor over 6 chains of 8
+   iterations whole), ``scaling --mode overhead`` (262,144 particles on 1, 2,
+   4 and 8 logical shards, T = 50), ``ensemble`` (8 x 1M) and ``chains`` (64
+   PGAS chains of 16,384); each anchor must hold, the JSON line must name this
+   card, and each run must launch its path's kernels and no other (B1 and B4,
+   with the chain axis for a batch; exact counts where every step fires).
 
 Each launch count is read from the run of its own path, the counts set to 0
 just before it.  The last lines are the kernels' JSON record (launches summed
-over the runs of phases 4-6 and 8-10, and per sweep and per PGAS iteration by path),
+over the runs of phases 4-6 and 8-11, and per sweep and per PGAS iteration by path),
 the card, and ``{"ok": true, "device": {...}}``.
 Imports no JAX: the card's machine has none.
 """
@@ -210,7 +219,10 @@ L2_BYTES_PER_S = 5120 * 1.98e9
 PROFILER_PAD_S = 0.02
 COLD_BYTES = 128 << 20  # inputs cycled through per L2-cold window, over the 50 MB L2
 SWEEPS = 5  # timed sweeps per scheme
-PGAS_ITERS, PGAS_WARM, PGAS_CHAINS = 8, 4, 6  # bench_pgas.py:34-38, 96-114
+PGAS_ITERS = 8  # bench_pgas.py:34-38
+#: Timed windows of the bench's pgas mode in phase 11: the mode's 5 cut for the
+#: script's time limit (its RTS anchor, 6 chains of 8 iterations, runs whole).
+BENCH_PGAS_RUNS = 2
 SHARDED_PGAS_ITERS = 3
 CHAIN_ITERS = 3
 #: The SV PGAS update-rate contract's iterations: the JAX test runs 150; cut to
@@ -1400,31 +1412,18 @@ def main():
     sm = apt.utils.kalman_smoother(ys, A, 0.0, Q, 1.0, R, 0.0, SIGMA0)
     pgas = apt.PGAS(N)
 
-    def anchor_chains():
-        means = []
-        for c in range(PGAS_CHAINS):
-            res = apt.sample(apt.rng.fold_in(apt.rng.key(9), c), traced, pgas, PGAS_ITERS,
-                             trajectory_storage="replay", device="cuda")
-            check(bool(torch.isfinite(res.trajectory).all()), "PGAS trajectory not finite")
-            means.append(res.trajectory[PGAS_WARM:].double().mean(0).cpu())
-        return torch.stack(means), res
-
+    # The RTS anchor at this size (bench_pgas.py's 6 chains of 8 iterations)
+    # is the bench's pgas mode in phase 11; here one chain of them.
     t0 = time.perf_counter()
-    (cm, last), launches = drive(anchor_chains)
-    anchor_s = time.perf_counter() - t0
-    iters = PGAS_CHAINS * PGAS_ITERS
-    est = cm.mean(0)
-    # SE from the independent chain means, floored at the posterior sd over
-    # the pooled iterates (bench_pgas.py:103-111).
-    sd = sm.variances.sqrt()
-    se = torch.maximum(cm.std(0, unbiased=True) / math.sqrt(PGAS_CHAINS),
-                       sd / math.sqrt(PGAS_CHAINS * (PGAS_ITERS - PGAS_WARM)))
-    zrms = float((((est - sm.means) / se) ** 2).mean().sqrt())
+    last, launches = drive(lambda: apt.sample(apt.rng.fold_in(apt.rng.key(9), 0), traced, pgas,
+                                              PGAS_ITERS, trajectory_storage="replay",
+                                              device="cuda"))
+    chain_s = time.perf_counter() - t0
+    iters = PGAS_ITERS
     lz_err = abs(float(last.log_evidence[-1]) - float(sm.log_likelihood))
-    print(f"PGAS N={N} T={T} replay: {PGAS_CHAINS} chains x {PGAS_ITERS} iterations "
-          f"({PGAS_WARM} dropped) in {anchor_s:.3f}s; RMS z-score vs RTS smoother {zrms:.4f}; "
+    print(f"PGAS N={N} T={T} replay: one chain of {PGAS_ITERS} iterations in {chain_s:.3f}s; "
           f"final-iteration |logZ - kalman| {lz_err:.6f}; launches {launches} {tag}", flush=True)
-    check(zrms < 3.0, f"PGAS: RMS z-score vs RTS smoother {zrms} >= 3")
+    check(bool(torch.isfinite(last.trajectory).all()), "PGAS trajectory not finite")
     check(lz_err < 1.0, f"PGAS: final |logZ - kalman| = {lz_err} >= 1")
     check(launches == expected(PER_FIRING["systematic"], iters * (T - 1)),
           f"PGAS: launches {launches}, expected {T - 1} of B1 and the decode + move per "
@@ -2147,6 +2146,8 @@ def main():
     per_sweep.update(chain_sweeps)
     per_pgas_iteration.update(chain_iterations)
     print(f"phases 1-10 took {time.perf_counter() - t_script:.1f}s", flush=True)
+    bench_phase(drive, card, tag)
+    print(f"phases 1-11 took {time.perf_counter() - t_script:.1f}s", flush=True)
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
          "launches": main_launches[name], "max_abs_err": err[name],
@@ -2163,6 +2164,68 @@ def main():
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def bench_launches_ok(bench, mode: str, record: dict, launches: dict) -> bool:
+    """Whether a bench mode's run launched its path's kernels and no other:
+    ``launches`` counted over the whole run, ``record["launches"]`` over its
+    timed runs.  Every PGAS step fires; a gated sweep's firings are read from
+    B1 = B4 (with the chain axis for a batch)."""
+    run = {k: v for k, v in launches.items() if v}
+    timed = record["launches"]
+    if mode in ("smc", "ensemble"):
+        names = set(PER_FIRING["systematic"] if mode == "smc" else per_firing_chains("systematic"))
+        return all(set(got) == names and len(set(got.values())) == 1 for got in (run, timed))
+    if mode == "scaling":
+        # Each shard decodes and moves its window once a firing; B1 runs on
+        # each shard where a firing takes the all-gather.
+        shards = [int(k) for k in record["particle_steps_per_sec_by_devices"]]
+        moves = {k: sum(s * (2 + record["n_runs"]) * (record["steps"] - 1) for s in shards) * v
+                 for k, v in DECODE_MOVE[WINDOWED_MOVE].items()}
+        return (set(run) <= {"extents_from_logw", *moves}
+                and all(run[k] == v for k, v in moves.items())
+                and run.get("extents_from_logw", 0) <= sum(moves.values()))
+    if mode == "pgas":
+        per_firing = PER_FIRING["systematic"]
+        chains = -(-bench.ANCHOR_ITERS // (bench.BENCH_ITERS - bench.WARM_ITERS))
+        windows, timed_windows = 1 + record["n_runs"] + chains, record["n_runs"]
+        per_window = bench.BENCH_ITERS * (T - 1)
+    else:  # chains: every chain fires at every step
+        per_firing = per_firing_chains("systematic")
+        windows, timed_windows = 1 + record["n_runs"], record["n_runs"]
+        per_window = record["iterations_per_run"] * (T - 1)
+    return (run == {k: v * windows * per_window for k, v in per_firing.items()}
+            and timed == {k: v * timed_windows * per_window for k, v in per_firing.items()})
+
+
+def bench_phase(drive, card: str, tag: str):
+    """Phase 11: the five modes of ``advancedps_tpu_torch.bench`` at full size
+    through its functions, no device named.  Each prints its JSON line and
+    raises on a failed anchor; each ran on this card and launched its path's
+    kernels (B1 and B4; with the chain axis for a batch) and no other."""
+    from advancedps_tpu_torch import bench
+
+    t_phase = time.perf_counter()
+    modes = {
+        "smc": bench.smc,
+        "pgas": lambda: bench.pgas(runs=BENCH_PGAS_RUNS),
+        "scaling": lambda: bench.scaling(mode="overhead"),
+        "ensemble": bench.ensemble,
+        "chains": bench.chains,
+    }
+    for mode, run in modes.items():
+        t0 = time.perf_counter()
+        try:
+            record, launches = drive(run)
+        except bench.AnchorError as e:
+            fail(f"bench {mode}: {e}")
+        print(f"bench {mode} took {time.perf_counter() - t0:.1f}s; launches "
+              f"{ {k: v for k, v in launches.items() if v} } {tag}", flush=True)
+        check(record["device"] == card, f"bench {mode}: device {record['device']!r}")
+        check(bench_launches_ok(bench, mode, record, launches),
+              f"bench {mode}: launches {launches}, in the timed runs {record['launches']}: "
+              f"not its path's kernels")
+    print(f"phase 11 took {time.perf_counter() - t_phase:.1f}s", flush=True)
 
 
 def b3_reading(ops, what: str, anc: torch.Tensor, v: torch.Tensor, tag: str) -> dict:
@@ -2535,7 +2598,7 @@ def chains_phase(apt, ops, drive, expected, profile_one, tag, traced, kernel, sy
     """Phase 10: independent chains as one batch on a leading chain axis, at
     the flagship LGSSM's full width (the module docstring).  Returns the
     launches per batched sweep and per batched PGAS iteration, by path."""
-    from advancedps_tpu_torch import parallel
+    from advancedps_tpu_torch import bench, parallel
 
     t_phase = time.perf_counter()
     per_sweep, per_iteration = {}, {}
@@ -2688,13 +2751,10 @@ def chains_phase(apt, ops, drive, expected, profile_one, tag, traced, kernel, sy
                                MANY_ITERS * (T - 1)), f"PGAS chains: launches {launches}")
     per_iteration[f"systematic, {MANY_CHAINS} chains"] = {
         k: v // MANY_ITERS for k, v in launches.items() if v}
-    traj = chains.trajectory.double().cpu()
-    cmeans = traj.mean(1)  # each chain's mean over its iterations
-    est = cmeans.mean(0)
-    sd = sm.variances.sqrt()
-    se = torch.maximum(cmeans.std(0, unbiased=True) / math.sqrt(MANY_CHAINS),
-                       sd / math.sqrt(MANY_CHAINS * MANY_ITERS))
-    zrms = float((((est - sm.means) / se) ** 2).mean().sqrt())
+    # Each chain's mean over its iterations, against the smoother by
+    # bench_pgas.py's statistic.
+    cmeans = chains.trajectory.double().cpu().mean(1)
+    zrms = bench.rts_zrms(cmeans, sm.means, sm.variances, MANY_ITERS)
     print(f"PGAS {MANY_CHAINS} chains x N={MANY_N} x {MANY_ITERS} iterations (replay), one batch: "
           f"RMS z-score of the pooled chain means vs RTS smoother {zrms:.4f}; first call "
           f"{first_s:.3f}s; launches {launches} {tag}", flush=True)
