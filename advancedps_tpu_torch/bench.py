@@ -8,6 +8,8 @@
         [--exchange auto|allgather|neighbor] [--out PATH]
     python -m advancedps_tpu_torch.bench ensemble
     python -m advancedps_tpu_torch.bench chains
+    python -m advancedps_tpu_torch.bench schemes [--scheme systematic|stratified|multinomial]
+    python -m advancedps_tpu_torch.bench generic
 
 Every mode takes ``--device``; without it the mode runs on the GPU and raises
 where there is no CUDA device (it never carries on on the CPU, which is for
@@ -33,6 +35,18 @@ JAX package's stream.
   particles, replay storage, as one batch.  Value: chain-iterations/s of the
   median of 5 windows of 3 iterations.  Anchor: every chain's final
   |logZ − Kalman| < 1.
+* ``schemes`` (``profiling/bench_schemes.py``): ``smc``'s sweep with one
+  scheme under an always-resample gate (threshold inf: every one of the T − 1
+  steps fires, and the sweep reads no gate), beside a never-firing base
+  (threshold 0).  Value: N·T over the median of 5 sweeps of the scheme; beside
+  it the base's median and the cost of one firing, (median − base median) /
+  (T − 1).  Anchor: |logZ − Kalman| < 1, base and scheme.
+* ``generic`` (``profiling/bench_generic.py``): the LGSSM of T = 50 steps at
+  N = 100k written as a :class:`~advancedps_tpu_torch.generic.GenericModel`
+  program of 50 sample sites and 50 observes, and the same model through
+  ``SSMKernel``, ESS-gated.  Value: N·T over the median of 5 sweeps of the
+  program; beside it the structured form's and their ratio.  Anchor:
+  |logZ − Kalman| < 1, both forms.
 
 Each mode writes its diagnostics to stderr and prints one JSON line to stdout:
 ``metric``, ``value``, ``unit``, ``vs_baseline`` (the value against the native
@@ -62,18 +76,23 @@ import torch
 
 from . import models, rng
 from ._device import resolve_device
+from .distributions import Normal
 from .engine import sweep
-from .inference import sample
+from .generic import GenericModel
+from .inference import make_kernel, sample
 from .ops import _build, native
 from .ops import resample as ops
 from .parallel import particle_mesh, sample_chains, sharded_step_pg, smc_ensemble
 from .pg import PGAS
+from .resampling import (ResampleWithESSThreshold, resample_multinomial, resample_stratified,
+                         resample_systematic)
 from .smc import SMC, SSMKernel
 from .ssm import TracedSSM, simulate
 from .utils import kalman_filter, kalman_smoother
 
-__all__ = ["AnchorError", "MODES", "chains", "device_line", "ensemble", "flagship", "lgssm",
-           "main", "pgas", "rts_zrms", "scaling", "smc"]
+__all__ = ["AnchorError", "MODES", "SCHEMES", "always_resample", "chains", "device_line",
+           "ensemble", "flagship", "generic", "lgssm", "lgssm_program", "main", "pgas", "rts_zrms",
+           "scaling", "schemes", "smc"]
 
 N = 1_000_000
 T = 100
@@ -90,6 +109,11 @@ ZRMS_LIMIT = 3.0
 ENSEMBLE_RUNS = 8
 CHAINS, CHAIN_N, CHAIN_ITERS = 64, 16_384, 3
 SHARDS = (1, 2, 4, 8)
+#: bench_schemes.py:62-66 (residual stays out, as there).
+SCHEMES = {"systematic": resample_systematic, "stratified": resample_stratified,
+           "multinomial": resample_multinomial}
+#: bench_generic.py:26-28: particles and steps of the generic program.
+GENERIC_N, GENERIC_T = 100_000, 50
 
 
 class AnchorError(RuntimeError):
@@ -153,10 +177,12 @@ def _first(label: str, fn, *args):
     return out
 
 
-def _timed(device: torch.device, fn, keys):
+def _timed(device: torch.device, fn, keys, launches_kernels: bool = True):
     """``fn(key)`` for each key, each timed from a synchronised start to the
     read of its result (``fn`` returns host values).  Returns the seconds,
-    the results and the kernel launches of these calls."""
+    the results and the kernel launches of these calls.  On the card the
+    calls must launch a resampling kernel, or, with ``launches_kernels``
+    false (a sweep that never resamples), none."""
     before = _launch_counts()
     times, outs = [], []
     for k in keys:
@@ -166,16 +192,17 @@ def _timed(device: torch.device, fn, keys):
         outs.append(fn(k))
         times.append(time.perf_counter() - t0)
     launches = _launch_counts() - before
-    if device.type == "cuda" and not launches:
-        raise RuntimeError("no resampling kernel launched on the card in the timed runs")
+    if device.type == "cuda" and bool(launches) != launches_kernels:
+        raise RuntimeError(f"resampling kernels launched on the card in the timed runs: "
+                           f"{dict(launches) or 'none'}")
     return times, outs, launches
 
 
-def _record(metric: str, value: float, unit: str, vs_baseline: float, device: torch.device,
-            times: Sequence[float], launches: Counter, **extra) -> dict:
+def _record(metric: str, value: float, unit: str, vs_baseline: Optional[float],
+            device: torch.device, times: Sequence[float], launches: Counter, **extra) -> dict:
+    against = "no baseline" if vs_baseline is None else f"{vs_baseline:.4g}x the native baseline"
     log(f"timed runs: {', '.join(f'{t:.4f}' for t in times)} s; median "
-        f"{statistics.median(times):.4f} s; {metric} {value:.6g} ({vs_baseline:.4g}x the native "
-        f"baseline)")
+        f"{statistics.median(times):.4f} s; {metric} {value:.6g} ({against})")
     return {
         "metric": metric, "value": value, "unit": unit, "vs_baseline": vs_baseline,
         "device": device_line(device), "n_runs": len(times),
@@ -203,11 +230,14 @@ def _baseline(ys, n: int) -> float:
     return rate
 
 
-def flagship(n: int, steps: int, device: torch.device):
+def flagship(n: int, steps: int, device: torch.device,
+             gated: Optional[ResampleWithESSThreshold] = None):
     """``smc``'s sweep: the observations and ``run(key)``, the log-evidence
-    (a host float) of one sweep of ``n`` particles keyed ``key``."""
+    (a host float) of one sweep of ``n`` particles keyed ``key``, gated by
+    ``gated`` (None: ``SMC(n)``'s systematic resampling at ESS ≤ n/2)."""
     ys, traced = lgssm(steps, device)
-    kernel, gated = SSMKernel(traced), SMC(n).resampler
+    kernel = SSMKernel(traced)
+    gated = SMC(n).resampler if gated is None else gated
 
     def run(key) -> float:
         return sweep(key, kernel, n, gated, store_states=False, device=device).log_evidence.item()
@@ -413,13 +443,108 @@ def chains(device=None, n_chains: int = CHAINS, n: int = CHAIN_N, steps: int = T
         particles=n, steps=steps, logz_error_vs_kalman=err, native_sweeps_per_sec=base_iters))
 
 
-MODES = {"smc": smc, "pgas": pgas, "scaling": scaling, "ensemble": ensemble, "chains": chains}
+def always_resample(scheme: str) -> ResampleWithESSThreshold:
+    """``scheme`` gated at threshold inf: every step fires
+    (``bench_schemes.py:119-120``)."""
+    if scheme not in SCHEMES:
+        raise ValueError(f"unknown scheme {scheme!r}; valid: {sorted(SCHEMES)}")
+    return ResampleWithESSThreshold(SCHEMES[scheme], math.inf)
+
+
+def schemes(device=None, scheme: str = "systematic", n: int = N, steps: int = T,
+            runs: int = RUNS, baseline_n: int = native.N_BASELINE) -> dict:
+    """``profiling/bench_schemes.py``: ``smc``'s sweep with ``scheme`` firing
+    at every step, beside a base that never fires."""
+    gated = always_resample(scheme)
+    device = resolve_device(device)
+    _setup(device)
+    ys, run = flagship(n, steps, device, gated)
+    _, run_base = flagship(n, steps, device, ResampleWithESSThreshold(resample_systematic, 0.0))
+    kf_ll = float(_kalman(ys).log_likelihood)
+    # bench_schemes.py:81-84: key(77) folded per run, the first call run 0.
+    keys = [rng.fold_in(rng.key(77), i) for i in range(1 + runs)]
+    first_base = _first(f"never-firing base, N={n}, T={steps}", run_base, keys[0])
+    base_times, base_z, _ = _timed(device, run_base, keys[1:], launches_kernels=False)
+    first = _first(f"{scheme}, every step firing", run, keys[0])
+    times, log_z, launches = _timed(device, run, keys[1:])
+    _check_evidence("schemes, the never-firing base", [first_base, *base_z], kf_ll)
+    err = _check_evidence(f"schemes, {scheme}", [first, *log_z], kf_ll)
+    median, base_median = statistics.median(times), statistics.median(base_times)
+    per_firing_ms = (median - base_median) / (steps - 1) * 1e3
+    log(f"{scheme}: per firing {per_firing_ms:.4f} ms (sweep median {median * 1e3:.3f} ms, base "
+        f"median {base_median * 1e3:.3f} ms over {', '.join(f'{t:.4f}' for t in base_times)} s)")
+    rate = n * steps / median
+    base = _baseline(ys, baseline_n)
+    return _emit(_record(
+        f"torch_lgssm_{scheme}_always_resample_particle_steps_per_sec", rate, "particle-steps/s",
+        rate / base, device, times, launches, scheme=scheme, particles=n, steps=steps,
+        base_median_s=base_median, base_min_s=min(base_times), base_max_s=max(base_times),
+        per_firing_ms=per_firing_ms, logz_error_vs_kalman=err,
+        native_particle_steps_per_sec=base))
+
+
+def lgssm_program(ys):
+    """``bench_generic.py:63-68``: the LGSSM over ``ys`` as a generic program,
+    one sample site and one observe a step."""
+    ys = [float(y) for y in ys]
+
+    def program(ctx):
+        x = ctx.sample(Normal(0.0, SIGMA0), name="x0")
+        ctx.observe(Normal(x, R), ys[0])
+        for t in range(1, len(ys)):
+            x = ctx.sample(Normal(A * x, Q), name=f"x{t}")
+            ctx.observe(Normal(x, R), ys[t])
+
+    return program
+
+
+def generic(device=None, n: int = GENERIC_N, steps: int = GENERIC_T, runs: int = RUNS,
+            baseline_n: int = native.N_BASELINE) -> dict:
+    """``profiling/bench_generic.py``: the LGSSM as a generic program beside
+    the structured kernel on the same observations."""
+    device = resolve_device(device)
+    _setup(device)
+    ys, traced = lgssm(steps, device)
+    kf_ll = float(_kalman(ys).log_likelihood)
+    gated = SMC(n).resampler
+    forms = {"generic": make_kernel(GenericModel(lgssm_program(ys))),
+             "structured": SSMKernel(traced)}
+    timed = {}
+    for form, kernel in forms.items():
+        def run(key, kernel=kernel) -> float:
+            return sweep(key, kernel, n, gated, store_states=False,
+                         device=device).log_evidence.item()
+
+        first = _first(f"{form}, N={n}, T={steps}", run, rng.key(1))
+        times, log_z, launches = _timed(device, run, [rng.key(2 + i) for i in range(runs)])
+        err = _check_evidence(f"generic, the {form} form", [first, *log_z], kf_ll)
+        timed[form] = (times, launches, err, n * steps / statistics.median(times))
+    times, launches, err, rate = timed["generic"]
+    s_times, s_launches, s_err, s_rate = timed["structured"]
+    log(f"generic/structured throughput ratio: {rate / s_rate:.4f}")
+    base = _baseline(ys, baseline_n)
+    return _emit(_record(
+        "torch_generic_lgssm_particle_steps_per_sec", rate, "particle-steps/s", rate / base,
+        device, times, launches, particles=n, steps=steps, logz_error_vs_kalman=err,
+        structured_median_s=statistics.median(s_times), structured_min_s=min(s_times),
+        structured_max_s=max(s_times), structured_particle_steps_per_sec=s_rate,
+        structured_logz_error_vs_kalman=s_err, generic_over_structured=rate / s_rate,
+        structured_launches=dict(sorted(s_launches.items())),
+        native_particle_steps_per_sec=base))
+
+
+MODES = {"smc": smc, "pgas": pgas, "scaling": scaling, "ensemble": ensemble, "chains": chains,
+         "schemes": schemes, "generic": generic}
 _HELP = {
     "smc": "particle-steps/s of the bootstrap sweep, N = 1M, T = 100 (bench.py)",
     "pgas": "PGAS iterations/s, N = 1M, T = 100, replay storage (bench_pgas.py)",
     "scaling": "sharded PGAS on 1, 2, 4 and 8 logical shards (bench_scaling.py)",
     "ensemble": "particle-steps/s of 8 bootstrap sweeps of 1M as one batch",
     "chains": "chain-iterations/s of 64 PGAS chains of 16,384 as one batch",
+    "schemes": "one scheme firing at every step beside a never-firing base "
+               "(profiling/bench_schemes.py)",
+    "generic": "the LGSSM as a generic program beside SSMKernel, N = 100k, T = 50 "
+               "(profiling/bench_generic.py)",
 }
 
 
@@ -439,11 +564,14 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     s.add_argument("--iters", type=int, default=3)
     s.add_argument("--exchange", default="auto", choices=["auto", "allgather", "neighbor"])
     s.add_argument("--out", default=None, help="also write the JSON record here")
+    parsers["schemes"].add_argument("--scheme", default="systematic", choices=sorted(SCHEMES))
     args = p.parse_args(argv)
     device = resolve_device(args.device)
     if args.command == "scaling":
         return scaling(device, args.scaling_mode, args.per_device, args.total, args.steps,
                        args.iters, args.exchange, args.out)
+    if args.command == "schemes":
+        return schemes(device, args.scheme)
     return MODES[args.command](device)
 
 

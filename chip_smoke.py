@@ -73,8 +73,9 @@ final line:
    chain mesh;
 7. timings: the median of 5 sweeps per scheme and of a never-firing base,
    the sharded sweep's median beside the single-device one and its exchange
-   time per firing, PGAS iterations/s (single-device and sharded), and
-   profiled sweeps for the device busy share.  For each kernel at 1M: its
+   time per firing, PGAS iterations/s (single-device and sharded), and a
+   profiled sharded sweep for the device busy share (the single-device
+   sweep's and a PGAS iteration's profiles are phase 12's).  For each kernel at 1M: its
    device time (the profiler's device-side rows over a window of REPS calls,
    every launch of the call summed) and the device-side launches a call makes
    (1 for B1, B2, B4 and B6, at most 2 for B5, or the phase fails), the same
@@ -120,8 +121,8 @@ final line:
    the LGSSM as a ``GenericModel`` program of T = 50 sample sites and 50
    observes at N = 100,000 (``profiling/bench_generic.py``'s harness, not
    cut) through ``sample`` with no device named, against Kalman (|logZ −
-   Kalman| < 0.1) and beside the structured ``SSMKernel`` on the same ys:
-   the median of 3 sweeps of each and their ratio, B1 and B4 on every firing
+   Kalman| < 0.1) and beside the structured ``SSMKernel`` on the same ys
+   (their sweep times are phase 12's ``bench generic``): B1 and B4 on every firing
    (its state ``[N, 50]``), launches a step and the busy share of a profiled
    sweep, with and without the early stop at a step's observe (bitwise the
    same sweep), PG with dense storage (3 iterations, finite), and B4 on one
@@ -173,11 +174,24 @@ final line:
    4 and 8 logical shards, T = 50), ``ensemble`` (8 x 1M) and ``chains`` (64
    PGAS chains of 16,384); each anchor must hold, the JSON line must name this
    card, and each run must launch its path's kernels and no other (B1 and B4,
-   with the chain axis for a batch; exact counts where every step fires).
+   with the chain axis for a batch; exact counts where every step fires);
+12. the profiling entry points at full size, no device named, each printing
+   its JSON line; through their functions ``bench schemes`` for each of
+   systematic, stratified and multinomial (every step firing, beside a
+   never-firing base that must launch no kernel; exactly T − 1 launches a
+   sweep of each kernel of the scheme's firing), ``bench generic`` (the
+   T = 50 program at 100k beside ``SSMKernel``, B1 = B4 in both), and as
+   commands ``python -m advancedps_tpu_torch.profiling sweep`` (its Chrome trace
+   written to a temporary directory), ``pgas``, ``resample`` and ``moves``,
+   each a process of its own: each anchor must hold, each component show
+   device time and at least one device record a step, each
+   faithfulness ratio lie in 0.5-1.5, the move versions agree bitwise on
+   every extents profile, the JSON line name this card, and each run launch
+   its path's kernels and no other.
 
 Each launch count is read from the run of its own path, the counts set to 0
 just before it.  The last lines are the kernels' JSON record (launches summed
-over the runs of phases 4-6 and 8-11, and per sweep and per PGAS iteration by path),
+over the runs of phases 4-6 and 8-12, and per sweep and per PGAS iteration by path),
 the card, and ``{"ok": true, "device": {...}}``.
 Imports no JAX: the card's machine has none.
 """
@@ -239,6 +253,8 @@ ANALYTIC_PG_ITERS = 20
 # The generic program of profiling/bench_generic.py: particles, observes, sites.
 NG, TG, SG = 100_000, 50, 50
 NCCL_CHILD_TIMEOUT_S = 300
+#: Phase 12's limit on one profiling subcommand's process.
+PROFILE_TIMEOUT_S = 300
 SOURCE = "advancedps_tpu_torch/csrc/resample.cu"
 TPU_FILE = "advancedps_tpu/ops/pallas_resample.py"
 REPLACES = {
@@ -1986,14 +2002,8 @@ def main():
             print(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}",
                   flush=True)
 
-    profiled("systematic sweep",
-             lambda: float(apt.sweep(apt.rng.key(20), kernel, N, apt.SMC(N).resampler,
-                                     store_states=False, device="cuda").log_evidence),
-             f"{T - 1} gate reads")
-    profiled("PGAS iteration (replay)",
-             lambda: float(apt.step_pg(apt.rng.key(21), traced, pgas, st, "replay",
-                                       device="cuda")[0].log_evidence),
-             "no gate: every step resamples")
+    # The single-device sweep's and a PGAS iteration's profiles are phase 12's
+    # profiling sweep and pgas.
     profiled(f"sharded systematic sweep, K={K}, auto",
              lambda: float(parallel.sharded_sweep(apt.rng.key(20), kernel, N, systematic, mesh,
                                                   store_states=False).log_evidence),
@@ -2148,6 +2158,8 @@ def main():
     print(f"phases 1-10 took {time.perf_counter() - t_script:.1f}s", flush=True)
     bench_phase(drive, card, tag)
     print(f"phases 1-11 took {time.perf_counter() - t_script:.1f}s", flush=True)
+    profiling_phase(drive, card, tag)
+    print(f"phases 1-12 took {time.perf_counter() - t_script:.1f}s", flush=True)
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
          "launches": main_launches[name], "max_abs_err": err[name],
@@ -2226,6 +2238,116 @@ def bench_phase(drive, card: str, tag: str):
               f"bench {mode}: launches {launches}, in the timed runs {record['launches']}: "
               f"not its path's kernels")
     print(f"phase 11 took {time.perf_counter() - t_phase:.1f}s", flush=True)
+
+
+#: The kernels each profile of phase 12 runs: the sweep's and a PGAS
+#: iteration's (B1 and the default move), the resample branch's pieces, and
+#: the decode + move of every move version.
+PROFILE_KERNELS = {
+    "sweep": set(PER_FIRING["systematic"]),
+    "pgas": set(PER_FIRING["systematic"]),
+    "resample": {"extents_from_logw", "decode_move", "decode_ancestors"},
+    "moves": {name for move in DECODE_MOVE.values() for name in move},
+}
+
+
+def profiling_phase(drive, card: str, tag: str):
+    """Phase 12: ``bench schemes`` (each scheme) and ``bench generic`` at full
+    size through their functions, and the four subcommands of
+    ``advancedps_tpu_torch.profiling`` as commands, no device named."""
+    from advancedps_tpu_torch import bench, profiling
+
+    t_phase = time.perf_counter()
+
+    def run(what, fn):
+        t0 = time.perf_counter()
+        try:
+            record, launches = drive(fn)
+        except bench.AnchorError as e:
+            fail(f"{what}: {e}")
+        launches = {k: v for k, v in launches.items() if v}
+        print(f"{what} took {time.perf_counter() - t0:.1f}s; launches {launches} {tag}",
+              flush=True)
+        check(record["device"] == card, f"{what}: device {record['device']!r}")
+        return record, launches
+
+    for scheme in bench.SCHEMES:
+        record, launches = run(f"bench schemes --scheme {scheme}",
+                               lambda: bench.schemes(scheme=scheme))
+        # The base launches nothing (bench._timed refuses it otherwise); the
+        # first call and each timed sweep fire at each of the T − 1 steps.
+        per_sweep = {k: v * (T - 1) for k, v in PER_FIRING[scheme].items()}
+        check(record["launches"] == {k: v * record["n_runs"] for k, v in per_sweep.items()}
+              and launches == {k: v * (1 + record["n_runs"]) for k, v in per_sweep.items()},
+              f"bench schemes {scheme}: launches {launches}, in the timed runs "
+              f"{record['launches']}: not {per_sweep} a sweep")
+        print(f"bench schemes {scheme}: per firing {record['per_firing_ms']:.4f} ms, median "
+              f"{record['median_s']:.4f} s ({record['min_s']:.4f}-{record['max_s']:.4f}), base "
+              f"{record['base_median_s']:.4f} s ({record['base_min_s']:.4f}-"
+              f"{record['base_max_s']:.4f}) {tag}", flush=True)
+    record, launches = run("bench generic", bench.generic)
+    names = set(PER_FIRING["systematic"])
+    for what, got in (("run", launches), ("generic's timed runs", record["launches"]),
+                      ("structured timed runs", record["structured_launches"])):
+        check(set(got) == names and len(set(got.values())) == 1,
+              f"bench generic: launches of the {what} {got}: not B1 = B4")
+    print(f"bench generic: generic median {record['median_s']:.4f} s, structured "
+          f"{record['structured_median_s']:.4f} s, generic/structured throughput "
+          f"{record['generic_over_structured']:.4f} {tag}", flush=True)
+
+    # Each subcommand in a process of its own, as a user runs it: in this one
+    # the profiler has by now begun to lose records of the kernels launched
+    # through ctypes (see phase 9's B4 reading).
+    with tempfile.TemporaryDirectory() as trace_dir:
+        for name in profiling.SUBCOMMANDS:
+            args = ["--trace", trace_dir] if name == "sweep" else []
+            t0 = time.perf_counter()
+            try:
+                proc = subprocess.run(
+                    [sys.executable, "-m", "advancedps_tpu_torch.profiling", name, *args],
+                    stdout=subprocess.PIPE, text=True, timeout=PROFILE_TIMEOUT_S,
+                    cwd=os.path.dirname(os.path.abspath(__file__)))
+            except subprocess.TimeoutExpired:
+                fail(f"profiling {name}: no result within {PROFILE_TIMEOUT_S} s")
+            check(proc.returncode == 0, f"profiling {name}: exit code {proc.returncode}")
+            line = proc.stdout.strip().splitlines()[-1]
+            print(line, flush=True)
+            record = json.loads(line)
+            launches = record["launches"]
+            print(f"profiling {name} took {time.perf_counter() - t0:.1f}s; launches {launches} "
+                  f"{tag}", flush=True)
+            check(record["device"] == card, f"profiling {name}: device {record['device']!r}")
+            check(set(launches) == PROFILE_KERNELS[name],
+                  f"profiling {name}: launches {launches}: not its path's kernels")
+            for label, r in record["components"].items():
+                # A step launches at least one kernel: fewer records is a lost record.
+                check(r["device_ms"] > 0 and r["launches"] >= r["steps"],
+                      f"profiling {name} [{label}]: {r['launches']} device records for "
+                      f"{r['steps']} steps, {r['device_ms']} ms: device time not measured")
+                print(f"  {label}: device {r['device_ms']:.4f} ms, host median "
+                      f"{r['host_median_ms']:.4f} ms ({r['host_min_ms']:.4f}-"
+                      f"{r['host_max_ms']:.4f}), {r['launches_per_step']:.2f} launches a step, "
+                      f"busy {r['busy_share']:.4f} {tag}", flush=True)
+            if "faithfulness" in record:
+                lo, hi = profiling.FAITHFUL
+                check(lo <= record["faithfulness"] <= hi,
+                      f"profiling {name}: faithfulness {record['faithfulness']} outside "
+                      f"{lo}-{hi}: the profile measures another path than the engine takes")
+                top = [(r["op"][:40], round(r["ms"], 3), r["launches"]) for r in record["top_ops"]]
+                print(f"profiling {name}: faithfulness {record['faithfulness']:.4f}; top device "
+                      f"ops {top}; idle gaps {record['idle_gaps']} {tag}", flush=True)
+            if name == "sweep":
+                check(os.path.getsize(record["trace"]) > 0, "profiling sweep: no trace written")
+            if name == "pgas":
+                print(f"profiling pgas: (sweep + replay) / iteration "
+                      f"{record['iteration_ratio']:.4f}", flush=True)
+            if name == "resample":
+                check(0 < record["firings"] < T - 1, f"profiling resample: {record['firings']} "
+                      f"firings")
+                print(f"profiling resample: {record['firings']} firings in a sweep", flush=True)
+            if name == "moves":
+                check(record["versions_agree"], "profiling moves: the move versions disagree")
+    print(f"phase 12 took {time.perf_counter() - t_phase:.1f}s", flush=True)
 
 
 def b3_reading(ops, what: str, anc: torch.Tensor, v: torch.Tensor, tag: str) -> dict:
@@ -2381,22 +2503,9 @@ def generic_phase(apt, ops, drive, expected, profile_one, tag, traced, kernel, s
     print(f"generic program N={NG} T={TG} ({SG} sites): SMC logZ {log_z:.6f} kalman {kf_g:.6f} "
           f"|err| {abs(log_z - kf_g):.6f}, firings {fires}, launches {launches} {tag}", flush=True)
     del smc
+    # The sweep times of the two forms are phase 12's bench generic.
     g_kernel = apt.make_kernel(gm)
     s_kernel = apt.SSMKernel(apt.TracedSSM(model, ys_g).to("cuda"))
-    times = {"generic": [], "structured": []}
-    for i in range(3):
-        for label, k in (("generic", g_kernel), ("structured", s_kernel)):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            float(apt.sweep(apt.rng.key(81 + i), k, NG, systematic, store_states=False,
-                            device="cuda").log_evidence)
-            times[label].append(time.perf_counter() - t0)
-    med = {label: statistics.median(ts) for label, ts in times.items()}
-    listed = {label: ", ".join(f"{t * 1e3:.3f}" for t in ts) for label, ts in times.items()}
-    print(f"generic against structured, N={NG} T={TG}, 3 sweeps each in turns: generic median "
-          f"{med['generic'] * 1e3:.3f} ms ({listed['generic']}), structured "
-          f"{med['structured'] * 1e3:.3f} ms ({listed['structured']}), ratio "
-          f"{med['generic'] / med['structured']:.3f} {tag}", flush=True)
     # One profiled sweep each: the early stop at a step's observe, the whole
     # program at every step, and the structured kernel; the first two bitwise.
     profiled = {}

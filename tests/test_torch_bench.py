@@ -36,7 +36,15 @@ CASES = {
                                      shards=(1, 2), exchange="neighbor")),
     "ensemble": ("ensemble", dict(n_runs=3, n=4096, steps=20, runs=2)),
     "chains": ("chains", dict(n_chains=4, n=1024, steps=20, iters=2, runs=2)),
+    "schemes-systematic": ("schemes", dict(scheme="systematic", n=4096, steps=20, runs=2)),
+    "schemes-stratified": ("schemes", dict(scheme="stratified", n=4096, steps=20, runs=2)),
+    "schemes-multinomial": ("schemes", dict(scheme="multinomial", n=4096, steps=20, runs=2)),
+    "generic": ("generic", dict(n=1024, steps=10, runs=2)),
 }
+#: The JAX package's schemes by the names of ``bench.SCHEMES``.
+JAX_SCHEMES = {"systematic": aps.resampling.resample_systematic,
+               "stratified": aps.resampling.resample_stratified,
+               "multinomial": aps.resampling.resample_multinomial}
 
 
 def _jax_ys(steps):
@@ -72,10 +80,25 @@ def test_each_mode_prints_one_json_line_and_passes_its_anchors(case, capsys, tmp
         assert record["value"] == pytest.approx(4 * 2 / record["median_s"])
     else:
         runs = kw.get("n_runs", 1)
-        assert record["value"] == pytest.approx(runs * kw["n"] * 20 / record["median_s"])
+        assert record["value"] == pytest.approx(runs * kw["n"] * kw["steps"] / record["median_s"])
+    if mode == "schemes":
+        assert record["metric"] == (f"torch_lgssm_{kw['scheme']}_always_resample_"
+                                    f"particle_steps_per_sec")
+        assert record["base_min_s"] <= record["base_median_s"] <= record["base_max_s"]
+        assert record["per_firing_ms"] == pytest.approx(
+            (record["median_s"] - record["base_median_s"]) / (kw["steps"] - 1) * 1e3)
+    elif mode == "generic":
+        assert record["structured_logz_error_vs_kalman"] < bench.EVIDENCE_LIMIT
+        assert record["structured_particle_steps_per_sec"] == pytest.approx(
+            kw["n"] * kw["steps"] / record["structured_median_s"])
+        assert record["generic_over_structured"] == pytest.approx(
+            record["value"] / record["structured_particle_steps_per_sec"])
+        assert record["structured_launches"] == {}
 
 
-@pytest.mark.parametrize("mode, limit", [("smc", "EVIDENCE_LIMIT"), ("pgas", "ZRMS_LIMIT")])
+@pytest.mark.parametrize("mode, limit", [("smc", "EVIDENCE_LIMIT"), ("pgas", "ZRMS_LIMIT"),
+                                         ("schemes", "EVIDENCE_LIMIT"),
+                                         ("generic", "EVIDENCE_LIMIT")])
 def test_a_mode_fails_on_its_anchor(mode, limit, monkeypatch, capsys):
     monkeypatch.setattr(bench, limit, 0.0)
     with pytest.raises(bench.AnchorError):
@@ -99,6 +122,9 @@ def test_without_a_device_named_main_needs_cuda(mode, monkeypatch):
     (["scaling", "--device", "cpu", "--mode", "overhead", "--per-device", "8", "--total", "64",
       "--steps", "5", "--iters", "2", "--exchange", "neighbor", "--out", "r.json"],
      ("scaling", (CPU, "overhead", 8, 64, 5, 2, "neighbor", "r.json"))),
+    (["schemes", "--device", "cpu"], ("schemes", (CPU, "systematic"))),
+    (["schemes", "--device", "cpu", "--scheme", "multinomial"], ("schemes", (CPU, "multinomial"))),
+    (["generic", "--device", "cpu"], ("generic", (CPU,))),
 ])
 def test_main_hands_each_mode_its_flags(argv, want, monkeypatch):
     calls = []
@@ -108,8 +134,16 @@ def test_main_hands_each_mode_its_flags(argv, want, monkeypatch):
             return {}
         monkeypatch.setitem(bench.MODES, name, fake)
     monkeypatch.setattr(bench, "scaling", bench.MODES["scaling"])
+    monkeypatch.setattr(bench, "schemes", bench.MODES["schemes"])
     bench.main(argv)
     assert calls == [want]
+
+
+def test_an_unknown_scheme_is_refused():
+    with pytest.raises(ValueError, match="unknown scheme 'residual'"):
+        bench.schemes(device="cpu", scheme="residual")
+    with pytest.raises(SystemExit):
+        bench.main(["schemes", "--device", "cpu", "--scheme", "residual"])
 
 
 def test_the_observations_are_jax_simulate():
@@ -135,6 +169,57 @@ def test_the_flagship_sweep_is_jax_sweep():
     # tests/test_torch_sweep.py's bound: equal until the first boundary flip,
     # then Monte Carlo noise.
     assert abs(got - float(want)) < 0.2
+
+
+@pytest.mark.parametrize("scheme", sorted(bench.SCHEMES))
+def test_each_scheme_resampling_at_every_step_is_jax_sweep(scheme):
+    n, steps = 4096, 20
+    _, run = bench.flagship(n, steps, CPU, bench.always_resample(scheme))
+    key = jax.random.key(5)
+    traced = aps.TracedSSM(aps.models.stationary_lgssm(a=0.9, q=0.32, r=1.0),
+                           jnp.asarray(_jax_ys(steps)))
+    gated = aps.ResampleWithESSThreshold(JAX_SCHEMES[scheme], math.inf)
+    res = jsweep(key, aps.SSMKernel(ssm=traced), n, gated, store_states=False)
+    assert bool(np.asarray(res.resampled)[1:].all())
+    got = run(apt.key_from_words(np.asarray(jax.random.key_data(key))))
+    # The documented flip contract (multinomial draws another variable than
+    # the JAX package's CPU path, ROADMAP Queue C): Monte Carlo noise.
+    assert abs(got - float(res.log_evidence)) <= 0.2
+
+
+def test_the_generic_program_is_bench_generic_program():
+    from advancedps_tpu.inference import make_kernel as jmake_kernel
+
+    n, steps = 512, 8
+    ys, _ = bench.lgssm(steps, CPU)
+    ys_np = ys.numpy()
+
+    # profiling/bench_generic.py:63-68, transcribed.
+    def jprog(ctx):
+        x = ctx.sample(aps.Normal(0.0, bench.SIGMA0), name="x0")
+        ctx.observe(aps.Normal(x, bench.R), float(ys_np[0]))
+        for t in range(1, steps):
+            x = ctx.sample(aps.Normal(bench.A * x, bench.Q), name=f"x{t}")
+            ctx.observe(aps.Normal(x, bench.R), float(ys_np[t]))
+
+    jm, tm = aps.GenericModel(jprog), apt.GenericModel(bench.lgssm_program(ys))
+    assert (tm.num_steps, tm.flat_size, len(tm.sites)) == (jm.num_steps, jm.flat_size, steps)
+    key = jax.random.key(11)
+    jres = jsweep(key, jmake_kernel(jm), n, aps.SMC(n).resampler)
+    tres = apt.sweep(apt.key_from_words(np.asarray(jax.random.key_data(key))),
+                     apt.make_kernel(tm), n, apt.SMC(n).resampler, device="cpu")
+    # tests/test_torch_generic.py's rule: the same computation until the first
+    # ±1 extent flip (states within 4 ulps), then logZ within 0.2.
+    j_anc, t_anc = np.asarray(jres.ancestors), tres.ancestors.numpy()
+    flips = (j_anc != t_anc).sum(axis=1)
+    first = int(np.argmax(flips > 0)) if flips.any() else steps
+    assert first > 1
+    got, want = tres.states.numpy()[:first], np.asarray(jres.states)[:first]
+    ulps = np.abs(got.view(np.int32).astype(np.int64) - want.view(np.int32).astype(np.int64))
+    assert ((ulps <= 4) | (np.abs(got - want) <= 1e-6)).all()
+    if first == steps:
+        assert float(tres.log_evidence) == pytest.approx(float(jres.log_evidence), rel=1e-5)
+    assert abs(float(tres.log_evidence) - float(jres.log_evidence)) < 0.2
 
 
 def test_rts_zrms_is_bench_pgas_statistic():

@@ -128,6 +128,7 @@ def test_key_rejects_bad_words():
 
 
 def test_port_imports_no_jax():
-    code = "import advancedps_tpu_torch, sys; assert 'jax' not in sys.modules"
+    code = ("import advancedps_tpu_torch, advancedps_tpu_torch.bench, "
+            "advancedps_tpu_torch.profiling, sys; assert 'jax' not in sys.modules")
     repo = Path(__file__).resolve().parent.parent
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120, cwd=repo)
