@@ -1,5 +1,5 @@
 """Kernel layer: hand-written CUDA kernels with their plain PyTorch versions."""
 
-from . import resample
+from . import resample, threefry
 
-__all__ = ["resample"]
+__all__ = ["resample", "threefry"]

@@ -1,7 +1,8 @@
 """Build the CUDA kernels of this package at first use and load them with ctypes.
 
 ``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain C
-interface, under ``advancedps_tpu_torch/_build/``.  The library's file name
+interface, under ``advancedps_tpu_torch/_build/``: one ``nvcc`` a source, all
+started together, then one link.  The library's file name
 carries a hash of the sources and flags, so an edited source is rebuilt and a
 stale library is never loaded.  A failed build raises with nvcc's output; there
 is no fallback.
@@ -21,16 +22,15 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _I32 = ctypes.c_int
 _U64 = ctypes.c_uint64
-#: C signatures of the entry points in csrc/resample.cu.
+_U32 = ctypes.c_uint32
+#: C signatures of the entry points in csrc/resample.cu and csrc/threefry.cu.
 _SIGNATURES = {
     "aps_prefix_tile_size": (),
     "aps_scan_scratch_words": (_I64,),
@@ -57,6 +57,11 @@ _SIGNATURES = {
                                           _P, _P),
     "aps_count_le_sorted_bs_chains": (_P, _I64, _I64, _I64, _P, _I64, _P, _P),
     "aps_count_le_sorted_chains": (_P, _I64, _I64, _I64, _P, _I64, _P, _P),
+    "aps_threefry_max_dims": (),
+    "aps_threefry2x32": (_I64, _P, _P, _U32, _P, _U32, _P, _U32, _P, _U32, _I32, _P, _P),
+    "aps_pos_uniform": (_I64, _P, _P, _U32, _P, _U32, _P, _I32, _U32, _I32, _P, _P),
+    "aps_pos_normal": (_I64, _P, _P, _U32, _P, _U32, _P, _I32, _U32, _I32, _P, _P),
+    "aps_pos_normals": (_I64, _P, _P, _U32, _P, _U32, _P, _I32, _I64, _U32, _P, _P),
 }
 
 
@@ -88,24 +93,33 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the sources unless the library for their hash exists.  The
-    compiler's output (with ptxas register and spill counts) is kept beside
-    the library as ``<name>.log``."""
+    """Compile the sources unless the library for their hash exists: each
+    source to an object by an ``nvcc`` of its own, all at once, then one link.
+    The compilers' output (with ptxas register and spill counts) is kept
+    beside the library as ``<name>.log``."""
     so = library_path()
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        )
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
+    nvcc = nvcc_path()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        objs = [Path(work) / f"{src.stem}.o" for src in _sources()]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(_sources(), objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for cmd in cmds]
+        logs = [proc.communicate()[0] for proc in procs]
+        tmp = Path(work) / so.name
+        link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        for cmd, proc, log in zip(cmds, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+        done = subprocess.run(link, capture_output=True, text=True)
+        if done.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({done.returncode}): {' '.join(link)}\n"
+                               f"{done.stdout}{done.stderr}")
+        so.with_suffix(".log").write_text("".join(logs) + done.stdout + done.stderr)
+        os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
     return so
 
 

@@ -54,8 +54,10 @@ components first).  Its readings:
 Each subcommand writes its diagnostics to stderr and prints one JSON line to
 stdout in :mod:`~advancedps_tpu_torch.bench`'s format: ``value`` is the
 headline component's device ms, ``vs_baseline`` null, the host times those of
-the headline component, ``launches`` the kernel wrappers' launches over every
-call, and ``components`` the readings by component.
+the headline component, ``launches`` the resampling kernels' launches over
+every call, ``rng_launches`` the positional Threefry's
+(:mod:`~advancedps_tpu_torch.ops.threefry`), and ``components`` the readings by
+component.
 """
 
 from __future__ import annotations
@@ -78,6 +80,7 @@ from ._device import resolve_device
 from .engine import SweepKernel, propagate_rng, replay_trajectory, sweep as run_sweep
 from .inference import step_pg
 from .ops import resample as ops
+from .ops import threefry
 from .pg import PGAS, PGState
 from .resampling import ResampleWithESSThreshold, randcat_gumbel, resample_systematic
 from .smc import SMC, SSMKernel
@@ -229,7 +232,7 @@ def _run(components, device: torch.device, reps: int, headline: str, trace=None)
     """Every component's readings (the module notes), in ``components``'
     order; the headline's host times; the wrappers' launches over all the
     calls."""
-    before = bench._launch_counts()
+    before, rng_before = bench._launch_counts(), _rng_launch_counts()
     times = {label: _host_times(fn, device, reps) for label, (fn, _) in components.items()}
     readings = {}
     # Kineto loses records of the kernels that the ctypes-bound library
@@ -254,18 +257,23 @@ def _run(components, device: torch.device, reps: int, headline: str, trace=None)
                 f"({gap['host_op_ms']:.3f} ms of it), after {gap['after']}")
         readings[label] = r
     return ({label: readings[label] for label in components}, times[headline],
-            bench._launch_counts() - before)
+            bench._launch_counts() - before, _rng_launch_counts() - rng_before)
+
+
+def _rng_launch_counts() -> Counter:
+    return Counter({w.__name__: w.launches for w in threefry.KERNEL_WRAPPERS})
 
 
 def _emit(metric: str, unit: str, device: torch.device, readings, headline: str, times, launches,
-          **extra) -> dict:
+          rng_launches, **extra) -> dict:
     head = readings[headline]
     extra = {k: head[k] for k in ("top_ops", "idle_gaps") if k in head} | extra
     components = {k: {f: v for f, v in r.items() if f not in ("top_ops", "idle_gaps")}
                   for k, r in readings.items()}
     return bench._emit(bench._record(
         metric, head["device_ms"], unit, None, device, times, launches,
-        headline=headline, busy_share=head["busy_share"], **extra, components=components))
+        headline=headline, busy_share=head["busy_share"], **extra, components=components,
+        rng_launches=dict(sorted(rng_launches.items()))))
 
 
 def _check_faithful(what: str, ratio: float):
@@ -368,12 +376,13 @@ def sweep(device=None, n: int = N, steps: int = T, reps: int = REPS["sweep"],
     if trace:
         os.makedirs(trace, exist_ok=True)
         trace_path = os.path.join(trace, "gated_sweep_trace.json")
-    readings, times, launches = _run(components, device, reps, "gated sweep", trace_path)
+    readings, times, launches, rng_launches = _run(components, device, reps, "gated sweep",
+                                                   trace_path)
     ratio = faithfulness(readings, ("propagate + score", "weight reductions"),
                          "never-resampling sweep")
     _check_faithful("(propagate + score + reductions) / never-resampling sweep", ratio)
     return _emit("torch_profile_sweep_device_ms", f"device ms of the ESS-gated sweep (N={n}, "
-                 f"T={steps})", device, readings, "gated sweep", times, launches,
+                 f"T={steps})", device, readings, "gated sweep", times, launches, rng_launches,
                  faithfulness=ratio, particles=n, steps=steps, reps=reps, trace=trace_path)
 
 
@@ -445,7 +454,7 @@ def pgas(device=None, n: int = N, steps: int = T, reps: int = REPS["pgas"]) -> d
         "replay + retained draw": (lambda key: retained_draw(rng.key(3), kernel, res,
                                                              ref).sum().item(), 1),
     }
-    readings, times, launches = _run(components, device, reps, "PGAS iteration")
+    readings, times, launches, rng_launches = _run(components, device, reps, "PGAS iteration")
     parts = tuple(components)[2:8]
     ratio = faithfulness(readings, parts, "conditional sweep")
     _check_faithful("parts / conditional sweep", ratio)
@@ -455,8 +464,8 @@ def pgas(device=None, n: int = N, steps: int = T, reps: int = REPS["pgas"]) -> d
     log(f"iteration = sweep + replay: {iteration_ratio:.4f} of the iteration's device time")
     return _emit("torch_profile_pgas_device_ms", f"device ms of one PGAS iteration (N={n}, "
                  f"T={steps}, replay storage)", device, readings, "PGAS iteration", times,
-                 launches, faithfulness=ratio, iteration_ratio=iteration_ratio, particles=n,
-                 steps=steps, reps=reps)
+                 launches, rng_launches, faithfulness=ratio, iteration_ratio=iteration_ratio,
+                 particles=n, steps=steps, reps=reps)
 
 
 def resample(device=None, n: int = N, steps: int = T, reps: int = REPS["resample"],
@@ -491,10 +500,10 @@ def resample(device=None, n: int = N, steps: int = T, reps: int = REPS["resample
         "plain float64 cumsum chain": (calls(lambda u: ops.extents_from_logw_ref(lw, m, s1, u,
                                                                                    n)), inner),
     }
-    readings, times, launches = _run(components, device, reps, "B1")
+    readings, times, launches, rng_launches = _run(components, device, reps, "B1")
     return _emit("torch_profile_resample_b1_device_ms", f"device ms of {inner} calls of B1 "
-                 f"(N={n})", device, readings, "B1", times, launches, firings=firings,
-                 particles=n, steps=steps, reps=reps, inner=inner)
+                 f"(N={n})", device, readings, "B1", times, launches, rng_launches,
+                 firings=firings, particles=n, steps=steps, reps=reps, inner=inner)
 
 
 def move_extents(profile: str, n: int, gen: np.random.Generator) -> torch.Tensor:
@@ -546,11 +555,11 @@ def moves(device=None, n: int = N, reps: int = REPS["moves"], inner: int = INNER
     log(f"versions {versions} decode the same ancestors and move bitwise the same rows on "
         f"{', '.join(MOVE_PROFILES)} extents, D in {list(MOVE_DIMS)}")
     headline = f"{MOVE_PROFILES[0]}, D={MOVE_DIMS[0]}, version {ops.MOVE_VERSION}"
-    readings, times, launches = _run(components, device, reps, headline)
+    readings, times, launches, rng_launches = _run(components, device, reps, headline)
     return _emit("torch_profile_moves_device_ms", f"device ms of {inner} decodes + moves under "
                  f"version {ops.MOVE_VERSION} ({headline}; N={n})", device, readings, headline,
-                 times, launches, versions_agree=True, versions=versions, particles=n, reps=reps,
-                 inner=inner)
+                 times, launches, rng_launches, versions_agree=True, versions=versions,
+                 particles=n, reps=reps, inner=inner)
 
 
 SUBCOMMANDS = {"sweep": sweep, "pgas": pgas, "resample": resample, "moves": moves}

@@ -8,9 +8,12 @@ The generator is therefore an explicit :class:`Key` of two uint32 words, not a
 package for the same key words (``jax.random.key(s)`` has words ``(0, s)``).
 
 Key arithmetic (``fold_in``, ``step_key``, the scalar :func:`uniform`) runs on
-host integers, so deriving a step key never touches the device.  Per-particle
-draws run the cipher on int64 tensors masked to 32 bits: torch's uint32
-coverage is thin, on CUDA too.  Components that are sampled particle by
+host integers, so deriving a step key never touches the device.  Every draw
+on tensors goes through :mod:`advancedps_tpu_torch.ops.threefry`: on the card
+one CUDA kernel a draw computes the uint32 cipher, the unit conversion and
+Box–Muller, as XLA fuses them for the JAX package; on the CPU its plain
+version runs the cipher on int64 tensors masked to 32 bits.  Words and ids
+are int64 tensors of uint32 values.  Components that are sampled particle by
 particle get one key per particle (:func:`particle_keys`), an int64 tensor of
 two words each, and draw from it with :mod:`advancedps_tpu_torch.random`.
 
@@ -28,13 +31,13 @@ one chain's words as 0-dim tensors, so a model's draws are those of its chain.
 
 from __future__ import annotations
 
-import math
 import struct
 from dataclasses import dataclass
 
 import torch
 
 from ._device import resolve_device
+from .ops import threefry as _tf
 
 __all__ = [
     "PROPAGATE",
@@ -69,8 +72,6 @@ DRAW = 3  # final retained-trajectory draw (PG/PGAS)
 INIT = 4  # initial-state sampling
 
 _MASK = 0xFFFFFFFF
-_ROT = (13, 15, 26, 6, 17, 29, 16, 24)  # Threefry-2x32 rotation schedule
-_PARITY = 0x1BD11BDA  # Skein/Threefry key-schedule parity constant
 
 
 @dataclass(frozen=True)
@@ -123,29 +124,19 @@ def key(seed: int) -> Key:
     return Key(seed >> 32, seed & _MASK)
 
 
-def _rotl(x, r):
-    return ((x << r) & _MASK) | (x >> (32 - r))
-
-
 def threefry2x32(k0, k1, c0, c1, rounds: int = 20):
     """Threefry-2x32 block cipher (Salmon et al., SC'11).
 
-    Works on Python ints and on int64 tensors alike; every value stays in
-    ``[0, 2**32)``.  ``(k0, k1)`` key words, ``(c0, c1)`` counter words
-    (broadcastable).  Returns the two output words.
+    ``(k0, k1)`` key words, ``(c0, c1)`` counter words: Python ints, or int64
+    tensors that broadcast (values in ``[0, 2**32)``).  Returns the two output
+    words, as ints or as int64 tensors of the broadcast shape.  Host words run
+    the cipher on the host; tensors take
+    :func:`advancedps_tpu_torch.ops.threefry.threefry2x32`, one kernel on the
+    card (20 rounds only) and its plain version on the CPU.
     """
-    ks0, ks1 = k0, k1
-    ks2 = ks0 ^ ks1 ^ _PARITY
-    x0 = (c0 + ks0) & _MASK
-    x1 = (c1 + ks1) & _MASK
-    ks = (ks1, ks2, ks0)
-    for i in range(rounds // 4):
-        for r in _ROT[:4] if i % 2 == 0 else _ROT[4:]:
-            x0 = (x0 + x1) & _MASK
-            x1 = _rotl(x1, r) ^ x0
-        x0 = (x0 + ks[i % 3]) & _MASK
-        x1 = (x1 + ks[(i + 1) % 3] + (i + 1)) & _MASK
-    return x0, x1
+    if any(isinstance(x, torch.Tensor) for x in (k0, k1, c0, c1)):
+        return _tf.threefry2x32(k0, k1, c0, c1, rounds)
+    return _tf.threefry2x32_ref(k0, k1, c0, c1, rounds)
 
 
 def fold_in(k, data: int):
@@ -200,69 +191,40 @@ def step_key_table(keys: KeyBatch, tags, n_steps: int):
     return threefry2x32(a0[:, None, :], a1[:, None, :], 0, t)
 
 
-def _as_counter(gids: torch.Tensor) -> torch.Tensor:
-    return gids.to(torch.int64) & _MASK
-
-
-def _bits_to_unit(bits: torch.Tensor) -> torch.Tensor:
-    """uint32 → float32 in [0, 1) with 24-bit resolution: ``(bits >> 8) · 2^-24``."""
-    return (bits >> 8).to(torch.float32) * (1.0 / (1 << 24))
-
-
 def pos_uniform_pair(k: Key, gids: torch.Tensor, draw: int = 0):
     """Two U[0,1) streams; element ``i`` a pure function of ``(k, draw, gids[i])``."""
-    c1 = _as_counter(gids)
-    b0, b1 = threefry2x32(k.k0, k.k1, torch.full_like(c1, int(draw) & _MASK), c1)
-    return _bits_to_unit(b0), _bits_to_unit(b1)
+    return _tf.pos_uniform(k.k0, k.k1, gids, draw, pair=True)
 
 
 def pos_uniform(k: Key, gids: torch.Tensor, draw: int = 0) -> torch.Tensor:
     """One U[0,1) draw per id, paired layout: ids ``2p`` and ``2p+1`` take the
     two words of the block at counter ``p``."""
-    g = gids.to(torch.int64)
-    u0, u1 = pos_uniform_pair(k, g >> 1, draw)
-    return torch.where((g & 1) == 0, u0, u1)
-
-
-_TWO_PI = 2.0 * math.pi
+    return _tf.pos_uniform(k.k0, k.k1, gids, draw)
 
 
 def pos_normal_pair(k: Key, gids: torch.Tensor, draw: int = 0):
     """Two N(0,1) draws per id by Box–Muller on one Threefry block."""
-    u1, u2 = pos_uniform_pair(k, gids, draw)
-    # 1 - u1 ∈ (0, 1]: the log argument is never 0.
-    r = torch.sqrt(-2.0 * torch.log1p(-u1))
-    theta = _TWO_PI * u2
-    return r * torch.cos(theta), r * torch.sin(theta)
+    return _tf.pos_normal(k.k0, k.k1, gids, draw, pair=True)
 
 
 def pos_normal(k: Key, gids: torch.Tensor, draw: int = 0) -> torch.Tensor:
     """One N(0,1) draw per id, paired layout: ids ``2p`` and ``2p+1`` share the
     block at counter ``p`` and take its two Box–Muller outputs."""
-    g = gids.to(torch.int64)
-    z0, z1 = pos_normal_pair(k, g >> 1, draw)
-    return torch.where((g & 1) == 0, z0, z1)
+    return _tf.pos_normal(k.k0, k.k1, gids, draw)
 
 
 def pos_normals(k: Key, gids: torch.Tensor, d: int, draw0: int = 0) -> torch.Tensor:
     """``[n, d]`` N(0,1) draws: element ``(i, j)`` a pure function of
     ``(k, draw0 + j // 2, gids[i])``, consecutive columns taking the two
     Box–Muller outputs of one block."""
-    cols = []
-    for j in range(0, d, 2):
-        z0, z1 = pos_normal_pair(k, gids, draw0 + j // 2)
-        cols.append(z0)
-        if j + 1 < d:
-            cols.append(z1)
-    return torch.stack(cols, dim=-1)
+    return _tf.pos_normals(k.k0, k.k1, gids, d, draw0)
 
 
 def fold_in_ids(k: Key, ids: torch.Tensor) -> torch.Tensor:
     """``fold_in(k, ids[i])`` for every id, as a batch of keys: an int64
     tensor ``ids.shape + (2,)`` of uint32 words (``jax.random.key_data`` of
     ``vmap(fold_in)``)."""
-    b0, b1 = threefry2x32(k.k0, k.k1, 0, _as_counter(ids))
-    return torch.stack([b0, b1], dim=-1)
+    return _tf.threefry2x32(k.k0, k.k1, 0, ids.to(torch.int64), stacked=True)
 
 
 def particle_keys(k: Key, tag: int, t: int, n: int, device=None) -> torch.Tensor:

@@ -46,7 +46,13 @@ final line:
    alignment; ancestors random and sorted, every seventh past the drawn
    population; float32 and int32 rows), bitwise its plain version and row by
    row the one-chain kernel, and for one chain on slices one to three words
-   off 16-byte alignment;
+   off 16-byte alignment; and the positional Threefry's four kernels
+   (``csrc/threefry.cu``) at 1M, at 8 x 1M on the chain axis, at 100,003 ids
+   from an odd one, at ids past 2**32, on int32 ids and on an offset slice:
+   the cipher words and the uniforms bitwise their plain versions, the
+   normals within ``NORMAL_ULPS`` (the largest gap printed), and each
+   batching rule under ``torch.func.vmap`` (chain words, chain words and ids,
+   particle keys, nested) bitwise the loop of one-key calls, in one launch;
 4. the SMC flagship (stationary LGSSM a=0.9, q=0.32, r=1.0, T=100,
    N=1,000,000, resampling at ESS ≤ N/2) through ``sample`` with each fused
    scheme — systematic, stratified, multinomial, and multinomial with the
@@ -93,7 +99,10 @@ final line:
    ``index_select``; and one residual firing step (the draw for C chains from
    their keys on the card, then B3 with the chain axis): its device-side
    launches for C = 1, 4 and 64 at 1M and at 16,384, equal at C = 4 and 64,
-   beside the loop of one-chain draws it replaced at 4 x 1M.  The inputs are the same
+   beside the loop of one-chain draws it replaced at 4 x 1M; and each Threefry
+   kernel at 1M and 8 x 1M (L2-warm, L2-cold, one launch a call, the plain
+   version, per call by events, its bound: bytes or BLOCK_OPS int32
+   operations for each distinct block the ids need, whichever takes longer).  The inputs are the same
    tensors on every call, as in the sweep, where each was written by the step
    before: they sit in the 50 MB L2, so the readings are L2-warm.  A second
    window takes each kernel L2-cold, on 128 MB of copies of its inputs in
@@ -190,7 +199,10 @@ final line:
    its path's kernels and no other.
 
 Each launch count is read from the run of its own path, the counts set to 0
-just before it.  The last lines are the kernels' JSON record (launches summed
+just before it: the resampling kernels' against what each firing runs, and
+beside them the Threefry kernels' against what the path draws (``draws``,
+``model_draws``, ``pgas_draws``: e.g. exactly T pos_normal launches a
+flagship sweep, as many for a batch of chains as for one).  The last lines are the kernels' JSON record (launches summed
 over the runs of phases 4-6 and 8-12, and per sweep and per PGAS iteration by path),
 the card, and ``{"ok": true, "device": {...}}``.
 Imports no JAX: the card's machine has none.
@@ -904,6 +916,243 @@ def check_decode_forms(ops, f, n, vs, label, err):
                       f"{label}: 3L-row form, version {ver}, window {k} differs")
 
 
+#: The positional Threefry (phases 3, 7 and every path): four CUDA kernels of
+#: csrc/threefry.cu.  They stand for no pallas_call: each is the fusion that
+#: XLA makes of the JAX package's jnp uint32 cipher and its draws.
+TF_SOURCE = "advancedps_tpu_torch/csrc/threefry.cu"
+TF_FILE = "advancedps_tpu/rng.py"
+TF_REPLACES = {"threefry2x32": f"{TF_FILE}:91", "pos_uniform": f"{TF_FILE}:139",
+               "pos_normal": f"{TF_FILE}:161", "pos_normals": f"{TF_FILE}:182"}
+#: Integer operations of one 20-round block as csrc/threefry.cu computes it:
+#: two xors for the key schedule, two adds, 20 rounds of add, rotate and xor,
+#: five injections of three adds.
+BLOCK_OPS = 79
+#: The H100 SXM's int32 rate outside the tensor cores: 132 SMs x 64 INT32
+#: lanes (NVIDIA's Hopper white paper) at the 1.98 GHz boost clock.
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+#: Normals on the card against their plain version: at most this many ulps
+#: apart (the kernel calls the library functions torch's kernels call).
+NORMAL_ULPS = 2
+#: Threefry launches of each model family at init, a step, and a step with a
+#: PGAS reference on top (its ancestor weights): the LGSSM and the SV model one
+#: pos_normal at init and a step; the Lévy model pos_normals at init and 7
+#: key-based ciphers a step (the particle keys, the split of each one, the
+#: path's split, gaps, acceptances and times, the noise), and 4 more with a
+#: reference (the scoring path's split, gaps, acceptances and times); the
+#: GP-SSM a pos_normal at init and 2 a step (the particle keys, the keyed
+#: normal); the generic LGSSM program 3 a step and none at init (the particle
+#: keys, a site's fold_in of each, the keyed normal).
+MODEL_DRAWS = {
+    "LGSSM": ({"pos_normal": 1}, {"pos_normal": 1}, {}),
+    "stochastic volatility": ({"pos_normal": 1}, {"pos_normal": 1}, {}),
+    "Lévy": ({"pos_normals": 1}, {"threefry2x32": 7}, {"threefry2x32": 4}),
+    "GP-SSM": ({"pos_normal": 1}, {"threefry2x32": 2}, {}),
+    "generic": ({"threefry2x32": 3}, {"threefry2x32": 3}, {}),
+}
+
+
+def draws(normal: int = 0, uniform: int = 0, words: int = 0, normals: int = 0) -> dict:
+    """Launches of each Threefry kernel on a path."""
+    return {"threefry2x32": words, "pos_uniform": uniform, "pos_normal": normal,
+            "pos_normals": normals}
+
+
+def add_draws(*ds) -> dict:
+    return {k: sum(d[k] for d in ds) for k in draws()}
+
+
+def model_draws(label: str, steps: int = T, sweeps: int = 1, referenced: int = 0,
+                uniform: int = 0) -> dict:
+    """The Threefry launches of ``sweeps`` sweeps (or replays) of ``steps``
+    steps of model ``label``, ``referenced`` of them with a PGAS reference,
+    and ``uniform`` positional uniforms besides."""
+    init, step, ref = MODEL_DRAWS[label]
+    out = {k: sweeps * (init.get(k, 0) + (steps - 1) * step.get(k, 0))
+           + referenced * (steps - 1) * ref.get(k, 0) for k in draws()}
+    out["pos_uniform"] += uniform
+    return out
+
+
+def pgas_draws(iters: int, steps: int = T, conditional=None, replay: bool = True,
+               shards: int = 1, firing_uniforms: int = 0, model: str = "LGSSM") -> dict:
+    """The Threefry launches of ``iters`` PG(AS) iterations (every step
+    firing): each iteration's sweep on each of ``shards`` shards and, with
+    ``replay``, its replay; one pos_uniform for the retained draw; the
+    ancestor draw's at each step on each shard of the ``conditional``
+    iterations (those with a reference: all but a fresh chain's first; 0 for
+    PG); ``firing_uniforms`` a firing for a scheme's uniform pass
+    (stratified, multinomial, residual: 1)."""
+    conditional = iters - 1 if conditional is None else conditional
+    return model_draws(model, steps, iters * (shards + int(replay)), conditional * shards,
+                       iters + (steps - 1) * (conditional * shards + iters * firing_uniforms))
+
+
+def check_draws(drive, what: str, want: dict):
+    """The Threefry launches of the path ``drive`` ran last, against ``want``."""
+    check(drive.draws == want, f"{what}: Threefry launches {drive.draws} != {want}")
+
+
+def ulps_apart(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Largest float32 ulp distance between two tensors of equal signs."""
+    return int((bits(a).long() - bits(b).long()).abs().max()) if a.numel() else 0
+
+
+def threefry_checks(apt, tf, err):
+    """Phase 3: each Threefry kernel against its plain version on the card:
+    at 1M, at 8 x 1M on the chain axis, at an odd N from an odd id, at ids
+    past 2**32, on int32 ids and on an offset slice; the cipher words and the
+    uniforms bitwise, the normals within NORMAL_ULPS (the largest gap
+    printed); then each batching rule under vmap against the loop of
+    one-key calls, in one launch."""
+    R = apt.rng
+    k = R.step_key(R.key(7), R.PROPAGATE, 3)
+    kb = R.chain_keys(R.key(7), ENSEMBLE_RUNS).to("cuda").column()
+    ids = torch.arange(N, device="cuda")
+    cases = (("1M", k.k0, k.k1, ids),
+             (f"{ENSEMBLE_RUNS} x 1M", kb.k0, kb.k1, ids),
+             ("100,003 ids from 3", k.k0, k.k1, torch.arange(3, 100_006, device="cuda")),
+             ("ids past 2**32", k.k0, k.k1,
+              torch.arange(2**32 - N // 2, 2**32 + N // 2 + 1, device="cuda")),
+             ("int32 ids", k.k0, k.k1, ids.to(torch.int32)),
+             ("an offset slice", k.k0, k.k1, ids[333:N - 7:3]))
+    worst = dict.fromkeys(("pos_normal", "pos_normals"), 0)
+    for what, k0, k1, g in cases:
+        for pair in (False, True):
+            for name, fn, ref in (("pos_uniform", tf.pos_uniform, tf.pos_uniform_ref),
+                                  ("pos_normal", tf.pos_normal, tf.pos_normal_ref)):
+                got, want = fn(k0, k1, g, 5, pair), ref(k0, k1, g, 5, pair)
+                got, want = (got, want) if pair else ((got,), (want,))
+                err[name] = max(err[name], *(max_abs(a, b) for a, b in zip(got, want)))
+                if name == "pos_uniform":
+                    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                          f"{what}: pos_uniform (pair {pair}) differs from its plain version")
+                else:
+                    worst[name] = max(worst[name], *(ulps_apart(a, b) for a, b in zip(got, want)))
+        got, want = tf.pos_normals(k0, k1, g, 3, 2), tf.pos_normals_ref(k0, k1, g, 3, 2)
+        err["pos_normals"] = max(err["pos_normals"], max_abs(got, want))
+        worst["pos_normals"] = max(worst["pos_normals"], ulps_apart(got, want))
+        c1 = g.to(torch.int64)
+        for stacked in (False, True):
+            got = tf.threefry2x32(k0, k1, 9, c1, stacked=stacked)
+            want = tf.threefry2x32_ref(k0, k1, 9, c1)
+            got = got.unbind(-1) if stacked else got
+            err["threefry2x32"] = max(err["threefry2x32"],
+                                      *(max_abs(a, b) for a, b in zip(got, want)))
+            check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                  f"{what}: threefry2x32 (stacked {stacked}) differs from its plain version")
+    for name, gap in worst.items():
+        check(gap <= NORMAL_ULPS, f"{name}: {gap} ulps from its plain version, over "
+              f"{NORMAL_ULPS}")
+    # The batching rules: vmap over 8 chains' words, over 4,096 particle keys,
+    # and both nested, each one launch and bitwise the loop of one-key calls.
+    chains = R.chain_keys(R.key(9), ENSEMBLE_RUNS).to("cuda")
+    pk = R.particle_keys(R.key(4), R.PROPAGATE, 3, 4096)
+    from advancedps_tpu_torch import random as rnd
+    for what, mapped, loop, name in (
+            ("pos_normal over chain words",
+             lambda: torch.func.vmap(lambda a, b: R.pos_normal(R.KeyBatch(a, b), ids))(
+                 chains.k0, chains.k1),
+             lambda: torch.stack([R.pos_normal(chains.key(c), ids)
+                                  for c in range(ENSEMBLE_RUNS)]), "pos_normal"),
+            ("pos_uniform over chain words and ids",
+             lambda: torch.func.vmap(lambda a, b, g: R.pos_uniform(R.KeyBatch(a, b), g))(
+                 chains.k0, chains.k1, ids[:ENSEMBLE_RUNS * 1000].view(ENSEMBLE_RUNS, 1000)),
+             lambda: torch.stack([R.pos_uniform(chains.key(c), ids[c * 1000:(c + 1) * 1000])
+                                  for c in range(ENSEMBLE_RUNS)]), "pos_uniform"),
+            ("random.normal over particle keys",
+             lambda: torch.func.vmap(lambda q: rnd.normal(q, (64,)))(pk),
+             lambda: torch.stack([rnd.normal(q, (64,)) for q in pk]), "threefry2x32"),
+            ("fold_in_ids under chains, random.uniform under particles",
+             lambda: torch.func.vmap(lambda a, b: torch.func.vmap(
+                 lambda q: rnd.uniform(q, (5,)))(R.fold_in_ids(R.KeyBatch(a, b), ids[:512])))(
+                 chains.k0, chains.k1),
+             lambda: torch.stack([torch.stack([rnd.uniform(q, (5,)) for q in
+                                               R.fold_in_ids(chains.key(c), ids[:512])])
+                                  for c in range(ENSEMBLE_RUNS)]), "threefry2x32")):
+        tf.reset_launch_counts()
+        got = mapped()
+        launches = {w.__name__: w.launches for w in tf.KERNEL_WRAPPERS if w.launches}
+        check(torch.equal(got, loop()), f"{what} under vmap differs from the loop")
+        want = {name: 2} if "fold_in_ids" in what else {name: 1}
+        check(launches == want, f"{what} under vmap: launches {launches}, want {want}")
+    tf.reset_launch_counts()
+    print(f"Threefry kernels against their plain versions at 1M, {ENSEMBLE_RUNS} x 1M, 100,003 "
+          f"ids from 3, ids past 2**32, int32 ids and an offset slice: cipher words and "
+          f"uniforms bitwise, normals within {worst['pos_normal']} ulps (pos_normal) and "
+          f"{worst['pos_normals']} (pos_normals); the batching rules under vmap (chain words, "
+          f"chain words and ids, particle keys, nested) bitwise the loop, one launch each",
+          flush=True)
+
+
+def threefry_timings(apt, tf, tag: str) -> dict:
+    """Phase 7: each Threefry kernel at the shapes the main path gives it, 1M
+    ids with one key (the flagship's propagate, the Gumbel pass, the particle
+    keys, the Lévy model's init) and the chain axis's 8 x 1M: device time
+    L2-warm and L2-cold (128 MB of copies of the ids in turn), launches a
+    call, the plain version's device time, the time a call by CUDA events
+    (host included; plain, kernel, kernel, plain), and the bound: the larger
+    of the bytes (ids and key words read, the output written) at the memory's
+    rate and BLOCK_OPS at the int32 rate for each distinct block these ids
+    need.  In the paired layout ids 2p and 2p + 1 share the block at counter
+    p, so 1M ids need 500k blocks, though the kernel computes a block for each id."""
+    R = apt.rng
+    k = R.step_key(R.key(1), R.PROPAGATE, 1)
+    kb = R.chain_keys(R.key(200), ENSEMBLE_RUNS).to("cuda").column()
+    ids = torch.arange(N, device="cuda")
+    # name -> (kernel, plain version, the block counters of a key's ids: d = 2
+    # columns of pos_normals take one block's two outputs)
+    calls = {
+        "threefry2x32": (lambda k0, k1, g: tf.threefry2x32(k0, k1, 0, g, stacked=True),
+                         lambda k0, k1, g: torch.stack(tf.threefry2x32_ref(k0, k1, 0, g), -1),
+                         lambda g: g & 0xFFFFFFFF),
+        "pos_uniform": (tf.pos_uniform, tf.pos_uniform_ref, lambda g: (g >> 1) & 0xFFFFFFFF),
+        "pos_normal": (tf.pos_normal, tf.pos_normal_ref, lambda g: (g >> 1) & 0xFFFFFFFF),
+        "pos_normals": (lambda k0, k1, g: tf.pos_normals(k0, k1, g, 2),
+                        lambda k0, k1, g: tf.pos_normals_ref(k0, k1, g, 2),
+                        lambda g: g & 0xFFFFFFFF),
+    }
+    rows = {}
+    for name, (kernel_fn, plain, counters) in calls.items():
+        for at, k0, k1 in (("1M", k.k0, k.k1), (f"{ENSEMBLE_RUNS} x 1M", kb.k0, kb.k1)):
+            out = kernel_fn(k0, k1, ids)
+            words = [w for w in (k0, k1) if isinstance(w, torch.Tensor)]
+            moved = nbytes(ids, *words, out)
+            keys = max((w.numel() for w in words), default=1)
+            blocks = keys * torch.unique(counters(ids)).numel()
+            ops_count = BLOCK_OPS * blocks
+            by_bytes, by_ops = moved / HBM_BYTES_PER_S * 1e3, ops_count / INT32_OPS_PER_S * 1e3
+            copies = [ids.clone() for _ in range(-(-COLD_BYTES // nbytes(ids)))]
+            turn = iter(range(10 ** 9))
+            warm_ms, per_call = device_ms_and_launches(lambda: kernel_fn(k0, k1, ids))
+            cold_ms = device_ms(lambda: kernel_fn(k0, k1, copies[next(turn) % len(copies)]))
+            del copies
+            plain_ms = device_ms(lambda: plain(k0, k1, ids))
+            call_ms, plain_call_ms, readings = plain_vs_kernel(lambda: plain(k0, k1, ids),
+                                                               lambda: kernel_fn(k0, k1, ids))
+            row = {"device_ms": warm_ms, "cold_device_ms": cold_ms, "launches_per_call": per_call,
+                   "plain_ms": plain_ms, "library_ms": None, "call_ms": call_ms,
+                   "plain_call_ms": plain_call_ms, "bytes": moved, "blocks": blocks,
+                   "int_ops": ops_count,
+                   "bound_ms": max(by_bytes, by_ops),
+                   "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+            row["bound_share"] = row["bound_ms"] / warm_ms
+            rows.setdefault(name, {})[at] = row
+            print(f"kernel {name} at {at}: {per_call} launch(es) a call, device {warm_ms:.5f} ms "
+                  f"L2-warm, {cold_ms:.5f} ms L2-cold, plain {plain_ms:.5f} ms, library no "
+                  f"single call (torch.rand is Philox, another function); bound "
+                  f"{row['bound_ms']:.5f} ms by {row['bound_by']} ({moved} bytes at 3.35 TB/s: "
+                  f"{by_bytes:.5f} ms; {blocks} blocks, {ops_count} int32 operations at "
+                  f"{INT32_OPS_PER_S / 1e12:.2f} Tops/s: {by_ops:.5f} ms), share "
+                  f"{row['bound_share']:.4f} warm; per call by events, host included: "
+                  f"{call_ms:.4f} ms, plain {plain_call_ms:.4f} ms (plain, kernel, kernel, plain: "
+                  f"{', '.join(f'{r:.4f}' for r in readings)}) {tag}", flush=True)
+            check(per_call == 1, f"{name} at {at}: {per_call} device-side launches a call, the "
+                  f"fused draw has 1")
+            check(row["bound_ms"] <= cold_ms, f"{name} at {at}: L2-cold device time {cold_ms} "
+                  f"ms below its bound {row['bound_ms']} ms")
+    return rows
+
+
 def main():
     t_script = time.perf_counter()
     if not torch.cuda.is_available():
@@ -911,25 +1160,31 @@ def main():
     import advancedps_tpu_torch as apt
     from advancedps_tpu_torch.ops import _build
     from advancedps_tpu_torch.ops import resample as ops
+    from advancedps_tpu_torch.ops import threefry as tfops
 
     names = [w.__name__ for w in ops.KERNEL_WRAPPERS]
+    tf_names = [w.__name__ for w in tfops.KERNEL_WRAPPERS]
+    check(tf_names == list(draws()), f"the Threefry kernels are {tf_names}")
 
-    def counts():
-        return {w.__name__: w.launches for w in ops.KERNEL_WRAPPERS}
+    def counts(wrappers=ops.KERNEL_WRAPPERS):
+        return {w.__name__: w.launches for w in wrappers}
 
     def expected(per_firing, firings):
         return {name: per_firing.get(name, 0) * firings for name in names}
 
-    main_launches = dict.fromkeys(names, 0)
+    main_launches = dict.fromkeys(names + tf_names, 0)
 
     def drive(fn):
         """Run one main path with the counts set to 0 just before it; return
-        its result and the counts read just after."""
+        its result and the resampling kernels' counts read just after (the
+        Threefry kernels' in ``drive.draws``)."""
         ops.reset_launch_counts()
+        tfops.reset_launch_counts()
         out = fn()
         torch.cuda.synchronize()
         got = counts()
-        for name, c in got.items():
+        drive.draws = counts(tfops.KERNEL_WRAPPERS)
+        for name, c in {**got, **drive.draws}.items():
             main_launches[name] += c
         return out, got
 
@@ -964,10 +1219,13 @@ def main():
           f"ops.MOVE_VERSION is {ops.MOVE_VERSION}, the launch tables here are for {DEFAULT_MOVE}")
     check(lib.aps_prefix_tile_size() == ops.PREFIX_TILE,
           f"scan tile {lib.aps_prefix_tile_size()} differs from the wrappers' constant")
+    check(lib.aps_threefry_max_dims() == tfops.MAX_DIMS,
+          f"the Threefry kernels take {lib.aps_threefry_max_dims()} dimensions, the wrappers "
+          f"{tfops.MAX_DIMS}")
 
     # ---- 3. kernels vs plain versions on the card, M = N = 1M
     gen = torch.Generator(device="cuda").manual_seed(0)
-    err = dict.fromkeys(names, 0.0)
+    err = dict.fromkeys(names + tf_names, 0.0)
     edge_cases = geometry_cases(*geometry, gen)
     for what, s_, t_ in edge_cases:
         want = ops.count_le_sorted_ref(s_, t_)
@@ -1265,6 +1523,7 @@ def main():
     chain_kernel_checks(ops, gen, err)
     chain_decode_checks(ops, gen, err)
     move_rows_checks(ops, gen, err)
+    threefry_checks(apt, tfops, err)
 
     # ---- 4. the SMC flagship with each fused scheme, through sample
     model = apt.models.stationary_lgssm(A, Q, R)
@@ -1299,6 +1558,9 @@ def main():
         check(n_rs > 0, f"{label}: the gate never fired")
         check(launches == expected(PER_FIRING[label], n_rs),
               f"{label}: launches {launches} != {expected(PER_FIRING[label], n_rs)}")
+        # One positional normal a step, init included; stratified and
+        # multinomial draw their uniforms in one pass a firing.
+        check_draws(drive, label, draws(normal=T, uniform=0 if label == "systematic" else n_rs))
         check(tuple(smc.trajectories.shape) == (T, N), f"{label}: trajectories shape")
         check(bool(torch.isfinite(smc.trajectories).all()), f"{label}: trajectories not finite")
         check(abs(float(smc.weights.sum()) - 1.0) < 1e-4, f"{label}: weights do not sum to 1")
@@ -1310,7 +1572,7 @@ def main():
         check(torch.equal(a.log_evidence, smc.log_evidence), f"{label}: sweep and sample disagree")
         check(a.ancestors.is_cuda, f"{label}: the sweep did not run on the card")
         evidence[label] = smc.log_evidence
-        per_sweep[label] = {k: v for k, v in launches.items() if v}
+        per_sweep[label] = {k: v for k, v in {**launches, **drive.draws}.items() if v}
         if fn is apt.resample_multinomial:
             # The counts are exact, so the sweep is what the earlier kernels gave.
             check(f"{abs(log_z - kf_ll):.6f}" == EARLIER_MULTINOMIAL_ERR,
@@ -1340,6 +1602,7 @@ def main():
               f"launches {launches}", flush=True)
         check(launches == expected(PER_VERSION[ver], fires),
               f"move version {ver}: launches {launches} != {expected(PER_VERSION[ver], fires)}")
+        check_draws(drive, f"move version {ver}", draws(normal=T))
         by_version[ver] = res
     ops.MOVE_VERSION = DEFAULT_MOVE
     single = by_version[DEFAULT_MOVE]
@@ -1397,6 +1660,7 @@ def main():
         want = expected(per_shard_move, fires_ex)
         want["extents_from_logw"] = K * n_ag
         check(launches == want, f"sharded {ex}: launches {launches} != {want}")
+        check_draws(drive, f"sharded {ex}", draws(normal=K * T))  # each shard its own
         sharded[ex] = (res, branches)
     ag, nb = sharded["allgather"][0], sharded["neighbor"][0]
     print(f"sharded flagship: allgather against neighbor: "
@@ -1419,6 +1683,7 @@ def main():
                     int(auto.resampled.sum()))
     want["extents_from_logw"] = launches["extents_from_logw"]  # by the exchange's branch
     check(launches == want, f"sharded, move version {OTHER_WINDOWED_MOVE}: launches {launches}")
+    check_draws(drive, f"sharded, move version {OTHER_WINDOWED_MOVE}", draws(normal=K * T))
     print(f"sharded flagship: auto bitwise equal to neighbor "
           f"({'checked' if auto_branches.get('allgather', 0) == 0 else 'not checked: a firing fell back'}); "
           f"move version {OTHER_WINDOWED_MOVE} ({launches}) bitwise equal to {WINDOWED_MOVE}",
@@ -1444,6 +1709,7 @@ def main():
     check(launches == expected(PER_FIRING["systematic"], iters * (T - 1)),
           f"PGAS: launches {launches}, expected {T - 1} of B1 and the decode + move per "
           f"iteration")
+    check_draws(drive, "PGAS", pgas_draws(PGAS_ITERS))
     per_pgas_iteration["systematic"] = {k: v // iters for k, v in launches.items() if v}
 
     for label in ("multinomial", "stratified"):
@@ -1457,6 +1723,7 @@ def main():
               f"PGAS {label}: |logZ - kalman| >= 1")
         check(launches == expected(PER_FIRING[label], 2 * (T - 1)),
               f"PGAS {label}: launches {launches}")
+        check_draws(drive, f"PGAS {label}", pgas_draws(2, firing_uniforms=1))
         per_pgas_iteration[label] = {k: v // 2 for k, v in launches.items() if v}
         if label == "multinomial":
             check(chain.log_evidence.tolist() == EARLIER_MULTINOMIAL_PGAS_LOGZ,
@@ -1465,7 +1732,10 @@ def main():
     st = apt.PGState(last.trajectory[-1])
     k_rd = apt.rng.key(12)
     dense, _ = apt.step_pg(k_rd, traced, pgas, st, "dense", device="cuda")
-    repl, _ = apt.step_pg(k_rd, traced, pgas, st, "replay", device="cuda")
+    (repl, _), _ = drive(lambda: apt.step_pg(k_rd, traced, pgas, st, "replay", device="cuda"))
+    # One iteration with a reference: the draws of a PGAS iteration of the chain.
+    check_draws(drive, "one PGAS iteration", pgas_draws(1, conditional=1))
+    per_pgas_iteration["systematic"].update({k: v for k, v in drive.draws.items() if v})
     rd_err = float((dense.trajectory - repl.trajectory).abs().max())
     print(f"PGAS replay vs dense storage, one iteration: max |diff| {rd_err:.3e}, "
           f"logZ equal {torch.equal(dense.log_evidence, repl.log_evidence)}", flush=True)
@@ -1497,6 +1767,9 @@ def main():
     want["extents_from_logw"] = K * branches.get("allgather", 0)
     check(sum(branches.values()) == firings and launches == want,
           f"sharded PGAS: launches {launches} != {want}")
+    # Each shard draws its own normals and ancestor uniforms; the replay and
+    # the retained draw run once.
+    check_draws(drive, "sharded PGAS", pgas_draws(SHARDED_PGAS_ITERS, shards=K))
     st_s = apt.PGState(chain.trajectory[-1])
     k_rd = apt.rng.key(41)
     dense, _ = parallel.sharded_step_pg(k_rd, kernel, pgas, mesh, st_s, trajectory_storage="dense")
@@ -1524,6 +1797,8 @@ def main():
     firings = 2 * CHAIN_ITERS * (T - 1) * 2  # chains × iterations × steps × shards
     check(launches == expected({"extents_from_logw": 1, **DECODE_MOVE[WINDOWED_MOVE]}, firings),
           f"sharded chains: launches {launches}")
+    check_draws(drive, "sharded chains", pgas_draws(
+        2 * CHAIN_ITERS, conditional=2 * (CHAIN_ITERS - 1), replay=False, shards=2))
 
     # ---- 7. timings
     base = apt.ResampleWithESSThreshold(apt.resample_systematic, 0.0)  # never fires
@@ -1817,6 +2092,7 @@ def main():
         if row["bound_share"] > 1.0:
             print(f"  note: {name} L2-warm is faster than the device memory allows "
                   f"(share {row['bound_share']:.4f}): its tensors never left the L2", flush=True)
+    tf_timing = threefry_timings(apt, tfops, tag)
     for what, plain, kernel_fn in (
             (f"decode_ancestors at 1M, window of L={L}",
              lambda: ops.decode_ancestors_ref(f, L, guard=N, start=2 * L),
@@ -2062,6 +2338,7 @@ def main():
         check(launches == expected(per_firing, fires),
               f"{label}: launches {launches} != {expected(per_firing, fires)} "
               f"(B4 over leaves: ceil({leaves} leaves / 8) a firing)")
+        check_draws(drive, f"{label} SMC", model_draws(label, steps))
         if not levy:
             for i in range(2):
                 torch.cuda.synchronize()
@@ -2088,6 +2365,7 @@ def main():
               and bool(torch.isfinite(chain.trajectory).all()), f"{label}: PGAS not finite")
         check(launches == expected(per_firing, 2 * (steps - 1)),
               f"{label}: PGAS launches {launches}")
+        check_draws(drive, f"{label} PGAS", pgas_draws(2, steps, model=label))
         mesh.reset_counts()
         res, launches = drive(lambda: parallel.sharded_sweep(apt.rng.key(61), kernel_m, N,
                                                              systematic, mesh, store_states=False))
@@ -2104,6 +2382,7 @@ def main():
         check(launches[move] == K * fires_s * per_firing[move]
               and launches["extents_from_logw"] == K * branches.get("allgather", 0),
               f"{label}: sharded launches {launches}")
+        check_draws(drive, f"{label} sharded", model_draws(label, steps, K))
         del traced_m, kernel_m, smc, chain, res
         torch.cuda.empty_cache()
 
@@ -2118,6 +2397,10 @@ def main():
     (pgas_rate, pg_rate), _ = drive(lambda: (
         update_rate(apt.sample(apt.rng.key(71), sv_traced, apt.PGAS(20), SV_RATE_ITERS)),
         update_rate(apt.sample(apt.rng.key(71), sv_traced, apt.PG(20, 1.0), SV_RATE_ITERS))))
+    sv = "stochastic volatility"
+    check_draws(drive, "SV update rates", add_draws(
+        pgas_draws(SV_RATE_ITERS, 60, replay=False, model=sv),
+        pgas_draws(SV_RATE_ITERS, 60, conditional=0, replay=False, model=sv)))
     theory = 1.0 - 1.0 / 20
     early = slice(0, 20)
     print(f"SV PGAS update rate N=20 T=60, {SV_RATE_ITERS} iterations: mean "
@@ -2141,6 +2424,10 @@ def main():
         (dense, repl), _ = drive(lambda: tuple(
             apt.sample(apt.rng.key(73), tr_x, sampler(n_p), iters, trajectory_storage=st)
             for st in ("dense", "replay")))
+        family, conditional = label.split()[0], (iters - 1 if sampler is apt.PGAS else 0)
+        check_draws(drive, label, add_draws(*(
+            pgas_draws(iters, steps, conditional, replay, model=family)
+            for replay in (False, True))))
         diff = float((dense.trajectory - repl.trajectory).abs().max())
         print(f"{label} N={n_p} T={steps}, {iters} iterations: replay against dense storage max |diff| "
               f"{diff:.3e} (bound {tol}), logZ {dense.log_evidence.tolist()}; phase 8 so far "
@@ -2168,6 +2455,15 @@ def main():
          "launches_per_pgas_iteration": {k: v[name] for k, v in per_pgas_iteration.items()
                                          if name in v}}
         for name in names
+    ] + [
+        {"name": name, "route": "cuda", "source": TF_SOURCE, "replaces": TF_REPLACES[name],
+         "launches": main_launches[name], "max_abs_err": err[name],
+         "ms": tf_timing[name]["1M"]["device_ms"], **tf_timing[name]["1M"],
+         f"at_{ENSEMBLE_RUNS}x1M": tf_timing[name][f"{ENSEMBLE_RUNS} x 1M"],
+         "launches_per_sweep": {k: v[name] for k, v in per_sweep.items() if name in v},
+         "launches_per_pgas_iteration": {k: v[name] for k, v in per_pgas_iteration.items()
+                                         if name in v}}
+        for name in tf_names
     ]}
     for k in record["kernels"]:
         check(k["launches"] > 0, f"{k['name']} was never launched on a main path")
@@ -2210,6 +2506,26 @@ def bench_launches_ok(bench, mode: str, record: dict, launches: dict) -> bool:
             and timed == {k: v * timed_windows * per_window for k, v in per_firing.items()})
 
 
+def bench_draws(bench, mode: str, record: dict) -> dict:
+    """The Threefry launches of a bench mode's whole run: the sweeps or PGAS
+    chains of its first call and its timed runs, pgas's anchor chains, and on
+    each of scaling's meshes its two untimed iterations (the first without a
+    reference; dense storage)."""
+    runs = 1 + record["n_runs"]
+    if mode in ("smc", "ensemble"):
+        return draws(normal=T * runs)
+    if mode == "pgas":
+        iters = bench.BENCH_ITERS
+        chains = runs + -(-bench.ANCHOR_ITERS // (iters - bench.WARM_ITERS))
+        return pgas_draws(chains * iters, conditional=chains * (iters - 1))
+    if mode == "chains":
+        iters = record["iterations_per_run"]
+        return pgas_draws(runs * iters, conditional=runs * (iters - 1))
+    its = 1 + runs
+    return add_draws(*(pgas_draws(its, record["steps"], its - 1, replay=False, shards=int(k))
+                       for k in record["particle_steps_per_sec_by_devices"]))
+
+
 def bench_phase(drive, card: str, tag: str):
     """Phase 11: the five modes of ``advancedps_tpu_torch.bench`` at full size
     through its functions, no device named.  Each prints its JSON line and
@@ -2237,9 +2553,23 @@ def bench_phase(drive, card: str, tag: str):
         check(bench_launches_ok(bench, mode, record, launches),
               f"bench {mode}: launches {launches}, in the timed runs {record['launches']}: "
               f"not its path's kernels")
+        check_draws(drive, f"bench {mode}", bench_draws(bench, mode, record))
     print(f"phase 11 took {time.perf_counter() - t_phase:.1f}s", flush=True)
 
 
+#: The Threefry launches of each profile of phase 12, whose components run
+#: once warm, ``reps`` times timed and once profiled: the sweep's gated,
+#: never-resampling and propagate + score sweeps and the pos_normal loop
+#: (4T - 1 normals), the uniforms of that loop, the reductions and the gather;
+#: a PGAS iteration's (2T normals, T uniforms), the conditional sweep's (T,
+#: T - 1), propagate + score's (T), the reductions' (one uniform), the
+#: ancestor draws' (T - 1) and the replay's (T and the retained draw).
+PROFILE_DRAWS = {
+    "sweep": lambda r: draws(normal=(r["reps"] + 2) * (4 * T - 1), uniform=3 * (r["reps"] + 2)),
+    "pgas": lambda r: draws(normal=(r["reps"] + 2) * 5 * T, uniform=(r["reps"] + 2) * 3 * T),
+    "resample": lambda r: draws(),
+    "moves": lambda r: draws(),
+}
 #: The kernels each profile of phase 12 runs: the sweep's and a PGAS
 #: iteration's (B1 and the default move), the resample branch's pieces, and
 #: the decode + move of every move version.
@@ -2281,6 +2611,9 @@ def profiling_phase(drive, card: str, tag: str):
               and launches == {k: v * (1 + record["n_runs"]) for k, v in per_sweep.items()},
               f"bench schemes {scheme}: launches {launches}, in the timed runs "
               f"{record['launches']}: not {per_sweep} a sweep")
+        sweeps = 1 + record["n_runs"]  # of the base and of the scheme each
+        check_draws(drive, f"bench schemes {scheme}", draws(
+            normal=2 * T * sweeps, uniform=0 if scheme == "systematic" else sweeps * (T - 1)))
         print(f"bench schemes {scheme}: per firing {record['per_firing_ms']:.4f} ms, median "
               f"{record['median_s']:.4f} s ({record['min_s']:.4f}-{record['max_s']:.4f}), base "
               f"{record['base_median_s']:.4f} s ({record['base_min_s']:.4f}-"
@@ -2291,6 +2624,10 @@ def profiling_phase(drive, card: str, tag: str):
                       ("structured timed runs", record["structured_launches"])):
         check(set(got) == names and len(set(got.values())) == 1,
               f"bench generic: launches of the {what} {got}: not B1 = B4")
+    sweeps = 1 + record["n_runs"]  # of each form
+    check_draws(drive, "bench generic", add_draws(
+        model_draws("generic", record["steps"], sweeps), model_draws("LGSSM", record["steps"],
+                                                                      sweeps)))
     print(f"bench generic: generic median {record['median_s']:.4f} s, structured "
           f"{record['structured_median_s']:.4f} s, generic/structured throughput "
           f"{record['generic_over_structured']:.4f} {tag}", flush=True)
@@ -2319,6 +2656,9 @@ def profiling_phase(drive, card: str, tag: str):
             check(record["device"] == card, f"profiling {name}: device {record['device']!r}")
             check(set(launches) == PROFILE_KERNELS[name],
                   f"profiling {name}: launches {launches}: not its path's kernels")
+            want = {k: v for k, v in PROFILE_DRAWS[name](record).items() if v}
+            check(record["rng_launches"] == want, f"profiling {name}: Threefry launches "
+                  f"{record['rng_launches']} != {want}")
             for label, r in record["components"].items():
                 # A step launches at least one kernel: fewer records is a lost record.
                 check(r["device_ms"] > 0 and r["launches"] >= r["steps"],
@@ -2500,6 +2840,7 @@ def generic_phase(apt, ops, drive, expected, profile_one, tag, traced, kernel, s
     check(abs(log_z - kf_g) < 0.1, f"generic SMC: |logZ - kalman| = {abs(log_z - kf_g)} >= 0.1")
     check(fires > 0 and launches == expected(PER_FIRING["systematic"], fires),
           f"generic SMC: launches {launches} for {fires} firings")
+    check_draws(drive, "generic SMC", model_draws("generic", TG))
     print(f"generic program N={NG} T={TG} ({SG} sites): SMC logZ {log_z:.6f} kalman {kf_g:.6f} "
           f"|err| {abs(log_z - kf_g):.6f}, firings {fires}, launches {launches} {tag}", flush=True)
     del smc
@@ -2535,6 +2876,8 @@ def generic_phase(apt, ops, drive, expected, profile_one, tag, traced, kernel, s
           and bool(torch.isfinite(chain.log_evidence).all()), "generic PG: not finite")
     check(launches["extents_from_logw"] > 0 and launches["decode_move"] > 0,
           f"generic PG: launches {launches}")
+    check_draws(drive, "generic PG", pgas_draws(3, TG, conditional=0, replay=False,
+                                                model="generic"))
     print(f"generic PG N={NG} dense, 3 iterations: logZ {chain.log_evidence.tolist()}, "
           f"launches {launches}", flush=True)
     del chain
@@ -2624,6 +2967,8 @@ def generic_phase(apt, ops, drive, expected, profile_one, tag, traced, kernel, s
           "PGAS resumed from a checkpoint differs from the uninterrupted chain")
     check(launches == expected(PER_FIRING["systematic"], 8 * (T - 1)),
           f"PGAS with a checkpoint: launches {launches}")
+    # Four iterations whole, two, and two resumed on a reference: six conditional.
+    check_draws(drive, "PGAS with a checkpoint", pgas_draws(8, conditional=6))
     print(f"PGAS N={N} T={T} replay: 2 iterations, checkpoint, 2 resumed: bitwise the 4 "
           f"uninterrupted (trajectories and logZ {whole.log_evidence.tolist()}); "
           f"{time.perf_counter() - t0:.3f}s for 8 iterations, launches {launches} {tag}",
@@ -2726,6 +3071,8 @@ def chains_phase(apt, ops, drive, expected, profile_one, tag, traced, kernel, sy
     check(bool((errs < 0.1).all()), f"ensemble: |logZ - kalman| {errs.tolist()}, not all < 0.1")
     check(launches == expected(per_firing_chains("systematic"), fired),
           f"ensemble: launches {launches}")
+    # The chains' draws: one launch a step for all C, as one chain's.
+    check_draws(drive, "ensemble", draws(normal=T))
     per_sweep[f"systematic, {C} chains"] = {k: v for k, v in launches.items() if v}
     keys = apt.rng.chain_keys(key, C)
     # Launches and busy share of one sweep: one chain, 8 chains at 1M (the
@@ -2807,6 +3154,7 @@ def chains_phase(apt, ops, drive, expected, profile_one, tag, traced, kernel, sy
         check(same, f"ensemble under move version {ver} differs from version {DEFAULT_MOVE}")
         check(launches == expected(per_firing_chains("systematic", version=ver), fired_v),
               f"ensemble under move version {ver}: launches {launches}")
+        check_draws(drive, f"ensemble under move version {ver}", draws(normal=T))
         per_sweep[f"systematic, {C} chains, move version {ver}"] = {
             k: v for k, v in launches.items() if v}
 
@@ -2836,6 +3184,7 @@ def chains_phase(apt, ops, drive, expected, profile_one, tag, traced, kernel, sy
         check(dlz < 0.05, f"ensemble {label}: run 0 |dlogZ| {dlz} against the one-chain run")
         check(launches == expected(per_firing_chains(label), fired),
               f"ensemble {label}: launches {launches}")
+        check_draws(drive, f"ensemble {label}", draws(normal=T, uniform=fired))
         per_sweep[f"{label}, {SCHEME_RUNS} chains"] = {k: v for k, v in launches.items() if v}
         per_step[label] = sum(launches.values()) / fired
         by_count[label] = e_
@@ -2858,6 +3207,7 @@ def chains_phase(apt, ops, drive, expected, profile_one, tag, traced, kernel, sy
           and bool(torch.isfinite(chains.trajectory).all()), "PGAS chains: shape or not finite")
     check(launches == expected(per_firing_chains("systematic"),
                                MANY_ITERS * (T - 1)), f"PGAS chains: launches {launches}")
+    check_draws(drive, "PGAS chains", pgas_draws(MANY_ITERS))
     per_iteration[f"systematic, {MANY_CHAINS} chains"] = {
         k: v // MANY_ITERS for k, v in launches.items() if v}
     # Each chain's mean over its iterations, against the smoother by
@@ -2931,6 +3281,7 @@ def chains_phase(apt, ops, drive, expected, profile_one, tag, traced, kernel, sy
           "multinomial PGAS chains: |logZ - kalman| >= 1")
     check(launches == expected(per_firing_chains("multinomial"), MULTI_ITERS * (T - 1)),
           f"multinomial PGAS chains: launches {launches}")
+    check_draws(drive, "multinomial PGAS chains", pgas_draws(MULTI_ITERS, firing_uniforms=1))
     per_iteration[f"multinomial, {MANY_CHAINS} chains"] = {
         k: v // MULTI_ITERS for k, v in launches.items() if v}
     per_step[f"multinomial PGAS, {MANY_CHAINS} chains"] = sum(launches.values()) / (
@@ -2996,6 +3347,7 @@ def chains_phase(apt, ops, drive, expected, profile_one, tag, traced, kernel, sy
           "PGAS chains at 1M: |logZ - kalman| >= 1")
     check(launches == expected(per_firing_chains("systematic"),
                                WIDE_ITERS * (T - 1)), f"PGAS chains at 1M: launches {launches}")
+    check_draws(drive, "PGAS chains at 1M", pgas_draws(WIDE_ITERS))
     per_iteration[f"systematic, {WIDE_CHAINS} chains x 1M"] = {
         k: v // WIDE_ITERS for k, v in launches.items() if v}
     del wide
@@ -3022,6 +3374,7 @@ def chains_phase(apt, ops, drive, expected, profile_one, tag, traced, kernel, sy
           f"run, over {dlogz_bound(GP_N):.3f}")
     check(fired > 0 and launches == expected(per_firing_chains("systematic", 2), fired),
           f"GP-SSM ensemble: launches {launches}")
+    check_draws(drive, "GP-SSM ensemble", model_draws("GP-SSM"))
     per_sweep[f"GP-SSM, {GP_RUNS} chains"] = {k: v for k, v in launches.items() if v}
     print(f"phase 10 took {time.perf_counter() - t_phase:.1f}s", flush=True)
     return per_sweep, per_iteration
@@ -3054,6 +3407,7 @@ def residual_chains(apt, ops, drive, expected, profile_one, tag, traced, kernel,
     check(bool(((lz - kf_ll).abs() < 0.1).all()), "ensemble residual: |logZ - kalman| >= 0.1")
     check(fired > 0 and launches == expected(per_firing_chains("residual"), fired),
           f"ensemble residual: launches {launches}")
+    check_draws(drive, "ensemble residual", draws(normal=T, uniform=fired))
     per_sweep[f"residual, {SCHEME_RUNS} chains"] = {k: v for k, v in launches.items() if v}
     batched = apt.sweep(apt.rng.chain_keys(key, SCHEME_RUNS), kernel, N, rs, store_states=False)
     check(torch.equal(batched.log_evidence, ens.log_evidence),
@@ -3082,6 +3436,7 @@ def residual_chains(apt, ops, drive, expected, profile_one, tag, traced, kernel,
           "residual PGAS chains: |logZ - kalman| >= 1")
     check(launches == expected(per_firing_chains("residual"), MULTI_ITERS * (T - 1)),
           f"residual PGAS chains: launches {launches}")
+    check_draws(drive, "residual PGAS chains", pgas_draws(MULTI_ITERS, firing_uniforms=1))
     per_iteration[f"residual, {MANY_CHAINS} chains"] = {
         k: v // MULTI_ITERS for k, v in launches.items() if v}
     per_step[f"PGAS, {MANY_CHAINS} chains"] = sum(launches.values()) / (MULTI_ITERS * (T - 1))
