@@ -43,6 +43,10 @@ synchronisation per step, except with ``threshold ≥ 1`` (every step
 resamples, the PGAS default), where the gate is not read.  (The JAX package
 keeps it on the device with ``lax.cond``.)
 
+While a :mod:`torch.profiler` session records, a sweep marks its set-up, each
+step's weights, gate, resampling (or identity ancestors) and propagate +
+score, and its close with ``aps.*`` spans (:mod:`~advancedps_tpu_torch.tracing`).
+
 Independent chains run as one batch when the key is a
 :class:`~advancedps_tpu_torch.rng.KeyBatch` of C keys: every tensor gains a
 leading chain axis, the kernel's calls run under :func:`torch.func.vmap` over
@@ -69,7 +73,7 @@ from typing import Any, Optional
 import torch
 from torch.func import vmap
 
-from . import _tree, rng as rngmod
+from . import _tree, rng as rngmod, tracing
 from ._device import resolve_device
 from ._tree import tree_at, tree_map, tree_rows, tree_stack
 from .ops import resample as ops
@@ -227,126 +231,137 @@ def sweep(
     if isinstance(key, rngmod.KeyBatch):
         return _sweep_chains(key, kernel, n_particles, resampler, ref, ancestor_sampling,
                              store_states, device)
-    n = n_particles
-    T = kernel.num_steps
-    has_ref = ref is not None
-    if ancestor_sampling and not has_ref:
-        raise ValueError("ancestor_sampling requires a reference trajectory")
-    device = resolve_device(device)
-    gids = torch.arange(n, device=device)
-    ref_mask = None
-    if has_ref:
-        ref = _tree.as_reference(ref, device)
-        ref_mask = gids == (n - 1)
-    # With a reference, n − 1 positions are drawn and slot n − 1 keeps the
-    # reference.
-    n_resample = n - 1 if has_ref else n
-    scheme = _FUSED_SCHEMES.get(resampler.resampler)
+    span = tracing.spans()
+    with span("aps.setup"):
+        n = n_particles
+        T = kernel.num_steps
+        has_ref = ref is not None
+        if ancestor_sampling and not has_ref:
+            raise ValueError("ancestor_sampling requires a reference trajectory")
+        device = resolve_device(device)
+        gids = torch.arange(n, device=device)
+        ref_mask = None
+        if has_ref:
+            ref = _tree.as_reference(ref, device)
+            ref_mask = gids == (n - 1)
+        # With a reference, n − 1 positions are drawn and slot n − 1 keeps the
+        # reference.
+        n_resample = n - 1 if has_ref else n
+        scheme = _FUSED_SCHEMES.get(resampler.resampler)
 
-    rng0 = rngmod.StepRng(rngmod.step_key(key, rngmod.INIT, 0), gids)
-    state, logw = kernel.init(rng0, tree_at(ref, 0), ref_mask)
+        rng0 = rngmod.StepRng(rngmod.step_key(key, rngmod.INIT, 0), gids)
+        state, logw = kernel.init(rng0, tree_at(ref, 0), ref_mask)
 
-    snap0 = kernel.snapshot(state)
-    do_store = store_states and snap0 is not None
-    states = None
+        snap0 = kernel.snapshot(state)
+        do_store = store_states and snap0 is not None
+        states = None
 
-    def store(t, snap):
-        def put(buf, s):
-            buf[t] = s
-        tree_map(put, states, snap)
+        def store(t, snap):
+            def put(buf, s):
+                buf[t] = s
+            tree_map(put, states, snap)
 
-    if do_store:
-        states = tree_map(lambda s: torch.empty((T,) + tuple(s.shape), dtype=s.dtype,
-                                                device=device), snap0)
-        store(0, snap0)
+        if do_store:
+            states = tree_map(lambda s: torch.empty((T,) + tuple(s.shape), dtype=s.dtype,
+                                                    device=device), snap0)
+            store(0, snap0)
 
-    iota = torch.arange(n, dtype=torch.int32, device=device)
-    ancestors = torch.empty((T, n), dtype=torch.int32, device=device)
-    ancestors[0] = iota
-    ess_all = torch.empty(T, dtype=torch.float32, device=device)
-    ess_all[0] = float(n)
-    resampled = [False] * T
+        iota = torch.arange(n, dtype=torch.int32, device=device)
+        ancestors = torch.empty((T, n), dtype=torch.int32, device=device)
+        ancestors[0] = iota
+        ess_all = torch.empty(T, dtype=torch.float32, device=device)
+        ess_all[0] = float(n)
+        resampled = [False] * T
 
-    ln_n = torch.log(torch.tensor(float(n), dtype=torch.float32, device=device))
-    always_resample = float(resampler.threshold) >= 1.0
-    # Log-evidence (Del Moral): each step adds logsumexp(logw_after) −
-    # logsumexp(logw_before).  ``logw_before`` is the previous step's weights
-    # (no resample) or zeros (resample ⇒ log n), so ``pending`` carries the
-    # base to subtract once the next reduction is available, and one
-    # (max, Σe, Σe²) family per step feeds the evidence, the ESS gate and the
-    # extents.
-    log_z = ln_n * 0.0
-    pending = ln_n
+        ln_n = torch.log(torch.tensor(float(n), dtype=torch.float32, device=device))
+        always_resample = float(resampler.threshold) >= 1.0
+        # Log-evidence (Del Moral): each step adds logsumexp(logw_after) −
+        # logsumexp(logw_before).  ``logw_before`` is the previous step's weights
+        # (no resample) or zeros (resample ⇒ log n), so ``pending`` carries the
+        # base to subtract once the next reduction is available, and one
+        # (max, Σe, Σe²) family per step feeds the evidence, the ESS gate and the
+        # extents.
+        log_z = ln_n * 0.0
+        pending = ln_n
 
     for t in range(1, T):
-        m = torch.max(logw)
-        e = torch.exp(logw - m)
-        s1 = torch.sum(e)
-        s2 = torch.sum(e * e)
-        lse = m + torch.log(s1)
-        log_z = log_z + (lse - pending)
+        with span("aps.weights"):
+            m = torch.max(logw)
+            e = torch.exp(logw - m)
+            s1 = torch.sum(e)
+            s2 = torch.sum(e * e)
+            lse = m + torch.log(s1)
+            log_z = log_z + (lse - pending)
 
-        ess = (s1 * s1) / s2
-        ess_all[t] = ess
-        do_rs = always_resample or bool(ess <= resampler.threshold * n)
+            ess = (s1 * s1) / s2
+            ess_all[t] = ess
+        if always_resample:
+            do_rs = True
+        else:
+            with span("aps.gate"):
+                do_rs = bool(ess <= resampler.threshold * n)
 
         if do_rs:
-            rs_key = rngmod.step_key(key, rngmod.RESAMPLE, t)
-            if has_ref:
-                # The reference slot's ancestor, from the state and weights
-                # before the move: n − 1 (PG), or drawn ∝ w_i·f_t(ref_t | x_i)
-                # (PGAS).  A device tensor: no host sync.
-                if ancestor_sampling:
-                    anc_logw = logw + kernel.transition_logprob(t, state, tree_at(ref, t))
-                    anc_key = rngmod.step_key(key, rngmod.ANCESTOR, t)
-                    ref_anc = randcat_gumbel(anc_key, anc_logw, gids).reshape(1)
-                else:
-                    ref_anc = iota[n - 1:]
-                ref_row = tree_rows(state, ref_anc)
-            if scheme is not None:
-                f = _fused_extents(scheme, rs_key, logw, m, s1, n_resample)
-                # With a reference, slot n − 1 decodes past the drawn
-                # population (ancestor M clipped to M − 1; row 0, or row
-                # M − 1 under move version 0) and is overwritten with the
-                # reference row in place.
-                anc, state_rs = ops.resample_move_f(f, state, n, guard_n=n_resample)
+            with span("aps.resample"):
+                rs_key = rngmod.step_key(key, rngmod.RESAMPLE, t)
                 if has_ref:
-                    anc[n - 1:] = ref_anc
+                    # The reference slot's ancestor, from the state and weights
+                    # before the move: n − 1 (PG), or drawn ∝ w_i·f_t(ref_t | x_i)
+                    # (PGAS).  A device tensor: no host sync.
+                    if ancestor_sampling:
+                        anc_logw = logw + kernel.transition_logprob(t, state,
+                                                                    tree_at(ref, t))
+                        anc_key = rngmod.step_key(key, rngmod.ANCESTOR, t)
+                        ref_anc = randcat_gumbel(anc_key, anc_logw, gids).reshape(1)
+                    else:
+                        ref_anc = iota[n - 1:]
+                    ref_row = tree_rows(state, ref_anc)
+                if scheme is not None:
+                    f = _fused_extents(scheme, rs_key, logw, m, s1, n_resample)
+                    # With a reference, slot n − 1 decodes past the drawn
+                    # population (ancestor M clipped to M − 1; row 0, or row
+                    # M − 1 under move version 0) and is overwritten with the
+                    # reference row in place.
+                    anc, state_rs = ops.resample_move_f(f, state, n, guard_n=n_resample)
+                    if has_ref:
+                        anc[n - 1:] = ref_anc
 
-                    def put_ref(mv, r):
-                        mv[n - 1:] = r
-                    tree_map(put_ref, state_rs, ref_row)
-            else:
-                anc = resampler.resampler(rs_key, e / s1, n_resample).to(torch.int32)
-                if has_ref:
-                    anc = torch.cat([anc, ref_anc])
-                _, state_rs = ops.move_by_ancestors(anc, state)
-            state = state_rs
-            ancestors[t] = anc
-            pending = ln_n
+                        def put_ref(mv, r):
+                            mv[n - 1:] = r
+                        tree_map(put_ref, state_rs, ref_row)
+                else:
+                    anc = resampler.resampler(rs_key, e / s1, n_resample).to(torch.int32)
+                    if has_ref:
+                        anc = torch.cat([anc, ref_anc])
+                    _, state_rs = ops.move_by_ancestors(anc, state)
+                state = state_rs
+                ancestors[t] = anc
+                pending = ln_n
         else:
-            ancestors[t] = iota
-            pending = lse
+            with span("aps.keep"):
+                ancestors[t] = iota
+                pending = lse
         resampled[t] = do_rs
 
-        rng_t = propagate_rng(key, t, gids)
-        state, score = kernel.step(t, rng_t, state, tree_at(ref, t), ref_mask)
-        # After a resample the weights restart at 0, so the new weights are the score.
-        logw = score if do_rs else logw + score
-        if do_store:
-            store(t, kernel.snapshot(state))
+        with span("aps.propagate_score"):
+            rng_t = propagate_rng(key, t, gids)
+            state, score = kernel.step(t, rng_t, state, tree_at(ref, t), ref_mask)
+            # After a resample the weights restart at 0, so the new weights are the score.
+            logw = score if do_rs else logw + score
+            if do_store:
+                store(t, kernel.snapshot(state))
 
-    log_z = log_z + (torch.logsumexp(logw, 0) - pending)
-
-    return SweepResult(
-        log_evidence=log_z,
-        log_weights=logw,
-        states=states,
-        ancestors=ancestors,
-        final_state=state,
-        ess=ess_all,
-        resampled=torch.tensor(resampled, device=device),
-    )
+    with span("aps.close"):
+        log_z = log_z + (torch.logsumexp(logw, 0) - pending)
+        return SweepResult(
+            log_evidence=log_z,
+            log_weights=logw,
+            states=states,
+            ancestors=ancestors,
+            final_state=state,
+            ess=ess_all,
+            resampled=torch.tensor(resampled, device=device),
+        )
 
 
 class ChainBatchError(RuntimeError):
@@ -435,155 +450,166 @@ def _snapshot_fn(kernel, state):
 
 def _sweep_chains(keys, kernel, n, resampler, ref, ancestor_sampling, store_states, device):
     """:func:`sweep` over the chain batch ``keys``."""
-    C = len(keys)
-    T = kernel.num_steps
-    has_ref = ref is not None
-    if ancestor_sampling and not has_ref:
-        raise ValueError("ancestor_sampling requires a reference trajectory")
-    device = resolve_device(device)
-    gids = torch.arange(n, device=device)
-    ref_mask = None
-    ref_dim = None
-    if has_ref:
-        ref = _tree.as_reference(ref, device)
-        ref_mask = gids == (n - 1)
-        ref_dim = 0
-    n_resample = n - 1 if has_ref else n
-    scheme = _FUSED_SCHEMES.get(resampler.resampler)
-    table, host_words = _key_table(keys, T, device)
-    offsets = table[2, _TABLE_TAGS.index(rngmod.RESAMPLE)].to(torch.int32).view(
-        torch.float32) - 1.0  # [T, C]
+    span = tracing.spans()
+    with span("aps.setup"):
+        C = len(keys)
+        T = kernel.num_steps
+        has_ref = ref is not None
+        if ancestor_sampling and not has_ref:
+            raise ValueError("ancestor_sampling requires a reference trajectory")
+        device = resolve_device(device)
+        gids = torch.arange(n, device=device)
+        ref_mask = None
+        ref_dim = None
+        if has_ref:
+            ref = _tree.as_reference(ref, device)
+            ref_mask = gids == (n - 1)
+            ref_dim = 0
+        n_resample = n - 1 if has_ref else n
+        scheme = _FUSED_SCHEMES.get(resampler.resampler)
+        table, host_words = _key_table(keys, T, device)
+        offsets = table[2, _TABLE_TAGS.index(rngmod.RESAMPLE)].to(torch.int32).view(
+            torch.float32) - 1.0  # [T, C]
 
-    def ref_at(t):
-        return None if ref is None else tree_map(lambda a: a[:, t], ref)
+        def ref_at(t):
+            return None if ref is None else tree_map(lambda a: a[:, t], ref)
 
-    def init(a, b, r0):
-        return kernel.init(rngmod.StepRng(rngmod.KeyBatch(a, b), gids), r0, ref_mask)
+        def init(a, b, r0):
+            return kernel.init(rngmod.StepRng(rngmod.KeyBatch(a, b), gids), r0, ref_mask)
 
-    k = _table_keys(table, rngmod.INIT, 0)
-    state, logw = _chain_map("kernel.init", init, (0, 0, ref_dim))(k.k0, k.k1, ref_at(0))
+        k = _table_keys(table, rngmod.INIT, 0)
+        state, logw = _chain_map("kernel.init", init, (0, 0, ref_dim))(k.k0, k.k1,
+                                                                        ref_at(0))
 
-    snap_fn = _snapshot_fn(kernel, state)
-    do_store = store_states and snap_fn is not None
-    states = None
-    if do_store:
-        snap0 = snap_fn(state)
-        states = tree_map(lambda s: torch.empty((C, T) + tuple(s.shape[1:]), dtype=s.dtype,
-                                                device=device), snap0)
+        snap_fn = _snapshot_fn(kernel, state)
+        do_store = store_states and snap_fn is not None
+        states = None
+        if do_store:
+            snap0 = snap_fn(state)
+            states = tree_map(lambda s: torch.empty((C, T) + tuple(s.shape[1:]),
+                                                    dtype=s.dtype, device=device), snap0)
 
-        def store(t, snap):
-            def put(buf, v):
-                buf[:, t] = v
-            tree_map(put, states, snap)
-        store(0, snap0)
+            def store(t, snap):
+                def put(buf, v):
+                    buf[:, t] = v
+                tree_map(put, states, snap)
+            store(0, snap0)
 
-    iota = torch.arange(n, dtype=torch.int32, device=device)
-    ancestors = torch.empty((C, T, n), dtype=torch.int32, device=device)
-    ancestors[:, 0] = iota
-    ess_all = torch.empty((C, T), dtype=torch.float32, device=device)
-    ess_all[:, 0] = float(n)
-    resampled = torch.zeros((C, T), dtype=torch.bool)
+        iota = torch.arange(n, dtype=torch.int32, device=device)
+        ancestors = torch.empty((C, T, n), dtype=torch.int32, device=device)
+        ancestors[:, 0] = iota
+        ess_all = torch.empty((C, T), dtype=torch.float32, device=device)
+        ess_all[:, 0] = float(n)
+        resampled = torch.zeros((C, T), dtype=torch.bool)
 
-    ln_n = torch.log(torch.tensor(float(n), dtype=torch.float32, device=device))
-    always_resample = float(resampler.threshold) >= 1.0
-    log_z = ln_n * 0.0
-    pending = ln_n
-    tlp = _chain_map("kernel.transition_logprob",
-                     lambda st, r, t: kernel.transition_logprob(t, st, r), (0, 0, None))
+        ln_n = torch.log(torch.tensor(float(n), dtype=torch.float32, device=device))
+        always_resample = float(resampler.threshold) >= 1.0
+        log_z = ln_n * 0.0
+        pending = ln_n
+        tlp = _chain_map("kernel.transition_logprob",
+                         lambda st, r, t: kernel.transition_logprob(t, st, r), (0, 0, None))
 
     for t in range(1, T):
-        m = torch.amax(logw, -1)
-        e = torch.exp(logw - m[:, None])
-        s1 = torch.sum(e, -1)
-        s2 = torch.sum(e * e, -1)
-        lse = m + torch.log(s1)
-        log_z = log_z + (lse - pending)
+        with span("aps.weights"):
+            m = torch.amax(logw, -1)
+            e = torch.exp(logw - m[:, None])
+            s1 = torch.sum(e, -1)
+            s2 = torch.sum(e * e, -1)
+            lse = m + torch.log(s1)
+            log_z = log_z + (lse - pending)
 
-        ess = (s1 * s1) / s2
-        ess_all[:, t] = ess
+            ess = (s1 * s1) / s2
+            ess_all[:, t] = ess
         if always_resample:
             flags, host_flags = None, torch.ones(C, dtype=torch.bool)
         else:
-            flags = ess <= resampler.threshold * n
-            host_flags = flags.cpu()  # the step's one read of the gate
-            if bool(host_flags.all()):
-                flags = None  # every chain fires: nothing to keep
+            with span("aps.gate"):
+                flags = ess <= resampler.threshold * n
+                host_flags = flags.cpu()  # the step's one read of the gate
+                if bool(host_flags.all()):
+                    flags = None  # every chain fires: nothing to keep
         fire = bool(host_flags.any())
 
         if fire:
-            if has_ref:
-                if ancestor_sampling:
-                    anc_logw = logw + tlp(state, ref_at(t), t)
-                    ak = _table_keys(table, rngmod.ANCESTOR, t).column()
-                    ref_anc = randcat_gumbel(ak, anc_logw, gids)
-                else:
-                    ref_anc = torch.full((C,), n - 1, dtype=torch.int32, device=device)
-                ref_row = _chain_rows(state, ref_anc)
-            if scheme is not None:
-                f = _fused_extents_chains(scheme, _table_keys(table, rngmod.RESAMPLE, t),
-                                          offsets[t], logw, m, s1, n_resample)
-                anc, state_rs = ops.resample_move_f_chains(f, state, n, guard_n=n_resample)
+            with span("aps.resample"):
                 if has_ref:
-                    anc[:, n - 1] = ref_anc
+                    if ancestor_sampling:
+                        anc_logw = logw + tlp(state, ref_at(t), t)
+                        ak = _table_keys(table, rngmod.ANCESTOR, t).column()
+                        ref_anc = randcat_gumbel(ak, anc_logw, gids)
+                    else:
+                        ref_anc = torch.full((C,), n - 1, dtype=torch.int32, device=device)
+                    ref_row = _chain_rows(state, ref_anc)
+                if scheme is not None:
+                    f = _fused_extents_chains(scheme,
+                                              _table_keys(table, rngmod.RESAMPLE, t),
+                                              offsets[t], logw, m, s1, n_resample)
+                    anc, state_rs = ops.resample_move_f_chains(f, state, n,
+                                                               guard_n=n_resample)
+                    if has_ref:
+                        anc[:, n - 1] = ref_anc
 
-                    def put_ref(mv, r):
-                        mv[:, n - 1] = r
-                    tree_map(put_ref, state_rs, ref_row)
-            else:
-                if resampler.resampler is resample_residual:
-                    # One draw for all chains, from their keys on the device.
-                    rk = _table_keys(table, rngmod.RESAMPLE, t).column()
-                    anc = resampler.resampler(rk, e / s1[:, None], n_resample)
+                        def put_ref(mv, r):
+                            mv[:, n - 1] = r
+                        tree_map(put_ref, state_rs, ref_row)
                 else:
-                    # A user's resampler takes a Key: once a chain, with its host key.
-                    s = _TABLE_TAGS.index(rngmod.RESAMPLE)
-                    anc = torch.stack([resampler.resampler(
-                        rngmod.Key(int(host_words[0][s, t, c]), int(host_words[1][s, t, c])),
-                        e[c] / s1[c], n_resample) for c in range(C)])
-                anc = anc.to(torch.int32)
-                if has_ref:
-                    anc = torch.cat([anc, ref_anc[:, None]], 1)
-                _, state_rs = ops.move_by_ancestors(anc, state)
-            if flags is None:
-                state = state_rs
-                ancestors[:, t] = anc
-                pending = ln_n
-            else:
-                state = _chain_where(flags, state_rs, state)
-                ancestors[:, t] = torch.where(flags[:, None], anc, iota)
-                pending = torch.where(flags, ln_n, lse)
+                    if resampler.resampler is resample_residual:
+                        # One draw for all chains, from their keys on the device.
+                        rk = _table_keys(table, rngmod.RESAMPLE, t).column()
+                        anc = resampler.resampler(rk, e / s1[:, None], n_resample)
+                    else:
+                        # A user's resampler takes a Key: once a chain, with its host key.
+                        s = _TABLE_TAGS.index(rngmod.RESAMPLE)
+                        anc = torch.stack([resampler.resampler(
+                            rngmod.Key(int(host_words[0][s, t, c]),
+                                       int(host_words[1][s, t, c])),
+                            e[c] / s1[c], n_resample) for c in range(C)])
+                    anc = anc.to(torch.int32)
+                    if has_ref:
+                        anc = torch.cat([anc, ref_anc[:, None]], 1)
+                    _, state_rs = ops.move_by_ancestors(anc, state)
+                if flags is None:
+                    state = state_rs
+                    ancestors[:, t] = anc
+                    pending = ln_n
+                else:
+                    state = _chain_where(flags, state_rs, state)
+                    ancestors[:, t] = torch.where(flags[:, None], anc, iota)
+                    pending = torch.where(flags, ln_n, lse)
         else:
-            ancestors[:, t] = iota
-            pending = lse
+            with span("aps.keep"):
+                ancestors[:, t] = iota
+                pending = lse
         resampled[:, t] = host_flags
 
         def step(a, b, st, r, t=t):
             return kernel.step(t, rngmod.StepRng(rngmod.KeyBatch(a, b), gids), st, r, ref_mask)
 
-        k = _table_keys(table, rngmod.PROPAGATE, t)
-        state, score = _chain_map("kernel.step", step, (0, 0, 0, ref_dim))(
-            k.k0, k.k1, state, ref_at(t))
-        # After a resample the weights restart at 0, so the new weights are the score.
-        if not fire:
-            logw = logw + score
-        elif flags is None:
-            logw = score
-        else:
-            logw = torch.where(flags[:, None], score, logw + score)
-        if do_store:
-            store(t, snap_fn(state))
+        with span("aps.propagate_score"):
+            k = _table_keys(table, rngmod.PROPAGATE, t)
+            state, score = _chain_map("kernel.step", step, (0, 0, 0, ref_dim))(
+                k.k0, k.k1, state, ref_at(t))
+            # After a resample the weights restart at 0, so the new weights are the score.
+            if not fire:
+                logw = logw + score
+            elif flags is None:
+                logw = score
+            else:
+                logw = torch.where(flags[:, None], score, logw + score)
+            if do_store:
+                store(t, snap_fn(state))
 
-    log_z = log_z + (torch.logsumexp(logw, -1) - pending)
-
-    return SweepResult(
-        log_evidence=log_z,
-        log_weights=logw,
-        states=states,
-        ancestors=ancestors,
-        final_state=state,
-        ess=ess_all,
-        resampled=resampled.to(device),
-    )
+    with span("aps.close"):
+        log_z = log_z + (torch.logsumexp(logw, -1) - pending)
+        return SweepResult(
+            log_evidence=log_z,
+            log_weights=logw,
+            states=states,
+            ancestors=ancestors,
+            final_state=state,
+            ess=ess_all,
+            resampled=resampled.to(device),
+        )
 
 
 def lineages(ancestors: torch.Tensor) -> torch.Tensor:

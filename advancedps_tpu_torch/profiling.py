@@ -32,7 +32,12 @@ components first).  Its readings:
   the ``pos_normal`` loop, the weight-reduction loop and the dynamic-gather
   loop.  The gated sweep's ten device operations of most time and the five
   longest idle gaps of the device, each named by the host operator that
-  overlaps most of it and the one the host had entered last when it began.  ``faithfulness``: (propagate + score + reductions) /
+  overlaps most of it and the one the host had entered last when it began.
+  ``spans``: the gated sweep's device ms and count by ``aps.*`` span
+  (:mod:`~advancedps_tpu_torch.tracing`), each device record in the span that
+  holds its launch (the runtime call of its correlation id; on the CPU the
+  operators a span calls directly stand in), and ``span_share``, their sum
+  over the sweep's device ms.  ``faithfulness``: (propagate + score + reductions) /
   the never-resampling sweep, on device time.  ``--trace DIR`` writes the
   profiled gated sweep's Chrome trace there.
 * ``pgas`` (``profile_pgas.py``): one PGAS iteration with replay storage and
@@ -63,6 +68,7 @@ component.
 from __future__ import annotations
 
 import argparse
+import bisect
 import math
 import os
 import statistics
@@ -75,7 +81,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, record_function
 
-from . import _tree, bench, models, rng
+from . import _tree, bench, models, rng, tracing
 from ._device import resolve_device
 from .engine import SweepKernel, propagate_rng, replay_trajectory, sweep as run_sweep
 from .inference import step_pg
@@ -116,18 +122,60 @@ def faithfulness(readings: Dict[str, dict], parts: Sequence[str], whole: str) ->
     return sum(readings[p]["device_ms"] for p in parts) / total if total > 0 else math.nan
 
 
+def _is_span(e) -> bool:
+    return e.name.startswith(tracing.PREFIX)
+
+
+def _caller(e):
+    """The operator that called ``e``, through the sweep's spans."""
+    p = e.cpu_parent
+    while p is not None and _is_span(p):
+        p = p.cpu_parent
+    return p
+
+
 def _records(prof, label: str, device: torch.device):
     """The activity of the call profiled under ``record_function(label)``
     (its device-side kernels, copies and memsets; on the CPU the operators it
-    calls directly) and the host operators, as profiler events."""
+    calls directly, the sweep's spans passed through) and the host's events
+    (operators, spans and runtime calls)."""
     events = prof.events()
     host = [e for e in events if e.device_type == DeviceType.CPU]
     if device.type == "cuda":
-        # Kineto also records the annotation's span on the device: not work.
+        # Kineto also records each annotation's span on the device: not work.
         return [e for e in events if e.device_type == DeviceType.CUDA and e.name != label
-                and not getattr(e, "is_user_annotation", False)], host
-    return [e for e in host if e.cpu_parent is not None and e.cpu_parent.cpu_parent is None
-            and e.cpu_parent.name == label], host
+                and not _is_span(e) and not getattr(e, "is_user_annotation", False)], host
+    direct = []
+    for e in host:
+        caller = None if _is_span(e) else _caller(e)
+        if caller is not None and caller.cpu_parent is None and caller.name == label:
+            direct.append(e)
+    return direct, host
+
+
+def _span_readings(activity, host, device: torch.device) -> dict:
+    """Device ms and count of each ``aps.*`` span in a profiled call.  A
+    device record belongs to the span that holds its launch: the runtime call
+    with the record's correlation id.  On the CPU the operators that a span
+    calls directly stand in for its records."""
+    spans = sorted((e for e in host if _is_span(e)), key=lambda e: e.time_range.start)
+    out = {}
+    for e in spans:
+        out.setdefault(e.name, {"count": 0, "device_ms": 0.0})["count"] += 1
+    if device.type != "cuda":
+        for e in host:
+            if not _is_span(e) and e.cpu_parent is not None and _is_span(e.cpu_parent):
+                ms = (e.time_range.end - e.time_range.start) / 1e3
+                out[e.cpu_parent.name]["device_ms"] += ms
+        return out
+    starts = [e.time_range.start for e in spans]
+    launched = {e.id: e.time_range.start for e in host if e.name.startswith(("cuda", "cu"))}
+    for d in activity:
+        at = launched.get(d.id)
+        i = -1 if at is None else bisect.bisect_right(starts, at) - 1
+        if i >= 0 and at <= spans[i].time_range.end:
+            out[spans[i].name]["device_ms"] += (d.time_range.end - d.time_range.start) / 1e3
+    return out
 
 
 def _span(e):
@@ -163,7 +211,7 @@ def _idle_gaps(activity, host, label: str, k: int = TOP_GAPS):
         if end is not None and a > end:
             gaps.append((a - end, end, a))
         end = b if end is None else max(end, b)
-    ops_ = [e for e in host if e.name != label]
+    ops_ = [e for e in host if e.name != label and not _is_span(e)]
     out = []
     for length, a, b in sorted(gaps, reverse=True)[:k]:
         def overlap(e):
@@ -175,8 +223,8 @@ def _idle_gaps(activity, host, label: str, k: int = TOP_GAPS):
         covered = overlap(best) if best is not None else 0.0
         last = max((e for e in ops_ if e.time_range.start <= a), key=lambda e: e.time_range.start,
                    default=None)
-        while last is not None and last.cpu_parent is not None and last.cpu_parent.name != label:
-            last = last.cpu_parent
+        while last is not None and (up := _caller(last)) is not None and up.name != label:
+            last = up
         out.append({"ms": length / 1e3, "at_ms": a / 1e3,
                     "host_op": best.name if covered > 0 else None,
                     "host_op_ms": max(covered, 0.0) / 1e3,
@@ -211,6 +259,10 @@ def _profiled(label: str, fn, key, device: torch.device, breakdown: bool,
     if breakdown:
         out["top_ops"] = _top_ops(activity)
         out["idle_gaps"] = _idle_gaps(activity, host, label)
+        out["spans"] = _span_readings(activity, host, device)
+        in_spans = sum(r["device_ms"] for r in out["spans"].values())
+        out["span_share"] = (in_spans / out["device_ms"] if out["device_ms"] > 0
+                             else math.nan)
     return out
 
 
@@ -255,6 +307,10 @@ def _run(components, device: torch.device, reps: int, headline: str, trace=None)
         for gap in r.get("idle_gaps", ()):
             log(f"    idle {gap['ms']:8.3f} ms at {gap['at_ms']:.3f} ms: under {gap['host_op']} "
                 f"({gap['host_op_ms']:.3f} ms of it), after {gap['after']}")
+        for name, s in r.get("spans", {}).items():
+            log(f"    span {name:22s} {s['device_ms']:10.3f} ms in {s['count']:4d}")
+        if "span_share" in r:
+            log(f"    the spans hold {r['span_share']:.4f} of the device ms")
         readings[label] = r
     return ({label: readings[label] for label in components}, times[headline],
             bench._launch_counts() - before, _rng_launch_counts() - rng_before)
@@ -264,11 +320,15 @@ def _rng_launch_counts() -> Counter:
     return Counter({w.__name__: w.launches for w in threefry.KERNEL_WRAPPERS})
 
 
+#: The headline's readings that the record gives beside its components.
+_BREAKDOWN = ("top_ops", "idle_gaps", "spans", "span_share")
+
+
 def _emit(metric: str, unit: str, device: torch.device, readings, headline: str, times, launches,
           rng_launches, **extra) -> dict:
     head = readings[headline]
-    extra = {k: head[k] for k in ("top_ops", "idle_gaps") if k in head} | extra
-    components = {k: {f: v for f, v in r.items() if f not in ("top_ops", "idle_gaps")}
+    extra = {k: head[k] for k in _BREAKDOWN if k in head} | extra
+    components = {k: {f: v for f, v in r.items() if f not in _BREAKDOWN}
                   for k, r in readings.items()}
     return bench._emit(bench._record(
         metric, head["device_ms"], unit, None, device, times, launches,

@@ -7,6 +7,7 @@ arithmetic."""
 
 import json
 import math
+import types
 
 import numpy as np
 import pytest
@@ -70,6 +71,7 @@ def test_each_subcommand_prints_one_json_line_with_its_readings(name, capsys, tm
             assert g["ms"] > 0 and g["after"] and g["host_op_ms"] <= g["ms"] + 1e-9
             assert (g["host_op"] is None) == (g["host_op_ms"] == 0)
         assert math.isfinite(record["faithfulness"])
+        _check_spans(record, kw["steps"] - 1, gated=name == "sweep")
     if name == "sweep":
         trace = json.loads((tmp_path / "trace" / "gated_sweep_trace.json").read_text())
         assert trace["traceEvents"] and record["trace"].endswith("gated_sweep_trace.json")
@@ -79,6 +81,44 @@ def test_each_subcommand_prints_one_json_line_with_its_readings(name, capsys, tm
         assert 0 < record["firings"] < kw["steps"]
     if name == "moves":
         assert record["versions_agree"] and record["versions"] == [0, 1, 6]
+
+
+def _check_spans(record, steps, gated):
+    """The headline sweep's spans: each phase's count, and their device ms
+    (the operators each calls directly, on the CPU) a part of the sweep's."""
+    spans = record["spans"]
+    counts = {name: s["count"] for name, s in spans.items()}
+    firings = counts.get("aps.resample", 0)
+    assert counts == {"aps.setup": 1, "aps.weights": steps, "aps.propagate_score": steps,
+                      "aps.close": 1, "aps.resample": firings,
+                      **({"aps.gate": steps} if gated else {}),
+                      **({"aps.keep": steps - firings} if firings < steps else {})}
+    assert 0 < firings <= steps and (firings < steps) == gated
+    assert all(s["device_ms"] >= 0 for s in spans.values())
+    assert spans["aps.propagate_score"]["device_ms"] > 0
+    assert spans["aps.weights"]["device_ms"] > 0
+    assert sum(s["device_ms"] for s in spans.values()) == pytest.approx(
+        record["span_share"] * record["value"])
+    assert 0.5 < record["span_share"] <= 1 + 1e-9
+    assert "spans" not in record["components"][record["headline"]]
+
+
+def test_on_the_card_a_record_goes_to_the_span_that_launched_it():
+    """The card's branch of the span readings, on events built by hand: a
+    device record joins its launch by correlation id, whatever its own time."""
+    def ev(name, a, b, id_=0):
+        return types.SimpleNamespace(name=name, id=id_, cpu_parent=None,
+                                     time_range=types.SimpleNamespace(start=a, end=b))
+
+    host = [ev("aps.weights", 0, 10), ev("aps.gate", 10, 20), ev("aps.weights", 30, 40),
+            ev("aten::sum", 1, 5, 7), ev("cudaLaunchKernel", 2, 3, 101),
+            ev("cudaMemcpyAsync", 12, 19, 102), ev("cudaLaunchKernel", 31, 32, 103),
+            ev("cudaLaunchKernel", 50, 51, 104)]
+    activity = [ev("k", 900, 1900, 101), ev("Memcpy DtoH", 2000, 2500, 102),
+                ev("k", -80, 220, 103), ev("k", 3000, 3100, 104), ev("k", 10, 20, 7)]
+    out = profiling._span_readings(activity, host, torch.device("cuda"))
+    assert out == {"aps.weights": {"count": 2, "device_ms": pytest.approx(1.3)},
+                   "aps.gate": {"count": 1, "device_ms": pytest.approx(0.5)}}
 
 
 def _evidence_never_resampling(logws):
