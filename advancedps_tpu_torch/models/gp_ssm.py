@@ -9,14 +9,18 @@ fixed shapes: with ``m_i = 1[i < t]`` the kernel matrix over all T time points
 becomes ``K̃ = m mᵀ ∘ K + diag(1 − m) + jitter·I``, identity outside the
 active block, so one Cholesky factor of a ``[T, T]`` matrix serves the step.
 
-``K̃`` depends on the step only, not on the particle.  So the dynamics are
-vectorized over a batch of histories: the factor is taken once a step and
-``K̃⁻¹ x`` solved for all N histories in one call (a ``[T, N]`` right-hand
-side), where a ``vmap`` of the per-particle regression would broadcast the
-``[T, T]`` factor to every particle (40 GB at N = 1M, T = 100).  Each
-particle still draws with its own key (the sweep's
-:meth:`~advancedps_tpu_torch.distributions.Distribution.sample_keyed`), so the
-draws are the JAX package's.
+``K̃`` depends on the step only, not on the particle, and the predictive mean
+is a bilinear form: ``k*ᵀ K̃⁻¹ x = (K̃⁻¹ k*)ᵀ x``.  So each step solves once,
+``w = K̃⁻¹ k*`` (a ``[T]`` right-hand side, shared by every particle), and
+each history's mean is the dot product of its ``t`` active values with
+``w[:t]``.  The batch ``[N, T]`` is read through the strided view
+``states[..., :t]`` (row stride T): nothing ``[N, T]``-sized is made, and the
+rows from ``length`` on, which the :class:`~advancedps_tpu_torch.ssm.History`
+contract leaves undefined, are never read.  A ``vmap`` of a per-particle
+regression would instead broadcast the ``[T, T]`` factor to every particle
+(40 GB at N = 1M, T = 100).  Each particle still draws with its own key (the
+sweep's :meth:`~advancedps_tpu_torch.distributions.Distribution.sample_keyed`),
+so the draws are the JAX package's.
 """
 
 from __future__ import annotations
@@ -68,15 +72,13 @@ class GPDynamics(LatentDynamics):
         K_masked = K * m[:, None] * m[None, :] + torch.diag(1.0 - m) + self.jitter * eye
         chol = torch.linalg.cholesky(K_masked)  # once a step, for every particle
 
-        x = history.states * m  # [..., T] masked past values
         k_star = self.kernel(times, now)[:, 0] * m
-        # alpha = K̃⁻¹ x for every history in one solve: the histories are the
-        # columns of one right-hand side.
-        rows = x.reshape(-1, T)
-        alpha = torch.cholesky_solve(rows.T, chol).T.reshape(x.shape)
         v = torch.linalg.solve_triangular(chol, k_star[:, None], upper=False)[:, 0]
-
-        mean = alpha @ k_star
+        # The mean k*ᵀ K̃⁻¹ x is wᵀ x with w = K̃⁻¹ k* = L⁻ᵀ v, solved once a step
+        # for every particle; each history is read over its t active columns
+        # through a strided view, with nothing copied.
+        w = torch.linalg.solve_triangular(chol.mT, v[:, None], upper=True)[:, 0]
+        mean = history.states[..., :step] @ w[:step]
         var = self.kernel(now, now)[0, 0] - v @ v
         var = torch.clamp(var, min=self.jitter)
         return Normal(mean, torch.sqrt(var))

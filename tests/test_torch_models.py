@@ -134,11 +134,62 @@ def test_gp_posterior_matches_direct_regression():
     var = 1.0 - k_star @ np.linalg.solve(K, k_star)
     np.testing.assert_allclose(float(d.loc), k_star @ alpha, rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(float(d.scale), math.sqrt(var), rtol=1e-3)
-    # A batch of histories solves as one right-hand side, each row its own.
+    # A batch of histories: each row's mean is its own.
     batch = torch.stack([hist, -hist, 2 * hist])
     db = model.dynamics.distribution(t, None, apt.History(states=batch, length=t))
     np.testing.assert_allclose(db.loc.numpy(), [float(d.loc), -float(d.loc), 2 * float(d.loc)],
                                rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("t", [1, 4, 8, 11])
+def test_gp_means_read_only_the_active_columns(t):
+    # Every entry from ``length`` on is NaN: a mean that read one would be NaN.
+    T = 12
+    model = apt.models.gp_ssm(num_steps=T)
+    hist = np.random.default_rng(t).standard_normal((16, T)).astype(np.float32)
+    hist[:, t:] = np.nan
+    d = model.dynamics.distribution(t, None, apt.History(torch.as_tensor(hist), t))
+    # A direct regression in float64 over the active block 0 .. t-1 alone.
+    times = np.arange(t + 1, dtype=np.float64)
+    k = np.exp(-0.5 * (times[:, None] - times[None, :]) ** 2)
+    K, k_star = k[:t, :t] + 1e-6 * np.eye(t), k[:t, t]
+    w = np.linalg.solve(K, k_star)
+    mean = hist[:, :t].astype(np.float64) @ w
+    np.testing.assert_allclose(d.loc.numpy(), mean, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(float(d.scale), math.sqrt(1.0 - k_star @ w), rtol=1e-3)
+    # One history [T] as a row of the batch.
+    one = model.dynamics.distribution(t, None, apt.History(torch.as_tensor(hist[3]), t))
+    np.testing.assert_allclose(float(one.loc), mean[3], rtol=1e-4, atol=1e-5)
+
+
+def test_gp_means_over_the_chain_axis_equal_each_chains():
+    # Chains run the dynamics under vmap over a [C, N, T] buffer (engine._chain_map).
+    T, C, N = 12, 3, 32
+    dyn = apt.models.gp_ssm(num_steps=T, lengthscale=1.5, variance=0.5).dynamics
+    buf = torch.randn(C, N, T, generator=torch.Generator().manual_seed(5))
+    for t in (1, 6, 11):
+        bt = buf.clone()
+        bt[..., t:] = float("nan")
+        got = vmap(lambda b: dyn.distribution(t, None, apt.History(b, t)).loc)(bt)
+        want = torch.stack([dyn.distribution(t, None, apt.History(b, t)).loc for b in bt])
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-7)
+
+
+def test_gp_dynamics_solve_one_right_hand_side():
+    # The step's factor is shared by every particle: each solve takes one
+    # column, never a column per history.
+    T, N = 10, 4096
+    dyn = apt.models.gp_ssm(num_steps=T).dynamics
+    buf = torch.randn(N, T, generator=torch.Generator().manual_seed(0))
+    rhs = {"aten::cholesky_solve": 0, "aten::linalg_solve_triangular": 1,
+           "aten::triangular_solve": 0}
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU],
+                                record_shapes=True) as prof:
+        for t in (1, 5, T - 1):
+            dyn.distribution(t, None, apt.History(buf, t))
+    solves = [(e.name, e.input_shapes[rhs[e.name]]) for e in prof.events() if e.name in rhs]
+    assert solves
+    assert all(shape[-1] == 1 for _, shape in solves), solves
 
 
 def test_gp_dynamics_match_jax():
