@@ -28,6 +28,7 @@ from torch import nn
 
 from .. import random as rnd
 from .. import rng as rngmod
+from .. import tracing
 from ..distributions import MvNormal, Normal
 from ..ssm import LatentDynamics, ObservationProcess, StatePrior, StateSpaceModel
 from .lgssm import _buffers
@@ -107,20 +108,24 @@ class LevyLangevinDynamics(LatentDynamics):
             * (self.sigma_w ** 2)
         return mu, cov + self.jitter * torch.eye(2, dtype=cov.dtype, device=cov.device)
 
-    def _dist(self, key, step, state):
-        mu, cov = self._meancov(key, step)
-        mean = self._expm(self.dt) @ state + mu
-        return MvNormal(mean, cov)
+    def _law(self, mu, cov, state):
+        return MvNormal(self._expm(self.dt) @ state + mu, cov)
 
     def sample(self, key, step, state, history=None):
-        """A jump path from the particle's key, then the Gaussian draw."""
+        """A jump path from the particle's key, then the Gaussian draw: the
+        spans ``aps.jump_path`` (the path, its mean and covariance) and
+        ``aps.factor_draw`` (the mean, the factor and the draw)."""
         k_path, k_noise = rnd.split(rnd.key_tensor(key, self.dt.device))
-        return self._dist(k_path, step, state).sample(k_noise)
+        span = tracing.spans()
+        with span("aps.jump_path"):
+            mu, cov = self._meancov(k_path, step)
+        with span("aps.factor_draw"):
+            return self._law(mu, cov, state).sample(k_noise)
 
     def log_prob(self, step, state, x, history=None):
         """Scored with the path of the step's shared key."""
         k_score = rngmod.fold_in(rngmod.key(self.score_seed), step)
-        return self._dist(k_score, step, state).log_prob(x)
+        return self._law(*self._meancov(k_score, step), state).log_prob(x)
 
     def distribution(self, step, state, history=None):
         raise NotImplementedError(

@@ -24,6 +24,18 @@ chain batch alike; none nests in another):
 
 So the count of ``aps.resample`` spans is the count of firings, and the count
 of ``aps.gate`` spans the count of the gate's reads.
+
+Two spans of a model nest in ``aps.propagate_score``, one after the other:
+the Lévy dynamics' ``aps.jump_path`` (the Gamma-process jump path, its mean
+and covariance) and ``aps.factor_draw`` (the transition's mean, the factor
+and the Gaussian draw), in
+:meth:`~advancedps_tpu_torch.models.levy.LevyLangevinDynamics.sample`.  It
+runs under :func:`torch.func.vmap`, whose Python body runs once a call, so
+each is entered once a step.  They split the model's step, which no span of
+the engine sees into.  A reader that places a device record in the latest
+span opened before its call (``benchmark/spans.py``) then gives
+``aps.propagate_score`` only what is enqueued before the path, and no span
+what follows the draw (the score, the weights' update).
 """
 
 from __future__ import annotations
