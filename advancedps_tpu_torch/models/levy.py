@@ -19,6 +19,10 @@ with the particle's key and :meth:`LevyLangevinDynamics.log_prob` scores with a
 fresh path from a key shared by all particles, ``fold_in(key(score_seed),
 step)`` (a random-weight PGAS ancestor draw, as the JAX package and the
 reference do).  A step draws 3·K key-based values a particle.
+
+On a CUDA device the path and its mean and covariance are one kernel a call
+(:mod:`advancedps_tpu_torch.ops.levy`), bitwise the plain chain of PyTorch
+operations that every other device runs.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from .. import random as rnd
 from .. import rng as rngmod
 from .. import tracing
 from ..distributions import MvNormal, Normal
+from ..ops import levy as levy_ops
 from ..ssm import LatentDynamics, ObservationProcess, StatePrior, StateSpaceModel
 from .lgssm import _buffers
 
@@ -90,6 +95,18 @@ class LevyLangevinDynamics(LatentDynamics):
                             torch.stack([torch.zeros_like(f), f])])
 
     def _meancov(self, key, step):
+        """The jump path's mean ``[2]`` and covariance ``[2, 2]``: on a CUDA
+        device one kernel (:func:`~advancedps_tpu_torch.ops.levy.meancov`),
+        bitwise :meth:`_meancov_plain`; elsewhere that chain."""
+        key = rnd.key_tensor(key, self.dt.device)
+        if key.device.type != "cuda":
+            return self._meancov_plain(key, step)
+        p = self.process
+        return levy_ops.meancov(key, step, self.dt, self.theta, p.C, p.beta, self.mu_w,
+                                self.sigma_w, p.tol, self.jitter, p.max_jumps)
+
+    def _meancov_plain(self, key, step):
+        """:meth:`_meancov` as PyTorch operations over the ``K`` candidates."""
         dt = self.dt
         start = (step - 1) * dt
         finish = step * dt

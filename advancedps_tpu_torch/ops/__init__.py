@@ -1,5 +1,5 @@
 """Kernel layer: hand-written CUDA kernels with their plain PyTorch versions."""
 
-from . import resample, threefry
+from . import levy, resample, threefry
 
-__all__ = ["resample", "threefry"]
+__all__ = ["levy", "resample", "threefry"]

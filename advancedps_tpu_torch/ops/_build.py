@@ -30,7 +30,7 @@ _I64 = ctypes.c_int64
 _I32 = ctypes.c_int
 _U64 = ctypes.c_uint64
 _U32 = ctypes.c_uint32
-#: C signatures of the entry points in csrc/resample.cu and csrc/threefry.cu.
+#: C signatures of the entry points in csrc/resample.cu, csrc/threefry.cu and csrc/levy.cu.
 _SIGNATURES = {
     "aps_prefix_tile_size": (),
     "aps_scan_scratch_words": (_I64,),
@@ -62,6 +62,9 @@ _SIGNATURES = {
     "aps_pos_uniform": (_I64, _P, _P, _U32, _P, _U32, _P, _I32, _U32, _I32, _P, _P),
     "aps_pos_normal": (_I64, _P, _P, _U32, _P, _U32, _P, _I32, _U32, _I32, _P, _P),
     "aps_pos_normals": (_I64, _P, _P, _U32, _P, _U32, _P, _I32, _I64, _U32, _P, _P),
+    "aps_levy_max_jumps": (),
+    "aps_levy_meancov": (_I64, _P, _I64, _I64, _P, _P, _P, _P, _P, _P, _I64, _I32, ctypes.c_float,
+                         ctypes.c_float, _I32, _P, _P, _P),
 }
 
 

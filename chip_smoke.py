@@ -53,6 +53,10 @@ final line:
    normals within ``NORMAL_ULPS`` (the largest gap printed), and each
    batching rule under ``torch.func.vmap`` (chain words, chain words and ids,
    particle keys, nested) bitwise the loop of one-key calls, in one launch;
+   and the Lévy jump path's kernel (``csrc/levy.cu``) against the plain
+   chain, mean and covariance bitwise at 1M keys (steps 1, 100, 199; mu_w 0
+   and 0.7), at 4 x 65,536 as nested ``vmap`` and on the unbatched shared
+   key, one launch each (phase 7 times it at 1M against its int32 bound);
 4. the SMC flagship (stationary LGSSM a=0.9, q=0.32, r=1.0, T=100,
    N=1,000,000, resampling at ESS ≤ N/2) through ``sample`` with each fused
    scheme — systematic, stratified, multinomial, and multinomial with the
@@ -99,8 +103,9 @@ final line:
    ``index_select``; and one residual firing step (the draw for C chains from
    their keys on the card, then B3 with the chain axis): its device-side
    launches for C = 1, 4 and 64 at 1M and at 16,384, equal at C = 4 and 64,
-   beside the loop of one-chain draws it replaced at 4 x 1M; and each Threefry
-   kernel at 1M and 8 x 1M (L2-warm, L2-cold, one launch a call, the plain
+   beside the loop of one-chain draws it replaced at 4 x 1M; the Lévy jump
+   path's kernel at 1M keys beside the plain chain, against its int32 bound;
+   and each Threefry kernel at 1M and 8 x 1M (L2-warm, L2-cold, one launch a call, the plain
    version, per call by events, its bound: bytes or BLOCK_OPS int32
    operations for each distinct block the ids need, whichever takes longer).  The inputs are the same
    tensors on every call, as in the sweep, where each was written by the step
@@ -114,7 +119,7 @@ final line:
    columns, and the median of 5 systematic sweeps under each;
 8. the model families at N=1M, T=100 through ``sample`` with no device named
    (systematic at ESS ≤ N/2): the stochastic-volatility model (a=0.9, q=0.5),
-   the Lévy SSM (state [N, 2], 64 jumps, dt=0.5; T = 25, ``LEVY_STEPS``) and
+   the Lévy SSM (state [N, 2], 64 jumps, dt=0.5; T = 100, ``LEVY_STEPS``) and
    the GP-SSM (state (x [N], history [N, 100])): finite logZ, B1 and the decode + move on every
    firing (B4 over leaves ⌈leaves / 8⌉ times for the GP-SSM), the sweep time
    (median of 3; one for Lévy), launches a step and the device busy share of
@@ -124,7 +129,7 @@ final line:
    (N=20, T=60, 100 iterations, the JAX test's 150 cut: mean > (1 − 1/N) −
    0.1, PG's early third 0.3 below PGAS's), GP-SSM PG (N=20, T=100, 3
    iterations) and Lévy PGAS
-   (N=50, T=100, 2 iterations), replay against dense storage within 1e-5 and
+   (N=50, T=200, 2 iterations), replay against dense storage within 1e-5 and
    1e-4;
 9. the generic front-end, chain checkpoints and a mesh spanning processes:
    the LGSSM as a ``GenericModel`` program of T = 50 sample sites and 50
@@ -255,10 +260,10 @@ CHAIN_ITERS = 3
 #: 100 (2 chains of ~0.33 s an iteration on a slow host) for the script's time
 #: limit once phase 10 came in.
 SV_RATE_ITERS = 100
-#: Steps of phase 8's Lévy runs at 1M (the flagship's T = 100 cut: a sweep at
-#: T = 100 is ~25 s, device-bound, and the three runs took 220-240 s) and of
-#: its replay = dense check at N = 50 (the JAX test's T = 200 cut).
-LEVY_STEPS, LEVY_CHECK_STEPS = 25, 100
+#: Steps of phase 8's Lévy runs at 1M (the flagship's T = 100) and of its
+#: replay = dense check at N = 50 (the JAX test's T = 200): whole since the
+#: jump path became one kernel (``csrc/levy.cu``).
+LEVY_STEPS, LEVY_CHECK_STEPS = 100, 200
 #: Iterations of phase 9's analytic PG(10) evidence (the CPU test's 100 cut:
 #: every iteration's logZ is the exact −2·log 2).
 ANALYTIC_PG_ITERS = 20
@@ -935,26 +940,28 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 NORMAL_ULPS = 2
 #: Threefry launches of each model family at init, a step, and a step with a
 #: PGAS reference on top (its ancestor weights): the LGSSM and the SV model one
-#: pos_normal at init and a step; the Lévy model pos_normals at init and 7
+#: pos_normal at init and a step; the Lévy model pos_normals at init, 3
 #: key-based ciphers a step (the particle keys, the split of each one, the
-#: path's split, gaps, acceptances and times, the noise), and 4 more with a
-#: reference (the scoring path's split, gaps, acceptances and times); the
+#: noise) and its jump path's kernel (``meancov``: the path's split, gaps,
+#: acceptances and times inside it), and that kernel once more with a
+#: reference (the scoring path); the
 #: GP-SSM a pos_normal at init and 2 a step (the particle keys, the keyed
 #: normal); the generic LGSSM program 3 a step and none at init (the particle
 #: keys, a site's fold_in of each, the keyed normal).
 MODEL_DRAWS = {
     "LGSSM": ({"pos_normal": 1}, {"pos_normal": 1}, {}),
     "stochastic volatility": ({"pos_normal": 1}, {"pos_normal": 1}, {}),
-    "Lévy": ({"pos_normals": 1}, {"threefry2x32": 7}, {"threefry2x32": 4}),
+    "Lévy": ({"pos_normals": 1}, {"threefry2x32": 3, "meancov": 1}, {"meancov": 1}),
     "GP-SSM": ({"pos_normal": 1}, {"threefry2x32": 2}, {}),
     "generic": ({"threefry2x32": 3}, {"threefry2x32": 3}, {}),
 }
 
 
 def draws(normal: int = 0, uniform: int = 0, words: int = 0, normals: int = 0) -> dict:
-    """Launches of each Threefry kernel on a path."""
+    """Launches of each Threefry kernel on a path, and of the Lévy jump path's
+    kernel (``meancov``, counted through ``MODEL_DRAWS``)."""
     return {"threefry2x32": words, "pos_uniform": uniform, "pos_normal": normal,
-            "pos_normals": normals}
+            "pos_normals": normals, "meancov": 0}
 
 
 def add_draws(*ds) -> dict:
@@ -988,8 +995,10 @@ def pgas_draws(iters: int, steps: int = T, conditional=None, replay: bool = True
 
 
 def check_draws(drive, what: str, want: dict):
-    """The Threefry launches of the path ``drive`` ran last, against ``want``."""
-    check(drive.draws == want, f"{what}: Threefry launches {drive.draws} != {want}")
+    """The Threefry and Lévy path launches of the path ``drive`` ran last,
+    against ``want``."""
+    check(drive.draws == want, f"{what}: Threefry and Lévy path launches {drive.draws} != "
+          f"{want}")
 
 
 def ulps_apart(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -1084,6 +1093,74 @@ def threefry_checks(apt, tf, err):
           flush=True)
 
 
+#: Threefry blocks of one Lévy jump path a key (the path key's split into
+#: three, and K = 64 candidates' three draws), BLOCK_OPS int32 operations each.
+LEVY_BLOCKS = 3 + 3 * 64
+
+
+def levy_path_keys(apt):
+    """The Lévy dynamics on the card and 1M path keys."""
+    R, rnd = apt.rng, apt.random
+    dyn = apt.models.levy_ssm(dt=0.5).to("cuda").dynamics
+    return dyn, rnd.split(R.particle_keys(R.key(30), R.PROPAGATE, 4, N))[..., 0, :]
+
+
+def levy_checks(apt, levy_ops):
+    """Phase 3: the Lévy jump path's kernel against the plain chain
+    (``_meancov_plain``) on the card, ``(mu, cov)`` bitwise: 1M path keys at
+    steps 1, 100 and 199 with ``mu_w`` 0 and 0.7, 4 chains of 65,536 as
+    ``vmap`` over ``vmap``, and ``log_prob``'s unbatched shared key, each one
+    launch."""
+    R, rnd = apt.rng, apt.random
+    vmap = torch.func.vmap
+    dyn, keys = levy_path_keys(apt)
+
+    def pair(key, step, nest):
+        kernel = lambda k: dyn._meancov(k, step)  # noqa: E731
+        plain = lambda k: dyn._meancov_plain(k, step)  # noqa: E731
+        for _ in range(nest):
+            kernel, plain = vmap(kernel), vmap(plain)
+        levy_ops.reset_launch_counts()
+        got = kernel(key)
+        launches = levy_ops.meancov.launches
+        return got, plain(key), launches
+
+    shared = rnd.key_tensor(R.fold_in(R.key(dyn.score_seed), 100), "cuda")
+    cases = [(f"1M keys, step {t}, mu_w {mu_w}", keys, t, 1, mu_w)
+             for t in (1, 100, 199) for mu_w in (0.0, 0.7)]
+    cases += [("4 x 65,536 keys as vmap over vmap", keys[:4 * 65536].reshape(4, 65536, 2), 100,
+               2, 0.0),
+              ("the shared key of log_prob", shared, 100, 0, 0.7)]
+    for what, key, step, nest, mu_w in cases:
+        dyn.mu_w.fill_(mu_w)
+        got, want, launches = pair(key, step, nest)
+        check(launches == 1, f"Lévy path, {what}: {launches} launches")
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"Lévy path, {what}: the kernel differs from the plain chain")
+    levy_ops.reset_launch_counts()
+    print(f"Lévy jump path kernel against the plain chain: {len(cases)} cases bitwise (mu, cov), "
+          f"one launch each", flush=True)
+
+
+def levy_timing(apt, levy_ops, tag: str):
+    """Phase 7: the Lévy jump path's kernel at 1M path keys, by events
+    (plain, kernel, kernel, plain) and by the profiler, against its bound:
+    BLOCK_OPS for each of LEVY_BLOCKS blocks a key at the int32 rate."""
+    vmap = torch.func.vmap
+    dyn, keys = levy_path_keys(apt)
+    kernel = lambda: vmap(lambda k: dyn._meancov(k, 100))(keys)  # noqa: E731
+    plain = lambda: vmap(lambda k: dyn._meancov_plain(k, 100))(keys)  # noqa: E731
+    call_ms, plain_ms, readings = plain_vs_kernel(plain, kernel)
+    dev_ms = device_ms(kernel)
+    bound_ms = BLOCK_OPS * LEVY_BLOCKS * N / INT32_OPS_PER_S * 1e3
+    levy_ops.reset_launch_counts()
+    print(f"Lévy jump path kernel at 1M keys: {dev_ms:.4f} device ms against its bound "
+          f"{bound_ms:.4f} ms ({LEVY_BLOCKS} blocks a key at {INT32_OPS_PER_S / 1e12:.2f} "
+          f"Tops/s int32; share {bound_ms / dev_ms:.3f}); per call by events {call_ms:.4f} ms, "
+          f"plain chain {plain_ms:.4f} ms (plain, kernel, kernel, plain: "
+          f"{', '.join(f'{r:.4f}' for r in readings)}) {tag}", flush=True)
+
+
 def threefry_timings(apt, tf, tag: str) -> dict:
     """Phase 7: each Threefry kernel at the shapes the main path gives it, 1M
     ids with one key (the flagship's propagate, the Gumbel pass, the particle
@@ -1159,12 +1236,15 @@ def main():
         fail("no CUDA device: chip_smoke.py runs only on a GPU")
     import advancedps_tpu_torch as apt
     from advancedps_tpu_torch.ops import _build
+    from advancedps_tpu_torch.ops import levy as levy_ops
     from advancedps_tpu_torch.ops import resample as ops
     from advancedps_tpu_torch.ops import threefry as tfops
 
     names = [w.__name__ for w in ops.KERNEL_WRAPPERS]
     tf_names = [w.__name__ for w in tfops.KERNEL_WRAPPERS]
-    check(tf_names == list(draws()), f"the Threefry kernels are {tf_names}")
+    draw_wrappers = tfops.KERNEL_WRAPPERS + levy_ops.KERNEL_WRAPPERS
+    check([w.__name__ for w in draw_wrappers] == list(draws()),
+          f"the Threefry and Lévy path kernels are {[w.__name__ for w in draw_wrappers]}")
 
     def counts(wrappers=ops.KERNEL_WRAPPERS):
         return {w.__name__: w.launches for w in wrappers}
@@ -1172,18 +1252,19 @@ def main():
     def expected(per_firing, firings):
         return {name: per_firing.get(name, 0) * firings for name in names}
 
-    main_launches = dict.fromkeys(names + tf_names, 0)
+    main_launches = dict.fromkeys(names + list(draws()), 0)
 
     def drive(fn):
         """Run one main path with the counts set to 0 just before it; return
         its result and the resampling kernels' counts read just after (the
-        Threefry kernels' in ``drive.draws``)."""
+        Threefry and Lévy path kernels' in ``drive.draws``)."""
         ops.reset_launch_counts()
         tfops.reset_launch_counts()
+        levy_ops.reset_launch_counts()
         out = fn()
         torch.cuda.synchronize()
         got = counts()
-        drive.draws = counts(tfops.KERNEL_WRAPPERS)
+        drive.draws = counts(draw_wrappers)
         for name, c in {**got, **drive.draws}.items():
             main_launches[name] += c
         return out, got
@@ -1222,6 +1303,9 @@ def main():
     check(lib.aps_threefry_max_dims() == tfops.MAX_DIMS,
           f"the Threefry kernels take {lib.aps_threefry_max_dims()} dimensions, the wrappers "
           f"{tfops.MAX_DIMS}")
+    check(lib.aps_levy_max_jumps() == levy_ops.MAX_JUMPS,
+          f"the Lévy kernel holds {lib.aps_levy_max_jumps()} jumps, the wrapper "
+          f"{levy_ops.MAX_JUMPS}")
 
     # ---- 3. kernels vs plain versions on the card, M = N = 1M
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1524,6 +1608,7 @@ def main():
     chain_decode_checks(ops, gen, err)
     move_rows_checks(ops, gen, err)
     threefry_checks(apt, tfops, err)
+    levy_checks(apt, levy_ops)
 
     # ---- 4. the SMC flagship with each fused scheme, through sample
     model = apt.models.stationary_lgssm(A, Q, R)
@@ -2093,6 +2178,7 @@ def main():
             print(f"  note: {name} L2-warm is faster than the device memory allows "
                   f"(share {row['bound_share']:.4f}): its tensors never left the L2", flush=True)
     tf_timing = threefry_timings(apt, tfops, tag)
+    levy_timing(apt, levy_ops, tag)
     for what, plain, kernel_fn in (
             (f"decode_ancestors at 1M, window of L={L}",
              lambda: ops.decode_ancestors_ref(f, L, guard=N, start=2 * L),
@@ -2414,9 +2500,9 @@ def main():
     for label, model, n_p, steps, sampler, tol, iters in (
             ("GP-SSM PG", apt.models.gp_ssm(num_steps=T), 20, T, apt.PG, 1e-5, 3),
             # One particle and N particles sum a step's 64 masked jumps in
-            # different orders on the card: hence the looser bound.  Two
-            # iterations (the second conditional on the first), ~13 s each
-            # for each storage on a slow host: the script's time limit.
+            # different orders on the card (PyTorch's cumsum of one row and
+            # of N rows, which the kernel keeps): hence the looser bound.  Two
+            # iterations (the second conditional on the first).
             ("Lévy PGAS", apt.models.levy_ssm(dt=0.5), 50, LEVY_CHECK_STEPS, apt.PGAS, 1e-4, 2)):
         model = model.to("cuda")
         _, ys_x = apt.simulate(apt.rng.key(72), model, steps)
