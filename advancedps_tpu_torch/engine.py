@@ -47,22 +47,22 @@ While a :mod:`torch.profiler` session records, a sweep marks its set-up, each
 step's weights, gate, resampling (or identity ancestors) and propagate +
 score, and its close with ``aps.*`` spans (:mod:`~advancedps_tpu_torch.tracing`).
 
-Independent chains run as one batch when the key is a
-:class:`~advancedps_tpu_torch.rng.KeyBatch` of C keys: every tensor gains a
-leading chain axis, the kernel's calls run under :func:`torch.func.vmap` over
-it (the JAX package ``vmap``s the whole sampler), the reductions are taken
-over the last axis, and the resampling kernels take the chain axis, so a
-step is one set of launches for all C chains.  The gate reads a ``[C]`` flag
-vector once a step; a step on which no chain fires launches no resampling
-kernel, and on a step where some do, the kernels run over all C and the
-chains that do not fire keep their rows, weights and identity ancestors by a
-``where``, as JAX's ``vmap`` of ``lax.cond`` does.  Residual resampling draws
-for all C chains in one call too (the schemes' chain-batch form, from the
-chains' keys on the device); only a user's resampler, which takes a
-:class:`~advancedps_tpu_torch.rng.Key`, runs once a chain.  Chain ``c`` draws what
-the one-chain sweep with ``keys.key(c)`` draws, and its kernels compute
-bitwise what they compute there; its sweep is bitwise that sweep where torch
-reduces a row of ``[C, N]`` in the order it reduces an ``[N]`` vector.
+One loop serves one chain and a batch of chains: a
+:class:`~advancedps_tpu_torch.rng.KeyBatch` of C keys runs C independent
+sweeps as one batch, every tensor with a leading chain axis.  The step's
+arithmetic runs over the last axis, so ``[N]`` and ``[C, N]`` share it; a
+layout (:class:`_OneChain`, :class:`_ChainBatch`) holds what differs: the step
+keys (folded on the host, or read from a key table built once), the kernel's
+calls (under :func:`torch.func.vmap` over the chains, as the JAX package
+``vmap``s the whole sampler), the gate's read (a ``[C]`` flag vector once a
+step), the resampling kernels (those with the chain axis, one set of launches
+for all C) and a user's resampler, which takes a
+:class:`~advancedps_tpu_torch.rng.Key` and so runs once a chain.  A step on
+which no chain fires launches no resampling kernel; on one where some do,
+the others keep their rows, weights and identity ancestors by a ``where``, as
+JAX's ``vmap`` of ``lax.cond`` does.  Chain ``c`` draws what the one-chain
+sweep with ``keys.key(c)`` draws, bitwise that sweep where torch reduces a
+row of ``[C, N]`` in the order it reduces an ``[N]`` vector.
 """
 
 from __future__ import annotations
@@ -190,178 +190,36 @@ def inject_ref(ref_mask, ref_val, vals):
     return tree_map(one, vals, ref_val)
 
 
-def _fused_extents(scheme, rs_key, logw, m, s1, n_resample):
+def _fused_extents(scheme, rs_key, logw, m, s1, n_resample, u=None):
     """Nondecreasing int32 extents ``[M]`` of the scheme's draw of
-    ``n_resample`` positions, through the kernels."""
+    ``n_resample`` positions, through the kernels; for C chains (``logw [C,
+    N]``, ``rs_key`` a key column, ``u`` the systematic offsets ``[C]``)
+    ``[C, M]``, through the kernels with the chain axis."""
+    chains = logw.dim() == 2
     if scheme == "systematic":
+        if chains:
+            return ops.extents_from_logw_chains(logw, m, s1, u, n_resample)
         return ops.extents_from_logw(logw, m, s1, rngmod.uniform(rs_key), n_resample)
+    prefix = ops.scaled_prefix_from_logw_chains if chains else ops.scaled_prefix_from_logw
     if scheme == "stratified":
-        c = ops.scaled_prefix_from_logw(logw, m, n_resample / s1)
-        return stratified_extents(rs_key, c, n_resample)
+        return stratified_extents(rs_key, prefix(logw, m, n_resample / s1), n_resample)
     # multinomial: sorted uniforms S_k / S_n by exponential spacings; the
     # extent of j counts the S_k below cdf_j · S_n.
     g = multinomial_spacings(rs_key, n_resample, device=logw.device)
-    S = ops.prefix_sum(g)
-    thr = ops.scaled_prefix_from_logw(logw, m, S[n_resample] / s1)
-    return ops.count_le_sorted_auto(S[:n_resample], thr)
+    S = (ops.prefix_sum_chains if chains else ops.prefix_sum)(g)
+    thr = prefix(logw, m, S[..., n_resample] / s1)
+    # B7 (or B8) once for all chains, on the rows of S as they lie.
+    count = ops.count_le_sorted_auto_chains if chains else ops.count_le_sorted_auto
+    return count(S[..., :n_resample], thr)
 
 
-@torch.no_grad()
-def sweep(
-    key,
-    kernel: SweepKernel,
-    n_particles: int,
-    resampler: ResampleWithESSThreshold,
-    ref: Any = None,
-    ancestor_sampling: bool = False,
-    store_states: bool = True,
-    device=None,
-) -> SweepResult:
-    """Run one particle sweep on ``device`` (None: the GPU): bootstrap SMC,
-    or conditional SMC when ``ref`` (a ``[T, ...]`` trajectory) is given.
-
-    ``kernel``'s tensors must already lie on ``device``.  Resampling is gated
-    at ``ESS ≤ threshold · n``.
-
-    ``key`` a :class:`~advancedps_tpu_torch.rng.KeyBatch` of C keys runs C
-    independent sweeps as one batch (see the module notes): ``ref`` then has
-    a leading chain axis, and so has every field of the result
-    (``ancestors [C, T, N]``, ``states`` leaves ``[C, T, N, ...]``).
-    """
-    if isinstance(key, rngmod.KeyBatch):
-        return _sweep_chains(key, kernel, n_particles, resampler, ref, ancestor_sampling,
-                             store_states, device)
-    span = tracing.spans()
-    with span("aps.setup"):
-        n = n_particles
-        T = kernel.num_steps
-        has_ref = ref is not None
-        if ancestor_sampling and not has_ref:
-            raise ValueError("ancestor_sampling requires a reference trajectory")
-        device = resolve_device(device)
-        gids = torch.arange(n, device=device)
-        ref_mask = None
-        if has_ref:
-            ref = _tree.as_reference(ref, device)
-            ref_mask = gids == (n - 1)
-        # With a reference, n − 1 positions are drawn and slot n − 1 keeps the
-        # reference.
-        n_resample = n - 1 if has_ref else n
-        scheme = _FUSED_SCHEMES.get(resampler.resampler)
-
-        rng0 = rngmod.StepRng(rngmod.step_key(key, rngmod.INIT, 0), gids)
-        state, logw = kernel.init(rng0, tree_at(ref, 0), ref_mask)
-
-        snap0 = kernel.snapshot(state)
-        do_store = store_states and snap0 is not None
-        states = None
-
-        def store(t, snap):
-            def put(buf, s):
-                buf[t] = s
-            tree_map(put, states, snap)
-
-        if do_store:
-            states = tree_map(lambda s: torch.empty((T,) + tuple(s.shape), dtype=s.dtype,
-                                                    device=device), snap0)
-            store(0, snap0)
-
-        iota = torch.arange(n, dtype=torch.int32, device=device)
-        ancestors = torch.empty((T, n), dtype=torch.int32, device=device)
-        ancestors[0] = iota
-        ess_all = torch.empty(T, dtype=torch.float32, device=device)
-        ess_all[0] = float(n)
-        resampled = [False] * T
-
-        ln_n = torch.log(torch.tensor(float(n), dtype=torch.float32, device=device))
-        always_resample = float(resampler.threshold) >= 1.0
-        # Log-evidence (Del Moral): each step adds logsumexp(logw_after) −
-        # logsumexp(logw_before).  ``logw_before`` is the previous step's weights
-        # (no resample) or zeros (resample ⇒ log n), so ``pending`` carries the
-        # base to subtract once the next reduction is available, and one
-        # (max, Σe, Σe²) family per step feeds the evidence, the ESS gate and the
-        # extents.
-        log_z = ln_n * 0.0
-        pending = ln_n
-
-    for t in range(1, T):
-        with span("aps.weights"):
-            m = torch.max(logw)
-            e = torch.exp(logw - m)
-            s1 = torch.sum(e)
-            s2 = torch.sum(e * e)
-            lse = m + torch.log(s1)
-            log_z = log_z + (lse - pending)
-
-            ess = (s1 * s1) / s2
-            ess_all[t] = ess
-        if always_resample:
-            do_rs = True
-        else:
-            with span("aps.gate"):
-                do_rs = bool(ess <= resampler.threshold * n)
-
-        if do_rs:
-            with span("aps.resample"):
-                rs_key = rngmod.step_key(key, rngmod.RESAMPLE, t)
-                if has_ref:
-                    # The reference slot's ancestor, from the state and weights
-                    # before the move: n − 1 (PG), or drawn ∝ w_i·f_t(ref_t | x_i)
-                    # (PGAS).  A device tensor: no host sync.
-                    if ancestor_sampling:
-                        anc_logw = logw + kernel.transition_logprob(t, state,
-                                                                    tree_at(ref, t))
-                        anc_key = rngmod.step_key(key, rngmod.ANCESTOR, t)
-                        ref_anc = randcat_gumbel(anc_key, anc_logw, gids).reshape(1)
-                    else:
-                        ref_anc = iota[n - 1:]
-                    ref_row = tree_rows(state, ref_anc)
-                if scheme is not None:
-                    f = _fused_extents(scheme, rs_key, logw, m, s1, n_resample)
-                    # With a reference, slot n − 1 decodes past the drawn
-                    # population (ancestor M clipped to M − 1; row 0, or row
-                    # M − 1 under move version 0) and is overwritten with the
-                    # reference row in place.
-                    anc, state_rs = ops.resample_move_f(f, state, n, guard_n=n_resample)
-                    if has_ref:
-                        anc[n - 1:] = ref_anc
-
-                        def put_ref(mv, r):
-                            mv[n - 1:] = r
-                        tree_map(put_ref, state_rs, ref_row)
-                else:
-                    anc = resampler.resampler(rs_key, e / s1, n_resample).to(torch.int32)
-                    if has_ref:
-                        anc = torch.cat([anc, ref_anc])
-                    _, state_rs = ops.move_by_ancestors(anc, state)
-                state = state_rs
-                ancestors[t] = anc
-                pending = ln_n
-        else:
-            with span("aps.keep"):
-                ancestors[t] = iota
-                pending = lse
-        resampled[t] = do_rs
-
-        with span("aps.propagate_score"):
-            rng_t = propagate_rng(key, t, gids)
-            state, score = kernel.step(t, rng_t, state, tree_at(ref, t), ref_mask)
-            # After a resample the weights restart at 0, so the new weights are the score.
-            logw = score if do_rs else logw + score
-            if do_store:
-                store(t, kernel.snapshot(state))
-
-    with span("aps.close"):
-        log_z = log_z + (torch.logsumexp(logw, 0) - pending)
-        return SweepResult(
-            log_evidence=log_z,
-            log_weights=logw,
-            states=states,
-            ancestors=ancestors,
-            final_state=state,
-            ess=ess_all,
-            resampled=torch.tensor(resampled, device=device),
-        )
+def _reduce_weights(logw):
+    """A step's one reduction family over the last axis of ``logw`` (``[N]`` or
+    ``[C, N]``): the max ``m``, ``e = exp(logw − m)``, ``Σe`` and ``Σe²``."""
+    # One chain keeps torch.max, the all-reduce it has always launched.
+    m = torch.max(logw) if logw.dim() == 1 else torch.amax(logw, -1)
+    e = torch.exp(logw - m.unsqueeze(-1))
+    return m, e, torch.sum(e, -1), torch.sum(e * e, -1)
 
 
 class ChainBatchError(RuntimeError):
@@ -388,15 +246,12 @@ def _chain_map(name: str, fn, in_dims):
     return call
 
 
-def _chain_rows(tree, idx):
-    """Row ``idx[c]`` of chain ``c`` of every leaf ``[C, N, ...]``: ``[C, ...]``."""
-    def one(a):
-        return a[torch.arange(a.shape[0], device=a.device), idx.long()]
-    return tree_map(one, tree)
-
-
 def _chain_where(flags, new, old):
-    """Leaf by leaf, chain ``c``'s ``new`` where ``flags[c]``, else its ``old``."""
+    """Leaf by leaf, chain ``c``'s ``new`` where ``flags[c]``, else its ``old``;
+    ``new`` where ``flags`` is None (every chain fires)."""
+    if flags is None:
+        return new
+
     def one(a, b):
         return torch.where(flags.reshape(flags.shape + (1,) * (a.dim() - 1)), a, b)
     return tree_map(one, new, old)
@@ -423,36 +278,156 @@ def _table_keys(table, tag: int, t: int) -> rngmod.KeyBatch:
     return rngmod.KeyBatch(table[0, s, t], table[1, s, t])
 
 
-def _fused_extents_chains(scheme, rs: rngmod.KeyBatch, u, logw, m, s1, n_resample):
-    """:func:`_fused_extents` for C chains: ``rs`` the chains' resampling keys
-    ``[C]``, ``u`` their systematic offsets; int32 ``[C, M]``."""
-    if scheme == "systematic":
-        return ops.extents_from_logw_chains(logw, m, s1, u, n_resample)
-    col = rs.column()
-    if scheme == "stratified":
-        c = ops.scaled_prefix_from_logw_chains(logw, m, n_resample / s1)
-        return stratified_extents(col, c, n_resample)
-    g = -torch.log1p(-rngmod.pos_uniform(col, torch.arange(n_resample + 1,
-                                                           device=logw.device)))
-    S = ops.prefix_sum_chains(g)
-    thr = ops.scaled_prefix_from_logw_chains(logw, m, S[:, n_resample] / s1)
-    # B7 (or B8) once for all chains, on the rows of S as they lie.
-    return ops.count_le_sorted_auto_chains(S[:, :n_resample], thr)
+class _OneChain:
+    """One sweep: step keys folded on the host, the kernel called as it is,
+    the gate one host ``bool``."""
+
+    lead = ()
+    all_fire, no_fire = True, False
+    move = "resample_move_f"
+    rows = staticmethod(tree_rows)
+
+    def __init__(self, key, kernel, ref, n_steps, device):
+        self.key, self.kernel, self.ref = key, kernel, ref
+
+    def step_key(self, tag, t):
+        return rngmod.step_key(self.key, tag, t)
+
+    def offset(self, t):
+        return None  # drawn from the resampling key, where the scheme needs one
+
+    def init(self, gids, ref_mask):
+        rng0 = rngmod.StepRng(self.step_key(rngmod.INIT, 0), gids)
+        return self.kernel.init(rng0, tree_at(self.ref, 0), ref_mask)
+
+    def step(self, t, gids, ref_mask, state):
+        return self.kernel.step(t, propagate_rng(self.key, t, gids), state,
+                                tree_at(self.ref, t), ref_mask)
+
+    def transition_logprob(self, t, state):
+        return self.kernel.transition_logprob(t, state, tree_at(self.ref, t))
+
+    def snapshots(self, state, store: bool):
+        """``(the kernel's snapshot, that of state)``, or Nones where nothing is stored."""
+        snap = self.kernel.snapshot(state)
+        return (self.kernel.snapshot, snap) if store and snap is not None else (None, None)
+
+    def gate(self, ess, limit):
+        """``(the step's record, whether a chain fires, the flags where only some do)``."""
+        fire = bool(ess <= limit)
+        return fire, fire, None
+
+    def resample(self, resampler, rs_key, t, e, s1, n):
+        return resampler(rs_key, e / s1, n)
 
 
-def _snapshot_fn(kernel, state):
-    """The kernel's snapshot under ``vmap`` over chains, or None for a kernel
-    that records none (asked of chain 0's state)."""
-    if kernel.snapshot(tree_map(lambda a: a[0], state)) is None:
-        return None
-    return _chain_map("kernel.snapshot", kernel.snapshot, (0,))
+class _ChainBatch:
+    """C sweeps as one batch: step keys from the key table, the kernel under
+    ``vmap`` over the chains, the gate read once a step for all C."""
+
+    move = "resample_move_f_chains"
+
+    def __init__(self, keys, kernel, ref, n_steps, device):
+        C = len(keys)
+        self.kernel, self.ref, self.lead = kernel, ref, (C,)
+        self.all_fire, self.no_fire = [True] * C, [False] * C
+        self.table, self.host = _key_table(keys, n_steps, device)
+        s = _TABLE_TAGS.index(rngmod.RESAMPLE)
+        self.offsets = self.table[2, s].to(torch.int32).view(torch.float32) - 1.0  # [T, C]
+
+    def step_key(self, tag, t):
+        return _table_keys(self.table, tag, t).column()
+
+    def offset(self, t):
+        return self.offsets[t]
+
+    def _ref_at(self, t):
+        return None if self.ref is None else tree_map(lambda a: a[:, t], self.ref)
+
+    def _map(self, name, fn, tag, t, gids, ref_mask, *rest):
+        """``fn(rng, ref_t, ref_mask, *rest)`` under ``vmap``, a chain's ids and
+        mask its own in a replay (``[C, 1]``), shared in a sweep."""
+        def call(a, b, g, r, msk, *rest):
+            return fn(rngmod.StepRng(rngmod.KeyBatch(a, b), g), r, msk, *rest)
+
+        g = 0 if gids.dim() == 2 else None
+        dims = (0, 0, g, None if self.ref is None else 0, None if ref_mask is None else g)
+        k = _table_keys(self.table, tag, t)
+        return _chain_map(name, call, dims + (0,) * len(rest))(
+            k.k0, k.k1, gids, self._ref_at(t), ref_mask, *rest)
+
+    def init(self, gids, ref_mask):
+        return self._map("kernel.init", self.kernel.init, rngmod.INIT, 0, gids, ref_mask)
+
+    def step(self, t, gids, ref_mask, state):
+        return self._map("kernel.step", lambda rng, r, msk, st: self.kernel.step(
+            t, rng, st, r, msk), rngmod.PROPAGATE, t, gids, ref_mask, state)
+
+    def transition_logprob(self, t, state):
+        return _chain_map("kernel.transition_logprob",
+                          lambda st, r: self.kernel.transition_logprob(t, st, r), (0, 0))(
+            state, self._ref_at(t))
+
+    def snapshots(self, state, store: bool):
+        # Asked of chain 0's state whether the kernel records a snapshot.
+        if self.kernel.snapshot(tree_map(lambda a: a[0], state)) is None or not store:
+            return None, None
+        snap = _chain_map("kernel.snapshot", self.kernel.snapshot, (0,))
+        return snap, snap(state)
+
+    def gate(self, ess, limit):
+        flags = ess <= limit
+        host = flags.cpu().tolist()  # the step's one read of the gate
+        if all(host):
+            return host, True, None  # every chain fires: nothing to keep
+        return host, any(host), flags
+
+    @staticmethod
+    def rows(state, idx):
+        return tree_map(lambda a: ops._rows_of(a, idx), state)
+
+    def resample(self, resampler, rs_key, t, e, s1, n):
+        if resampler is resample_residual:
+            # One draw for all chains, from their keys on the device.
+            return resampler(rs_key, e / s1[:, None], n)
+        # A user's resampler takes a Key: once a chain, with its host key.
+        s = _TABLE_TAGS.index(rngmod.RESAMPLE)
+        return torch.stack([resampler(
+            rngmod.Key(int(self.host[0][s, t, c]), int(self.host[1][s, t, c])),
+            e[c] / s1[c], n) for c in range(self.lead[0])])
 
 
-def _sweep_chains(keys, kernel, n, resampler, ref, ancestor_sampling, store_states, device):
-    """:func:`sweep` over the chain batch ``keys``."""
+def _layout(key, kernel, ref, n_steps, device):
+    """The chain axis, decided once: a batch for a ``KeyBatch``, else one chain."""
+    batch = isinstance(key, rngmod.KeyBatch)
+    return (_ChainBatch if batch else _OneChain)(key, kernel, ref, n_steps, device)
+
+
+@torch.no_grad()
+def sweep(
+    key,
+    kernel: SweepKernel,
+    n_particles: int,
+    resampler: ResampleWithESSThreshold,
+    ref: Any = None,
+    ancestor_sampling: bool = False,
+    store_states: bool = True,
+    device=None,
+) -> SweepResult:
+    """Run one particle sweep on ``device`` (None: the GPU): bootstrap SMC,
+    or conditional SMC when ``ref`` (a ``[T, ...]`` trajectory) is given.
+
+    ``kernel``'s tensors must already lie on ``device``.  Resampling is gated
+    at ``ESS ≤ threshold · n``.
+
+    ``key`` a :class:`~advancedps_tpu_torch.rng.KeyBatch` of C keys runs C
+    independent sweeps as one batch (see the module notes): ``ref`` then has
+    a leading chain axis, and so has every field of the result
+    (``ancestors [C, T, N]``, ``states`` leaves ``[C, T, N, ...]``).
+    """
     span = tracing.spans()
     with span("aps.setup"):
-        C = len(keys)
+        n = n_particles
         T = kernel.num_steps
         has_ref = ref is not None
         if ancestor_sampling and not has_ref:
@@ -460,135 +435,107 @@ def _sweep_chains(keys, kernel, n, resampler, ref, ancestor_sampling, store_stat
         device = resolve_device(device)
         gids = torch.arange(n, device=device)
         ref_mask = None
-        ref_dim = None
         if has_ref:
             ref = _tree.as_reference(ref, device)
             ref_mask = gids == (n - 1)
-            ref_dim = 0
+        # With a reference, n − 1 positions are drawn and slot n − 1 keeps the
+        # reference.
         n_resample = n - 1 if has_ref else n
         scheme = _FUSED_SCHEMES.get(resampler.resampler)
-        table, host_words = _key_table(keys, T, device)
-        offsets = table[2, _TABLE_TAGS.index(rngmod.RESAMPLE)].to(torch.int32).view(
-            torch.float32) - 1.0  # [T, C]
+        lay = _layout(key, kernel, ref, T, device)
+        lead = lay.lead
 
-        def ref_at(t):
-            return None if ref is None else tree_map(lambda a: a[:, t], ref)
+        def ix(i):  # index i of the axis after the chain axis (time, or slot)
+            return (slice(None),) * len(lead) + (i,)
 
-        def init(a, b, r0):
-            return kernel.init(rngmod.StepRng(rngmod.KeyBatch(a, b), gids), r0, ref_mask)
-
-        k = _table_keys(table, rngmod.INIT, 0)
-        state, logw = _chain_map("kernel.init", init, (0, 0, ref_dim))(k.k0, k.k1,
-                                                                        ref_at(0))
-
-        snap_fn = _snapshot_fn(kernel, state)
-        do_store = store_states and snap_fn is not None
+        state, logw = lay.init(gids, ref_mask)
+        snapshot, snap0 = lay.snapshots(state, store_states)
         states = None
-        if do_store:
-            snap0 = snap_fn(state)
-            states = tree_map(lambda s: torch.empty((C, T) + tuple(s.shape[1:]),
-                                                    dtype=s.dtype, device=device), snap0)
 
-            def store(t, snap):
-                def put(buf, v):
-                    buf[:, t] = v
-                tree_map(put, states, snap)
-            store(0, snap0)
+        def put(tree, i, vals):  # leaf by leaf, tree[ix(i)] = vals
+            def one(buf, v):
+                buf[ix(i)] = v
+            tree_map(one, tree, vals)
+
+        if snapshot is not None:
+            states = tree_map(lambda s: torch.empty(lead + (T,) + s.shape[len(lead):],
+                                                    dtype=s.dtype, device=device), snap0)
+            put(states, 0, snap0)
 
         iota = torch.arange(n, dtype=torch.int32, device=device)
-        ancestors = torch.empty((C, T, n), dtype=torch.int32, device=device)
-        ancestors[:, 0] = iota
-        ess_all = torch.empty((C, T), dtype=torch.float32, device=device)
-        ess_all[:, 0] = float(n)
-        resampled = torch.zeros((C, T), dtype=torch.bool)
+        ancestors = torch.empty(lead + (T, n), dtype=torch.int32, device=device)
+        ancestors[ix(0)] = iota
+        ess_all = torch.empty(lead + (T,), dtype=torch.float32, device=device)
+        ess_all[ix(0)] = float(n)
+        resampled = [lay.no_fire] * T
 
         ln_n = torch.log(torch.tensor(float(n), dtype=torch.float32, device=device))
         always_resample = float(resampler.threshold) >= 1.0
+        # Log-evidence (Del Moral): each step adds logsumexp(logw_after) −
+        # logsumexp(logw_before).  ``logw_before`` is the previous step's weights
+        # (no resample) or zeros (resample ⇒ log n), so ``pending`` carries the
+        # base to subtract once the next reduction is available, and one
+        # (max, Σe, Σe²) family per step feeds the evidence, the ESS gate and the
+        # extents.
         log_z = ln_n * 0.0
         pending = ln_n
-        tlp = _chain_map("kernel.transition_logprob",
-                         lambda st, r, t: kernel.transition_logprob(t, st, r), (0, 0, None))
 
     for t in range(1, T):
         with span("aps.weights"):
-            m = torch.amax(logw, -1)
-            e = torch.exp(logw - m[:, None])
-            s1 = torch.sum(e, -1)
-            s2 = torch.sum(e * e, -1)
+            m, e, s1, s2 = _reduce_weights(logw)
             lse = m + torch.log(s1)
             log_z = log_z + (lse - pending)
 
             ess = (s1 * s1) / s2
-            ess_all[:, t] = ess
+            ess_all[ix(t)] = ess
         if always_resample:
-            flags, host_flags = None, torch.ones(C, dtype=torch.bool)
+            record, fire, flags = lay.all_fire, True, None
         else:
             with span("aps.gate"):
-                flags = ess <= resampler.threshold * n
-                host_flags = flags.cpu()  # the step's one read of the gate
-                if bool(host_flags.all()):
-                    flags = None  # every chain fires: nothing to keep
-        fire = bool(host_flags.any())
+                record, fire, flags = lay.gate(ess, resampler.threshold * n)
 
         if fire:
             with span("aps.resample"):
+                rs_key = lay.step_key(rngmod.RESAMPLE, t)
                 if has_ref:
+                    # The reference slot's ancestor ([1], or [C, 1]), from the
+                    # state and weights before the move: n − 1 (PG), or drawn
+                    # ∝ w_i·f_t(ref_t | x_i) (PGAS).  A device tensor: no host sync.
                     if ancestor_sampling:
-                        anc_logw = logw + tlp(state, ref_at(t), t)
-                        ak = _table_keys(table, rngmod.ANCESTOR, t).column()
-                        ref_anc = randcat_gumbel(ak, anc_logw, gids)
+                        anc_logw = logw + lay.transition_logprob(t, state)
+                        ref_anc = randcat_gumbel(lay.step_key(rngmod.ANCESTOR, t), anc_logw,
+                                                 gids).unsqueeze(-1)
                     else:
-                        ref_anc = torch.full((C,), n - 1, dtype=torch.int32, device=device)
-                    ref_row = _chain_rows(state, ref_anc)
+                        ref_anc = iota[n - 1:].expand(lead + (1,))
+                    ref_row = lay.rows(state, ref_anc)
                 if scheme is not None:
-                    f = _fused_extents_chains(scheme,
-                                              _table_keys(table, rngmod.RESAMPLE, t),
-                                              offsets[t], logw, m, s1, n_resample)
-                    anc, state_rs = ops.resample_move_f_chains(f, state, n,
-                                                               guard_n=n_resample)
+                    f = _fused_extents(scheme, rs_key, logw, m, s1, n_resample,
+                                       lay.offset(t))
+                    # With a reference, slot n − 1 decodes past the drawn
+                    # population (ancestor M clipped to M − 1; row 0, or row
+                    # M − 1 under move version 0) and is overwritten with the
+                    # reference row in place.
+                    anc, state_rs = getattr(ops, lay.move)(f, state, n, guard_n=n_resample)
                     if has_ref:
-                        anc[:, n - 1] = ref_anc
-
-                        def put_ref(mv, r):
-                            mv[:, n - 1] = r
-                        tree_map(put_ref, state_rs, ref_row)
+                        anc[ix(slice(n - 1, None))] = ref_anc
+                        put(state_rs, slice(n - 1, None), ref_row)
                 else:
-                    if resampler.resampler is resample_residual:
-                        # One draw for all chains, from their keys on the device.
-                        rk = _table_keys(table, rngmod.RESAMPLE, t).column()
-                        anc = resampler.resampler(rk, e / s1[:, None], n_resample)
-                    else:
-                        # A user's resampler takes a Key: once a chain, with its host key.
-                        s = _TABLE_TAGS.index(rngmod.RESAMPLE)
-                        anc = torch.stack([resampler.resampler(
-                            rngmod.Key(int(host_words[0][s, t, c]),
-                                       int(host_words[1][s, t, c])),
-                            e[c] / s1[c], n_resample) for c in range(C)])
+                    anc = lay.resample(resampler.resampler, rs_key, t, e, s1, n_resample)
                     anc = anc.to(torch.int32)
                     if has_ref:
-                        anc = torch.cat([anc, ref_anc[:, None]], 1)
+                        anc = torch.cat([anc, ref_anc], -1)
                     _, state_rs = ops.move_by_ancestors(anc, state)
-                if flags is None:
-                    state = state_rs
-                    ancestors[:, t] = anc
-                    pending = ln_n
-                else:
-                    state = _chain_where(flags, state_rs, state)
-                    ancestors[:, t] = torch.where(flags[:, None], anc, iota)
-                    pending = torch.where(flags, ln_n, lse)
+                state = _chain_where(flags, state_rs, state)
+                ancestors[ix(t)] = _chain_where(flags, anc, iota)
+                pending = _chain_where(flags, ln_n, lse)
         else:
             with span("aps.keep"):
-                ancestors[:, t] = iota
+                ancestors[ix(t)] = iota
                 pending = lse
-        resampled[:, t] = host_flags
-
-        def step(a, b, st, r, t=t):
-            return kernel.step(t, rngmod.StepRng(rngmod.KeyBatch(a, b), gids), st, r, ref_mask)
+        resampled[t] = record
 
         with span("aps.propagate_score"):
-            k = _table_keys(table, rngmod.PROPAGATE, t)
-            state, score = _chain_map("kernel.step", step, (0, 0, 0, ref_dim))(
-                k.k0, k.k1, state, ref_at(t))
+            state, score = lay.step(t, gids, ref_mask, state)
             # After a resample the weights restart at 0, so the new weights are the score.
             if not fire:
                 logw = logw + score
@@ -596,8 +543,8 @@ def _sweep_chains(keys, kernel, n, resampler, ref, ancestor_sampling, store_stat
                 logw = score
             else:
                 logw = torch.where(flags[:, None], score, logw + score)
-            if do_store:
-                store(t, snap_fn(state))
+            if snapshot is not None:
+                put(states, t, snapshot(state))
 
     with span("aps.close"):
         log_z = log_z + (torch.logsumexp(logw, -1) - pending)
@@ -608,7 +555,8 @@ def _sweep_chains(keys, kernel, n, resampler, ref, ancestor_sampling, store_stat
             ancestors=ancestors,
             final_state=state,
             ess=ess_all,
-            resampled=resampled.to(device),
+            # The host's records, [T] or [T, C], as [T] or [C, T] on the device.
+            resampled=torch.tensor(resampled).movedim(0, -1).contiguous().to(device),
         )
 
 
@@ -648,20 +596,15 @@ def reconstruct(states, ancestors: torch.Tensor, index: Optional[int]):
     ``index`` (int or one-element tensor) → ``[T, ...]``.  For chains
     (``ancestors [C, T, N]``, leaves ``[C, T, N, ...]``, ``index [C]``) the
     same with a leading chain axis."""
-    T = ancestors.shape[-2]
-    steps = torch.arange(T, device=ancestors.device)
-    if ancestors.dim() == 3:
-        ch = torch.arange(ancestors.shape[0], device=ancestors.device)
-        if index is None:
-            lin = lineages(ancestors).long()
-            return tree_map(lambda s: s[ch[:, None, None], steps[None, :, None], lin], states)
-        slots = _lineage_slots(ancestors, index)
-        return tree_map(lambda s: s[ch[:, None], steps[None, :], slots], states)
     if index is None:
-        lin = lineages(ancestors).long()
-        return tree_map(lambda s: s[steps[:, None], lin], states)
-    slots = _lineage_slots(ancestors, index)
-    return tree_map(lambda s: s[steps, slots], states)
+        slots = lineages(ancestors).long()
+    else:
+        slots = _lineage_slots(ancestors, index)
+    # An arange over each leading axis (the chains', the steps') against the slots.
+    device = ancestors.device
+    grid = [torch.arange(size, device=device).reshape((-1,) + (1,) * (slots.dim() - i - 1))
+            for i, size in enumerate(ancestors.shape[:-1])]
+    return tree_map(lambda s: s[(*grid, slots)], states)
 
 
 @torch.no_grad()
@@ -682,67 +625,23 @@ def replay_trajectory(key, kernel: SweepKernel, ancestors: torch.Tensor, index, 
     one-particle replays run as one batch under ``vmap``, ``[C, 1]`` a step;
     returns ``[C, T, ...]``.
     """
-    if isinstance(key, rngmod.KeyBatch):
-        return _replay_chains(key, kernel, ancestors, index, ref)
-    T, n = ancestors.shape
-    has_ref = ref is not None
+    T, n = ancestors.shape[-2:]
     slots = _lineage_slots(ancestors, index)
-    if has_ref:
+    if ref is not None:
         ref = _tree.as_reference(ref, ancestors.device)
+    lay = _layout(key, kernel, ref, T, ancestors.device)
 
-    def mask_of(g):
-        return (g == n - 1) if has_ref else None
+    def ids(t):  # step t's particle ids ([1], or [C, 1]) and reference mask
+        g = slots[..., t:t + 1]
+        return g, (g == n - 1) if ref is not None else None
 
-    g = slots[0:1]
-    rng0 = rngmod.StepRng(rngmod.step_key(key, rngmod.INIT, 0), g)
-    state, _ = kernel.init(rng0, tree_at(ref, 0), mask_of(g))
-    snap = kernel.snapshot(state)
-    if snap is None:
+    state, _ = lay.init(*ids(0))
+    snapshot, snap0 = lay.snapshots(state, True)
+    if snapshot is None:
         raise ValueError("replay requires a kernel with per-step snapshots")
-    snaps = [snap]
+    snaps = [snap0]
     for t in range(1, T):
-        g = slots[t:t + 1]
-        rng_t = propagate_rng(key, t, g)
-        state, _ = kernel.step(t, rng_t, state, tree_at(ref, t), mask_of(g))
-        snaps.append(kernel.snapshot(state))
-    return tree_map(lambda s: s[:, 0], tree_stack(snaps))
-
-
-def _replay_chains(keys, kernel, ancestors, index, ref):
-    """:func:`replay_trajectory` for a chain batch."""
-    C, T, n = ancestors.shape
-    device = ancestors.device
-    has_ref = ref is not None
-    slots = _lineage_slots(ancestors, index)  # [C, T]
-    ref_dim = None
-    if has_ref:
-        ref = _tree.as_reference(ref, device)
-        ref_dim = 0
-    table, _ = _key_table(keys, T, device)
-
-    def ref_at(t):
-        return None if ref is None else tree_map(lambda a: a[:, t], ref)
-
-    def mask_of(g):
-        return (g == n - 1) if has_ref else None
-
-    def init(a, b, g, r0):
-        return kernel.init(rngmod.StepRng(rngmod.KeyBatch(a, b), g), r0, mask_of(g))[0]
-
-    k = _table_keys(table, rngmod.INIT, 0)
-    state = _chain_map("kernel.init", init, (0, 0, 0, ref_dim))(
-        k.k0, k.k1, slots[:, 0:1], ref_at(0))
-    snap_fn = _snapshot_fn(kernel, state)
-    if snap_fn is None:
-        raise ValueError("replay requires a kernel with per-step snapshots")
-    snaps = [snap_fn(state)]
-    for t in range(1, T):
-        def step(a, b, g, st, r, t=t):
-            return kernel.step(t, rngmod.StepRng(rngmod.KeyBatch(a, b), g), st, r,
-                               mask_of(g))[0]
-
-        k = _table_keys(table, rngmod.PROPAGATE, t)
-        state = _chain_map("kernel.step", step, (0, 0, 0, 0, ref_dim))(
-            k.k0, k.k1, slots[:, t:t + 1], state, ref_at(t))
-        snaps.append(snap_fn(state))
-    return tree_map(lambda *xs: torch.stack(xs, dim=1)[:, :, 0], *snaps)
+        state, _ = lay.step(t, *ids(t), state)
+        snaps.append(snapshot(state))
+    k = len(lay.lead)
+    return tree_map(lambda s: s.select(k + 1, 0), tree_stack(snaps, k))

@@ -29,8 +29,7 @@ import math
 
 import torch
 
-from . import _build
-from .resample import _ptr, _raise_on, _stream
+from .resample import _launch, _ptr
 from .threefry import _batched
 
 __all__ = ["meancov", "scan_chunk", "MAX_JUMPS", "KERNEL_WRAPPERS", "reset_launch_counts"]
@@ -86,15 +85,10 @@ def _meancov(key, step, dt, theta, c, beta, mu_w, sigma_w, tol, jitter, jumps):
     if rows >= 1 << 31:
         raise ValueError(f"{rows} path keys: the kernel takes fewer than 2**31")
     flat = key.reshape(rows, 2)
-    lib = _build.library()
-    with torch.cuda.device(key.device):
-        rc = lib.aps_levy_meancov(
-            rows, _ptr(flat), flat.stride(0), flat.stride(1),
-            *(_ptr(p) for p in (dt, theta, c, beta, mu_w, sigma_w)),
+    _launch("aps_levy_meancov", meancov, key.device, rows, _ptr(flat), flat.stride(0),
+            flat.stride(1), *(_ptr(p) for p in (dt, theta, c, beta, mu_w, sigma_w)),
             step, jumps, ctypes.c_float(tol), ctypes.c_float(jitter),
-            scan_chunk(rows, jumps), _ptr(mu), _ptr(cov), _stream(key.device))
-    _raise_on(rc, "levy_meancov")
-    meancov.launches += 1
+            scan_chunk(rows, jumps), _ptr(mu), _ptr(cov))
     return mu, cov
 
 

@@ -72,7 +72,7 @@ from typing import Optional
 import torch
 
 from . import _build
-from .._tree import is_tree, tree_flatten, tree_map, tree_unflatten
+from .._tree import is_tree, tree_flatten, tree_unflatten
 
 __all__ = [
     "extents_from_logw",
@@ -424,6 +424,17 @@ def _raise_on(rc: int, what: str):
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
 
 
+def _launch(entry: str, wrapper, device: torch.device, *args):
+    """One launch of the C entry ``entry`` with ``args`` and the current
+    stream of ``device``, under that device: its error raised in the name of
+    ``wrapper``, the launch counted on ``wrapper.launches``."""
+    lib = _build.library()
+    with torch.cuda.device(device):
+        rc = getattr(lib, entry)(*args, _stream(device))
+    _raise_on(rc, wrapper.__name__)
+    wrapper.launches += 1
+
+
 #: The scan scratch of B1, B6 and B5 by (device index, stream): [tiles a
 #: chain it serves, chains it serves, int64 words, launches so far].  Zero
 #: when allocated; from then on only the scans' launches on that stream write
@@ -443,7 +454,7 @@ def _scan_scratch(device: torch.device, length: int, chains: int = 1):
     elements on the current stream of ``device``: the scratch (a part of
     ``cap`` tiles for each chain) is grown, and zeroed anew, when a row needs
     more tiles or the launch more chains than it serves, and ``epoch`` is one
-    more than that of the launch before.  Call with ``device`` current."""
+    more than that of the launch before."""
     lib = _build.library()
     ntiles = -(-length // lib.aps_prefix_tile_size())
     key = (device.index, torch.cuda.current_stream(device).cuda_stream)
@@ -494,15 +505,10 @@ def extents_from_logw(logw, m, s1, u: float, n: int) -> torch.Tensor:
     f = torch.empty(logw.shape, dtype=torch.int32, device=logw.device)
     if logw.numel() == 0:
         return f
-    lib = _build.library()
-    with torch.cuda.device(logw.device):
-        scratch, cap, epoch = _scan_scratch(logw.device, logw.numel())
-        rc = lib.aps_extents_from_logw(
-            _ptr(logw), logw.numel(), _ptr(m), _ptr(s1), float(u), int(n),
-            _ptr(scratch), cap, epoch, _ptr(f), _stream(logw.device),
-        )
-    _raise_on(rc, "extents_from_logw")
-    extents_from_logw.launches += 1
+    scratch, cap, epoch = _scan_scratch(logw.device, logw.numel())
+    _launch("aps_extents_from_logw", extents_from_logw, logw.device, _ptr(logw),
+            logw.numel(), _ptr(m), _ptr(s1), float(u), int(n), _ptr(scratch), cap, epoch,
+            _ptr(f))
     return f
 
 
@@ -529,15 +535,10 @@ def extents_from_logw_chains(logw, m, s1, u, n: int) -> torch.Tensor:
     if logw.numel() == 0:
         return f
     c, length = logw.shape
-    lib = _build.library()
-    with torch.cuda.device(logw.device):
-        scratch, cap, epoch = _scan_scratch(logw.device, length, c)
-        rc = lib.aps_extents_from_logw_chains(
-            _ptr(logw), c, length, _ptr(m), _ptr(s1), _ptr(u), int(n),
-            _ptr(scratch), cap, epoch, _ptr(f), _stream(logw.device),
-        )
-    _raise_on(rc, "extents_from_logw_chains")
-    extents_from_logw_chains.launches += 1
+    scratch, cap, epoch = _scan_scratch(logw.device, length, c)
+    _launch("aps_extents_from_logw_chains", extents_from_logw_chains, logw.device,
+            _ptr(logw), c, length, _ptr(m), _ptr(s1), _ptr(u), int(n), _ptr(scratch), cap,
+            epoch, _ptr(f))
     return f
 
 
@@ -562,13 +563,8 @@ def decode_ancestors(f, n_out: int, guard: Optional[int] = None, start: int = 0)
     anc = torch.empty(n_out, dtype=torch.int32, device=f.device)
     if n_out == 0:
         return anc
-    lib = _build.library()
-    with torch.cuda.device(f.device):
-        rc = lib.aps_decode_ancestors(
-            _ptr(f), f.numel(), g, int(start), int(n_out), _ptr(anc), _stream(f.device),
-        )
-    _raise_on(rc, "decode_ancestors")
-    decode_ancestors.launches += 1
+    _launch("aps_decode_ancestors", decode_ancestors, f.device, _ptr(f), f.numel(), g,
+            int(start), int(n_out), _ptr(anc))
     return anc
 
 
@@ -591,18 +587,14 @@ def decode_ancestors_dense(f, n_out: int, guard: Optional[int] = None) -> torch.
     anc = torch.empty(n_out, dtype=torch.int32, device=f.device)
     if n_out == 0:
         return anc
-    lib = _build.library()
-    with torch.cuda.device(f.device):
-        marks = _dense_marks(f.device, n_out)
-        scratch, cap, epoch = _scan_scratch(f.device, n_out)
-        rc = lib.aps_decode_ancestors_dense(
-            _ptr(f), f.numel(), g, int(n_out), _ptr(marks), _ptr(scratch), cap, epoch,
-            _ptr(anc), _stream(f.device),
-        )
-        if rc != 0:  # the marks may be left set: the next call takes new ones
-            _DENSE_MARKS.clear()
-    _raise_on(rc, "decode_ancestors_dense")
-    decode_ancestors_dense.launches += 1
+    marks = _dense_marks(f.device, n_out)
+    scratch, cap, epoch = _scan_scratch(f.device, n_out)
+    try:
+        _launch("aps_decode_ancestors_dense", decode_ancestors_dense, f.device, _ptr(f),
+                f.numel(), g, int(n_out), _ptr(marks), _ptr(scratch), cap, epoch, _ptr(anc))
+    except RuntimeError:
+        _DENSE_MARKS.clear()  # the marks may be left set: the next call takes new ones
+        raise
     return anc
 
 
@@ -636,14 +628,8 @@ def move_rows(anc, v):
     if n_out == 0:
         return anc_clipped, out
     d = 1 if v.dim() == 1 else v.shape[1]
-    lib = _build.library()
-    with torch.cuda.device(v.device):
-        rc = lib.aps_move_rows(
-            _ptr(anc), n_out, v.shape[0], _ptr(v), d, _ptr(out), _ptr(anc_clipped),
-            _stream(v.device),
-        )
-    _raise_on(rc, "move_rows")
-    move_rows.launches += 1
+    _launch("aps_move_rows", move_rows, v.device, _ptr(anc), n_out, v.shape[0], _ptr(v), d,
+            _ptr(out), _ptr(anc_clipped))
     return anc_clipped, out
 
 
@@ -668,14 +654,8 @@ def decode_move(f, v, n_out: int, guard: Optional[int] = None, start: int = 0):
     anc_clipped = torch.empty(n_out, dtype=torch.int32, device=v.device)
     if n_out == 0:
         return anc_clipped, out
-    lib = _build.library()
-    with torch.cuda.device(v.device):
-        rc = lib.aps_decode_move(
-            _ptr(f), f.numel(), g, int(start), int(n_out), _ptr(v), d, _ptr(out),
-            _ptr(anc_clipped), _stream(v.device),
-        )
-    _raise_on(rc, "decode_move")
-    decode_move.launches += 1
+    _launch("aps_decode_move", decode_move, v.device, _ptr(f), f.numel(), g, int(start),
+            int(n_out), _ptr(v), d, _ptr(out), _ptr(anc_clipped))
     return anc_clipped, out
 
 
@@ -704,21 +684,23 @@ def decode_move_leaves(f, leaves, n_out: int, guard: Optional[int] = None, start
     anc_clipped = torch.empty(n_out, dtype=torch.int32, device=f.device)
     if n_out == 0:
         return anc_clipped, outs
-    lib = _build.library()
-    with torch.cuda.device(f.device):
-        for lo in range(0, len(leaves), MAX_LEAVES):
-            part = range(lo, min(lo + MAX_LEAVES, len(leaves)))
-            vs = (ctypes.c_void_p * len(part))(*(leaves[i].data_ptr() for i in part))
-            os_ = (ctypes.c_void_p * len(part))(*(outs[i].data_ptr() for i in part))
-            ds = (ctypes.c_int64 * len(part))(*(widths[i] for i in part))
-            rc = lib.aps_decode_move_leaves(
-                _ptr(f), f.numel(), g, int(start), int(n_out), len(part),
-                ctypes.cast(vs, ctypes.c_void_p), ctypes.cast(os_, ctypes.c_void_p),
-                ctypes.cast(ds, ctypes.c_void_p), _ptr(anc_clipped), _stream(f.device),
-            )
-            _raise_on(rc, "decode_move_leaves")
-            decode_move_leaves.launches += 1
+    for part in _leaf_parts(leaves, outs, widths):
+        _launch("aps_decode_move_leaves", decode_move_leaves, f.device, _ptr(f), f.numel(),
+                g, int(start), int(n_out), *part, _ptr(anc_clipped))
     return anc_clipped, outs
+
+
+def _leaf_parts(leaves, outs, widths):
+    """The arguments of B4's launches over leaves, one for each
+    :data:`MAX_LEAVES` of them: their count, and the arrays of their rows'
+    pointers, their outputs' pointers and their widths."""
+    for lo in range(0, len(leaves), MAX_LEAVES):
+        part = range(lo, min(lo + MAX_LEAVES, len(leaves)))
+        vs = (ctypes.c_void_p * len(part))(*(leaves[i].data_ptr() for i in part))
+        os_ = (ctypes.c_void_p * len(part))(*(outs[i].data_ptr() for i in part))
+        ds = (ctypes.c_int64 * len(part))(*(widths[i] for i in part))
+        yield (len(part), ctypes.cast(vs, ctypes.c_void_p),
+               ctypes.cast(os_, ctypes.c_void_p), ctypes.cast(ds, ctypes.c_void_p))
 
 
 def _check_chain_rows(f, leaves):
@@ -758,14 +740,8 @@ def decode_move_chains(f, v, n_out: int, guard: Optional[int] = None):
     anc_clipped = torch.empty((c, n_out), dtype=torch.int32, device=v.device)
     if n_out == 0:
         return anc_clipped, out
-    lib = _build.library()
-    with torch.cuda.device(v.device):
-        rc = lib.aps_decode_move_chains(
-            _ptr(f), c, m, g, 0, int(n_out), _ptr(v), d, _ptr(out), _ptr(anc_clipped),
-            _stream(v.device),
-        )
-    _raise_on(rc, "decode_move_chains")
-    decode_move_chains.launches += 1
+    _launch("aps_decode_move_chains", decode_move_chains, v.device, _ptr(f), c, m, g, 0,
+            int(n_out), _ptr(v), d, _ptr(out), _ptr(anc_clipped))
     return anc_clipped, out
 
 
@@ -788,20 +764,9 @@ def decode_move_leaves_chains(f, leaves, n_out: int, guard: Optional[int] = None
     anc_clipped = torch.empty((c, n_out), dtype=torch.int32, device=f.device)
     if n_out == 0:
         return anc_clipped, outs
-    lib = _build.library()
-    with torch.cuda.device(f.device):
-        for lo in range(0, len(leaves), MAX_LEAVES):
-            part = range(lo, min(lo + MAX_LEAVES, len(leaves)))
-            vs = (ctypes.c_void_p * len(part))(*(leaves[i].data_ptr() for i in part))
-            os_ = (ctypes.c_void_p * len(part))(*(outs[i].data_ptr() for i in part))
-            ds = (ctypes.c_int64 * len(part))(*(widths[i] for i in part))
-            rc = lib.aps_decode_move_leaves_chains(
-                _ptr(f), c, m, g, 0, int(n_out), len(part),
-                ctypes.cast(vs, ctypes.c_void_p), ctypes.cast(os_, ctypes.c_void_p),
-                ctypes.cast(ds, ctypes.c_void_p), _ptr(anc_clipped), _stream(f.device),
-            )
-            _raise_on(rc, "decode_move_leaves_chains")
-            decode_move_leaves_chains.launches += 1
+    for part in _leaf_parts(leaves, outs, widths):
+        _launch("aps_decode_move_leaves_chains", decode_move_leaves_chains, f.device,
+                _ptr(f), c, m, g, 0, int(n_out), *part, _ptr(anc_clipped))
     return anc_clipped, outs
 
 
@@ -818,12 +783,8 @@ def decode_ancestors_chains(f, n_out: int, guard: Optional[int] = None) -> torch
     anc = torch.empty((c, n_out), dtype=torch.int32, device=f.device)
     if n_out == 0:
         return anc
-    lib = _build.library()
-    with torch.cuda.device(f.device):
-        rc = lib.aps_decode_ancestors_chains(_ptr(f), c, m, g, 0, int(n_out), _ptr(anc),
-                                             _stream(f.device))
-    _raise_on(rc, "decode_ancestors_chains")
-    decode_ancestors_chains.launches += 1
+    _launch("aps_decode_ancestors_chains", decode_ancestors_chains, f.device, _ptr(f), c, m,
+            g, 0, int(n_out), _ptr(anc))
     return anc
 
 
@@ -844,18 +805,15 @@ def decode_ancestors_dense_chains(f, n_out: int, guard: Optional[int] = None) ->
     if n_out == 0:
         return anc
     ldm = -(-n_out // 4) * 4  # rows of marks 16-byte aligned
-    lib = _build.library()
-    with torch.cuda.device(f.device):
-        marks = _dense_marks(f.device, c * ldm)
-        scratch, cap, epoch = _scan_scratch(f.device, n_out, c)
-        rc = lib.aps_decode_ancestors_dense_chains(
-            _ptr(f), c, m, g, int(n_out), _ptr(marks), ldm, _ptr(scratch), cap, epoch,
-            _ptr(anc), _stream(f.device),
-        )
-        if rc != 0:  # the marks may be left set: the next call takes new ones
-            _DENSE_MARKS.clear()
-    _raise_on(rc, "decode_ancestors_dense_chains")
-    decode_ancestors_dense_chains.launches += 1
+    marks = _dense_marks(f.device, c * ldm)
+    scratch, cap, epoch = _scan_scratch(f.device, n_out, c)
+    try:
+        _launch("aps_decode_ancestors_dense_chains", decode_ancestors_dense_chains,
+                f.device, _ptr(f), c, m, g, int(n_out), _ptr(marks), ldm, _ptr(scratch),
+                cap, epoch, _ptr(anc))
+    except RuntimeError:
+        _DENSE_MARKS.clear()  # the marks may be left set: the next call takes new ones
+        raise
     return anc
 
 
@@ -881,12 +839,8 @@ def move_rows_chains(anc, v):
     anc_clipped = torch.empty_like(anc)
     if n_out == 0:
         return anc_clipped, out
-    lib = _build.library()
-    with torch.cuda.device(v.device):
-        rc = lib.aps_move_rows_chains(_ptr(anc), c, n_out, m, _ptr(v), d, _ptr(out),
-                                      _ptr(anc_clipped), _stream(v.device))
-    _raise_on(rc, "move_rows_chains")
-    move_rows_chains.launches += 1
+    _launch("aps_move_rows_chains", move_rows_chains, v.device, _ptr(anc), c, n_out, m,
+            _ptr(v), d, _ptr(out), _ptr(anc_clipped))
     return anc_clipped, out
 
 
@@ -899,16 +853,10 @@ def _scaled_prefix(wrapper, x, m, scale, use_exp: bool) -> torch.Tensor:
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    lib = _build.library()
-    with torch.cuda.device(x.device):
-        scratch, cap, epoch = _scan_scratch(x.device, x.numel())
-        rc = lib.aps_scaled_prefix(
-            _ptr(x), x.numel(), int(use_exp), _ptr(m) if use_exp else None,
-            _ptr(scale) if scale is not None else None,
-            _ptr(scratch), cap, epoch, _ptr(out), _stream(x.device),
-        )
-    _raise_on(rc, wrapper.__name__)
-    wrapper.launches += 1
+    scratch, cap, epoch = _scan_scratch(x.device, x.numel())
+    _launch("aps_scaled_prefix", wrapper, x.device, _ptr(x), x.numel(), int(use_exp),
+            _ptr(m) if use_exp else None, _ptr(scale) if scale is not None else None,
+            _ptr(scratch), cap, epoch, _ptr(out))
     return out
 
 
@@ -949,16 +897,10 @@ def _scaled_prefix_chains(wrapper, x, m, scale, use_exp: bool) -> torch.Tensor:
     if x.numel() == 0:
         return out
     c, length = x.shape
-    lib = _build.library()
-    with torch.cuda.device(x.device):
-        scratch, cap, epoch = _scan_scratch(x.device, length, c)
-        rc = lib.aps_scaled_prefix_chains(
-            _ptr(x), c, length, int(use_exp), _ptr(m) if use_exp else None,
-            _ptr(scale) if scale is not None else None,
-            _ptr(scratch), cap, epoch, _ptr(out), _stream(x.device),
-        )
-    _raise_on(rc, wrapper.__name__)
-    wrapper.launches += 1
+    scratch, cap, epoch = _scan_scratch(x.device, length, c)
+    _launch("aps_scaled_prefix_chains", wrapper, x.device, _ptr(x), c, length, int(use_exp),
+            _ptr(m) if use_exp else None, _ptr(scale) if scale is not None else None,
+            _ptr(scratch), cap, epoch, _ptr(out))
     return out
 
 
@@ -989,13 +931,7 @@ def _count_le(wrapper, entry: str, s, t) -> torch.Tensor:
     out = torch.empty(t.shape, dtype=torch.int32, device=t.device)
     if t.numel() == 0:
         return out
-    lib = _build.library()
-    with torch.cuda.device(t.device):
-        rc = getattr(lib, entry)(
-            _ptr(s), s.numel(), _ptr(t), t.numel(), _ptr(out), _stream(t.device)
-        )
-    _raise_on(rc, wrapper.__name__)
-    wrapper.launches += 1
+    _launch(entry, wrapper, t.device, _ptr(s), s.numel(), _ptr(t), t.numel(), _ptr(out))
     return out
 
 
@@ -1043,12 +979,8 @@ def _count_le_chains(wrapper, entry: str, s, t) -> torch.Tensor:
     out = torch.empty(t.shape, dtype=torch.int32, device=t.device)
     if t.numel() == 0:
         return out
-    lib = _build.library()
-    with torch.cuda.device(t.device):
-        rc = getattr(lib, entry)(_ptr(s), c, ns, s.stride(0), _ptr(t), t.shape[1], _ptr(out),
-                                 _stream(t.device))
-    _raise_on(rc, wrapper.__name__)
-    wrapper.launches += 1
+    _launch(entry, wrapper, t.device, _ptr(s), c, ns, s.stride(0), _ptr(t), t.shape[1],
+            _ptr(out))
     return out
 
 
@@ -1134,29 +1066,38 @@ def move_by_ancestors(anc, state):
 
 
 def _move_tree(f, state, n_out: int, guard: Optional[int], start: int, ver: int):
-    """Decode once and move every leaf of the tree ``state``: the leaves a
-    kernel moves by the move of version ``ver`` (B4 over leaves for 1, B3 a
-    leaf for 6), the others gathered by the clipped ancestors; version 0
-    (whole population only) gathers every leaf after B5."""
+    """Decode once and move every leaf of the tree ``state``, for one chain
+    (``f [M]``, leaves ``[M, ...]``) or C (``f [C, M]``, leaves ``[C, M,
+    ...]``, the kernels with the chain axis, ``start`` 0): the leaves a kernel
+    moves by the move of version ``ver`` (B4 over leaves for 1, B3 a leaf for
+    6), the others gathered by the clipped ancestors; version 0 (whole
+    population only) gathers every leaf after B5."""
+    lead = f.dim()
+    chains = lead == 2
+    window = {} if chains else {"start": start}
     leaves, structure = tree_flatten(state)
-    rows = [_kernel_rows(a, 1) for a in leaves]
+    rows = [_kernel_rows(a, lead) for a in leaves]
     words = [i for i, r in enumerate(rows) if r is not None]
     if ver == 6 or ver == 1 and not words:
-        return move_by_ancestors(decode_ancestors(f, n_out, guard, start), state)
+        decode = decode_ancestors_chains if chains else decode_ancestors
+        return move_by_ancestors(decode(f, n_out, guard, **window), state)
     moved = [None] * len(leaves)
     if ver == 0:
-        anc = torch.clamp(decode_ancestors_dense(f, n_out, guard=guard), max=f.numel() - 1)
+        dense = decode_ancestors_dense_chains if chains else decode_ancestors_dense
+        anc = torch.clamp(dense(f, n_out, guard), max=f.shape[-1] - 1)
     elif len(words) == 1:
-        anc, moved[words[0]] = decode_move(f, rows[words[0]], n_out, guard, start)
+        move = decode_move_chains if chains else decode_move
+        anc, moved[words[0]] = move(f, rows[words[0]], n_out, guard, **window)
     else:
-        anc, mvs = decode_move_leaves(f, [rows[i] for i in words], n_out, guard, start)
+        move = decode_move_leaves_chains if chains else decode_move_leaves
+        anc, mvs = move(f, [rows[i] for i in words], n_out, guard, **window)
         for i, mv in zip(words, mvs):
             moved[i] = mv
     for i, a in enumerate(leaves):
         if moved[i] is None:
-            moved[i] = a.index_select(0, anc.long())
+            moved[i] = _rows_of(a, anc) if chains else a.index_select(0, anc.long())
         else:
-            moved[i] = moved[i].reshape((n_out,) + tuple(a.shape[1:]))
+            moved[i] = moved[i].reshape(tuple(anc.shape) + tuple(a.shape[lead:]))
     return anc, tree_unflatten(structure, moved)
 
 
@@ -1200,28 +1141,7 @@ def resample_move_f_chains(f, state, n: int, version: Optional[int] = None,
     axis, 6 B2 and then B3 a 32-bit leaf (:func:`move_by_ancestors`), 0 B5 and
     then a gather; a state with no leaf a kernel moves is decoded by B2 and
     gathered under 1 and 6."""
-    ver = _resolve_version(version)
-    leaves, structure = tree_flatten(state)
-    c, m = f.shape
-    rows = [_kernel_rows(a, 2) for a in leaves]
-    words = [i for i, r in enumerate(rows) if r is not None]
-    if ver == 6 or ver == 1 and not words:
-        return move_by_ancestors(decode_ancestors_chains(f, n, guard_n), state)
-    moved = [None] * len(leaves)
-    if ver == 0:
-        anc = torch.clamp(decode_ancestors_dense_chains(f, n, guard_n), max=m - 1)
-    elif len(words) == 1:
-        anc, moved[words[0]] = decode_move_chains(f, rows[words[0]], n, guard_n)
-    else:
-        anc, mvs = decode_move_leaves_chains(f, [rows[i] for i in words], n, guard_n)
-        for i, mv in zip(words, mvs):
-            moved[i] = mv
-    for i, a in enumerate(leaves):
-        if moved[i] is None:
-            moved[i] = _rows_of(a, anc)
-        else:
-            moved[i] = moved[i].reshape((c, n) + tuple(a.shape[2:]))
-    return anc, tree_unflatten(structure, moved)
+    return _move_tree(f, state, n, guard_n, 0, _resolve_version(version))
 
 
 def _systematic_extents(u, weights, n: int) -> torch.Tensor:

@@ -29,7 +29,7 @@ apart from the resampling kernels' tuple, whose counts are per firing.
 Every wrapper is safe under :func:`torch.func.vmap`: a call with a batched
 operand goes through an ``autograd.Function`` whose batching rule moves the
 mapped dimension of each batched operand to the front of the output, so a
-``vmap`` over C chains' key words (``engine._sweep_chains``) or over particle
+``vmap`` over C chains' key words (``engine._ChainBatch``) or over particle
 keys (``random.py``'s samplers) is one launch for the whole batch, as JAX's
 ``vmap`` of the cipher is one fused kernel.  A call with none calls the entry
 directly, without the Function's dispatch.
@@ -42,8 +42,7 @@ import math
 
 import torch
 
-from . import _build
-from .resample import _on_cpu, _ptr, _raise_on, _stream
+from .resample import _launch, _on_cpu, _ptr
 
 __all__ = [
     "threefry2x32",
@@ -221,14 +220,6 @@ def _batched(*operands) -> bool:
     one), which only the Functions' batching rules can read."""
     return any(isinstance(x, torch.Tensor) and torch._C._functorch.is_functorch_wrapped_tensor(x)
                for x in operands)
-
-
-def _launch(entry: str, wrapper, device, n: int, geom, *args):
-    lib = _build.library()
-    with torch.cuda.device(device):
-        rc = getattr(lib, entry)(n, geom, *args, _stream(device))
-    _raise_on(rc, entry[4:])
-    wrapper.launches += 1
 
 
 def _front(in_dims, args):

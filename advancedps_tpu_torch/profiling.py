@@ -83,7 +83,8 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 from . import _tree, bench, models, rng, tracing
 from ._device import resolve_device
-from .engine import SweepKernel, propagate_rng, replay_trajectory, sweep as run_sweep
+from .engine import SweepKernel, _reduce_weights, propagate_rng, replay_trajectory
+from .engine import sweep as run_sweep
 from .inference import step_pg
 from .ops import resample as ops
 from .ops import threefry
@@ -345,13 +346,11 @@ def _check_faithful(what: str, ratio: float):
 
 
 def _weight_reductions(lw, steps: int):
-    """``profile_sweep.py``'s reduction loop: the sweep's (max, Σe, Σe²) a step."""
+    """``profile_sweep.py``'s reduction loop: the sweep's (max, Σe, Σe²) a step,
+    through the engine's own reduction, on weights that drift a little a step."""
     z = torch.zeros((), dtype=lw.dtype, device=lw.device)
     for t in range(1, steps):
-        m = torch.max(lw)
-        e = torch.exp(lw - m)
-        s1 = torch.sum(e)
-        s2 = torch.sum(e * e)
+        m, _, s1, s2 = _reduce_weights(lw)
         lw = lw * 0.9999 + 1e-7 * t
         z = z + m + torch.log(s1) + 1e-30 * s2
     return z

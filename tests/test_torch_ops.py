@@ -10,6 +10,8 @@ CPU tensors the port's wrappers run the plain versions; the CUDA kernels are
 compared with them on the card by ``chip_smoke.py``.
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 
@@ -248,6 +250,53 @@ def test_cpu_path_counts_no_launches():
     ops.count_le_sorted_chains(sc[:, :64], torch.ones(2, 64))
     assert len(ops.KERNEL_WRAPPERS) == 20
     assert [w.launches for w in ops.KERNEL_WRAPPERS] == [0] * 20
+
+
+class _StandInLibrary:
+    """The kernels' library as the launch helper sees it: every entry records
+    its arguments and returns ``rc``."""
+
+    def __init__(self, rc):
+        self.rc, self.calls = rc, []
+
+    def aps_error_string(self, rc):
+        return b"stand-in error"
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.calls.append(name)
+            return self.rc
+        return entry
+
+
+@pytest.mark.parametrize("rc", [0, 700])
+def test_a_launch_is_counted_and_a_failed_one_raises_after_the_marks_are_dropped(
+        monkeypatch, rc):
+    """B5's wrapper down the kernel's route, the library and the device
+    replaced: a launch is counted once on its wrapper; a failed one raises in
+    the wrapper's name, counts nothing and leaves no marks to be reused."""
+    lib = _StandInLibrary(rc)
+    monkeypatch.setattr(ops._build, "library", lambda: lib)
+    monkeypatch.setattr(ops.torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(ops, "_stream", lambda device: None)
+    monkeypatch.setattr(ops, "_on_cpu", lambda *tensors: False)
+    monkeypatch.setattr(ops, "_scan_scratch", lambda device, length, chains=1: (
+        torch.zeros(1, dtype=torch.int64), 1, 1))
+    monkeypatch.setattr(ops, "_DENSE_MARKS", {"stream": torch.zeros(8, dtype=torch.int32)})
+    monkeypatch.setattr(ops, "_dense_marks",
+                        lambda device, words: ops._DENSE_MARKS["stream"])
+    ops.reset_launch_counts()
+    f = torch.zeros(8, dtype=torch.int32)
+    if rc == 0:
+        ops.decode_ancestors_dense(f, 8)
+        assert ops.decode_ancestors_dense.launches == 1 and "stream" in ops._DENSE_MARKS
+    else:
+        want = r"^decode_ancestors_dense: CUDA error 700 \(stand-in error\)$"
+        with pytest.raises(RuntimeError, match=want):
+            ops.decode_ancestors_dense(f, 8)
+        assert ops.decode_ancestors_dense.launches == 0 and not ops._DENSE_MARKS
+    assert lib.calls == ["aps_decode_ancestors_dense"]
+    ops.reset_launch_counts()
 
 
 # --- B6: the scaled prefix ----------------------------------------------------
